@@ -1,0 +1,25 @@
+"""Core library: the paper's engine and its parts (the ported slice)."""
+from .aggregators import (  # noqa: F401
+    Aggregator,
+    bucketing,
+    coordinate_median,
+    make_aggregator,
+    mean,
+    trimmed_mean,
+)
+from .attacks import ATTACKS, Attack, AttackContext, make_attack  # noqa: F401
+from .clipping import (  # noqa: F401
+    clip,
+    clip_tree,
+    marina_radius,
+    theorem41_alpha,
+    theorem42_alpha,
+)
+from .compressors import Compressor, make_compressor  # noqa: F401
+from .marina_pp import (  # noqa: F401
+    ByzVRMarinaPP,
+    MarinaPPConfig,
+    MarinaPPState,
+    MarinaPPTape,
+)
+from .problems import FedProblem, logistic_problem, problem_from_numpy  # noqa: F401

@@ -1,0 +1,91 @@
+"""Plain PyTorch oracles of the kernels, written from the definitions
+(sort, gather, pad) and independent of the kernels' own plain versions.
+The tests sweep both against these and against ``repro.kernels.ref``."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+_BIG = 3.4e37
+
+
+def _mask_or_all(xs, mask):
+    if mask is None:
+        return torch.ones(xs.shape[0], dtype=torch.bool, device=xs.device)
+    return mask.bool()
+
+
+def coordinate_median_ref(xs, mask=None):
+    """xs: (n, d) -> (d,) coordinate-wise median over rows with mask[i]."""
+    mask = _mask_or_all(xs, mask)
+    vals = torch.where(mask[:, None], xs.to(F32), _BIG)
+    s = torch.sort(vals, dim=0).values
+    cnt = int(mask.sum())
+    lo = s[(cnt - 1) // 2]  # cnt = 0 reads the last row, as jnp.take does
+    hi = s[cnt // 2]
+    return (0.5 * (lo + hi)).to(xs.dtype)
+
+
+def trimmed_mean_ref(xs, mask=None, trim_ratio=0.1):
+    mask = _mask_or_all(xs, mask)
+    n = xs.shape[0]
+    vals = torch.where(mask[:, None], xs.to(F32), _BIG)
+    s = torch.sort(vals, dim=0).values
+    cnt = torch.tensor(int(mask.sum()))
+    t = torch.minimum(torch.ceil(torch.tensor(trim_ratio, dtype=F32) * cnt)
+                      .to(torch.int64), torch.div(cnt - 1, 2,
+                                                  rounding_mode="floor"))
+    idx = torch.arange(n)[:, None].to(xs.device)
+    keep = (idx >= t) & (idx < cnt - t)
+    denom = torch.clamp(cnt - 2 * t, min=1).to(F32)
+    return (torch.where(keep, s, 0.0).sum(dim=0) / denom).to(xs.dtype)
+
+
+def _clip_rows_ref(xs, radius, mask):
+    """Shared oracle front half: per-row clip -> (clipped, norms)."""
+    x32 = xs.to(F32)
+    norms = torch.sqrt((x32 * x32).sum(dim=1))
+    factors = torch.clamp(radius / torch.clamp(norms, min=1e-30), max=1.0)
+    return (x32 * factors[:, None]).to(xs.dtype), norms
+
+
+def _bucket_means_ref(vals, mask, bucket_idx, s):
+    """Explicit-order mask-weighted bucket means (empty buckets masked
+    out).  Returns (means, bucket_mask)."""
+    n = vals.shape[0]
+    if bucket_idx is None:
+        bucket_idx = torch.arange(n, device=vals.device)
+    m = mask.to(F32)
+    xp = vals.to(F32)[bucket_idx.long()]
+    mp = m[bucket_idx.long()]
+    pad = (-n) % s
+    if pad:
+        xp = F.pad(xp, (0, 0, 0, pad))
+        mp = F.pad(mp, (0, pad))
+    nb = xp.shape[0] // s
+    xb = xp.view(nb, s, -1)
+    mb = mp.view(nb, s, 1)
+    cnt = mb.sum(dim=1)
+    means = (xb * mb).sum(dim=1) / torch.clamp(cnt, min=1.0)
+    return means.to(vals.dtype), cnt[:, 0] > 0.5
+
+
+def clip_then_aggregate_ref(xs, radius, mask=None, bucket_idx=None, *,
+                            trim_ratio=-1.0, bucket_s=1):
+    """Oracle of the fused clip -> (Bucketing) -> CM/TM kernels.
+    Returns (aggregated (d,), row_norms (n,))."""
+    n = xs.shape[0]
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=xs.device)
+
+    def inner(vals, m):
+        if trim_ratio < 0:
+            return coordinate_median_ref(vals, m)
+        return trimmed_mean_ref(vals, m, trim_ratio=trim_ratio)
+
+    clipped, norms = _clip_rows_ref(xs, radius, mask)
+    if bucket_s < 2:
+        return inner(clipped, mask), norms
+    means, bucket_ok = _bucket_means_ref(clipped, mask, bucket_idx, bucket_s)
+    return inner(means, bucket_ok), norms

@@ -1,0 +1,323 @@
+"""The port's kernel modules against the JAX reference, on the CPU.
+
+On a CPU tensor every wrapper of ``repro_torch.kernels`` runs its
+kernel's plain PyTorch version, so these sweeps hold the plain versions
+(the kernels' arithmetic) against ``repro.kernels.ref``, against the
+port's own oracles and against the Pallas kernels in interpret mode
+(``repro.kernels.ops``, as tests/test_kernels.py runs them).  Inputs are
+numpy arrays made from seeds.  The CUDA kernels themselves are held
+against the plain versions in tests/test_torch_cuda.py, on the card.
+
+Tolerances: the coordinate median picks input values and averages two of
+them with the same f32 operations in every implementation, so it must
+match exactly; sums (row norms, trimmed means, bucket means after a clip
+by norms computed in another order) agree to f32 rtol 1e-5.
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import clip_aggregate as ca
+from repro_torch.kernels import ref as tref
+
+# the package re-exports the function under the module's name
+cmk = importlib.import_module("repro_torch.kernels.coordinate_median")
+
+SHAPES = [(3, 64), (8, 512), (11, 700), (16, 1024), (5, 1), (32, 130)]
+BUCKET_CASES = [(10, 300, 2), (11, 700, 3), (16, 1024, 2), (8, 64, 4),
+                (21, 40, 2)]
+SUM_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _data(shape, seed, masked):
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(*shape).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.zeros(shape[0], bool)
+        mask[: max(1, shape[0] // 2)] = True
+        rng.shuffle(mask)
+    return xs, mask
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+# ---------------------------------------------------------------------------
+# coordinate_median.py (site 3)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+def test_cm_plain_matches_reference_exactly(shape, masked):
+    xs, mask = _data(shape, 1 + shape[0] * 7 + shape[1], masked)
+    out = ops.coordinate_median(_t(xs), _t(mask)).numpy()
+    np.testing.assert_array_equal(
+        out, np.asarray(rref.coordinate_median_ref(_j(xs), _j(mask))))
+    np.testing.assert_array_equal(
+        out, tref.coordinate_median_ref(_t(xs), _t(mask)).numpy())
+    sel = xs if mask is None else xs[mask]
+    np.testing.assert_allclose(out, np.median(sel, axis=0), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("trim", [0.0, 0.1, 0.25])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+def test_tm_plain_matches_reference(shape, trim, masked):
+    xs, mask = _data(shape, 2 + shape[0] * 5 + shape[1], masked)
+    out = ops.trimmed_mean(_t(xs), _t(mask), trim_ratio=trim).numpy()
+    np.testing.assert_allclose(
+        out, np.asarray(rref.trimmed_mean_ref(_j(xs), _j(mask), trim)),
+        **SUM_TOL)
+    np.testing.assert_allclose(
+        out, tref.trimmed_mean_ref(_t(xs), _t(mask), trim).numpy(), **SUM_TOL)
+
+
+@pytest.mark.parametrize("shape", [(11, 700), (5, 1), (32, 130)], ids=str)
+@pytest.mark.parametrize("trim", [-1.0, 0.1])
+def test_cm_tm_plain_matches_pallas_interpret(shape, trim):
+    xs, mask = _data(shape, 3 + shape[1], True)
+    out = ops.trimmed_mean(_t(xs), _t(mask), trim_ratio=trim).numpy() \
+        if trim >= 0 else ops.coordinate_median(_t(xs), _t(mask)).numpy()
+    ref = rops.trimmed_mean(_j(xs), _j(mask), trim_ratio=trim) if trim >= 0 \
+        else rops.coordinate_median(_j(xs), _j(mask))
+    if trim < 0:
+        np.testing.assert_array_equal(out, np.asarray(ref))
+    else:  # the Pallas kernel sums in row order, the port in sorted order
+        np.testing.assert_allclose(out, np.asarray(ref), **SUM_TOL)
+
+
+def test_cm_bf16_plain_matches_reference():
+    xs, mask = _data((11, 700), 4, True)
+    xt = _t(xs).to(torch.bfloat16)
+    out = ops.coordinate_median(xt, _t(mask))
+    assert out.dtype == torch.bfloat16
+    ref = rref.coordinate_median_ref(jnp.asarray(xs, jnp.bfloat16), _j(mask))
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref, np.float32))
+
+
+def test_all_masked_count_zero_pinned():
+    """cnt = 0 (every row masked out).  The jnp reference gives 3.4e37 for
+    the median; the Pallas kernel gives 1.7e37 (0.5 * the value at rank
+    0).  The port takes the jnp semantics in the kernel and its plain
+    version alike.  The trimmed mean gives 1.7e37 everywhere (t = -1
+    keeps position 0, divided by cnt - 2t = 2)."""
+    xs = np.random.RandomState(5).randn(6, 33).astype(np.float32)
+    none = np.zeros(6, bool)
+    big = np.float32(3.4e37)
+    cm = ops.coordinate_median(_t(xs), _t(none)).numpy()
+    np.testing.assert_array_equal(cm, np.full(33, big))
+    np.testing.assert_array_equal(
+        cm, np.asarray(rref.coordinate_median_ref(_j(xs), _j(none))))
+    np.testing.assert_array_equal(
+        np.asarray(rops.coordinate_median(_j(xs), _j(none))),
+        np.full(33, big / 2))
+    tm = ops.trimmed_mean(_t(xs), _t(none), 0.1).numpy()
+    np.testing.assert_array_equal(tm, np.full(33, big / 2))
+    np.testing.assert_array_equal(
+        tm, np.asarray(rref.trimmed_mean_ref(_j(xs), _j(none), 0.1)))
+    fused, _ = ops.clip_then_aggregate(_t(xs), 1.0, _t(none),
+                                       _t(np.arange(6, dtype=np.int32)),
+                                       bucket_s=2)
+    np.testing.assert_array_equal(fused.numpy(), np.full(33, big))
+
+
+@pytest.mark.parametrize("n_nan", [1, 6], ids=["one-nan-row", "nan-majority"])
+@pytest.mark.parametrize("trim", [-1.0, 0.1])
+def test_nan_rows_sort_last_as_in_reference(n_nan, trim):
+    """A NaN message (a Byzantine worker can send one) sorts after every
+    value, as jnp.sort and torch.sort order it, even after the 3.4e37 of
+    masked rows: one NaN row leaves the result finite, and a NaN majority
+    selects NaN or a masked row's 3.4e37, as in the reference.  The
+    kernel's integer sort keys keep this order (tests/test_torch_cuda.py)."""
+    rng = np.random.RandomState(40 + n_nan)
+    xs = rng.randn(11, 70).astype(np.float32)
+    xs[rng.permutation(11)[:n_nan]] = np.nan
+    mask = np.ones(11, bool)
+    mask[rng.randint(11)] = False
+    if trim < 0:
+        out = ops.coordinate_median(_t(xs), _t(mask)).numpy()
+        ref = rref.coordinate_median_ref(_j(xs), _j(mask))
+    else:
+        out = ops.trimmed_mean(_t(xs), _t(mask), trim).numpy()
+        ref = rref.trimmed_mean_ref(_j(xs), _j(mask), trim)
+    assert (np.abs(out) < 1e30).all() == (n_nan == 1)
+    np.testing.assert_allclose(out, np.asarray(ref), equal_nan=True,
+                               **SUM_TOL)
+    idx = rng.permutation(11).astype(np.int32)
+    fused, _ = ops.clip_then_aggregate(_t(xs), 1.5, _t(mask), _t(idx),
+                                       trim_ratio=trim, bucket_s=2)
+    rfused, _ = rref.clip_then_aggregate_ref(_j(xs), 1.5, _j(mask), _j(idx),
+                                             trim_ratio=trim, bucket_s=2)
+    np.testing.assert_allclose(fused.numpy(), np.asarray(rfused),
+                               equal_nan=True, **SUM_TOL)
+
+
+def test_slot_limit_raises_value_error():
+    with pytest.raises(ValueError, match="at most 128"):
+        ops.coordinate_median(torch.zeros(129, 4))
+    with pytest.raises(ValueError, match="at most 128"):
+        ops.clip_then_aggregate(torch.zeros(300, 4), 1.0, bucket_s=2)
+    assert cmk.nb_cap(10) == 16 and cmk.nb_cap(20) == 32
+    assert cmk.nb_cap(128) == 128
+
+
+@pytest.mark.parametrize("bad,err", [
+    (torch.zeros(4, dtype=torch.float32), ValueError),
+    (torch.zeros(3, 4, dtype=torch.int32), TypeError),
+    (torch.zeros(0, 4), ValueError),
+])
+def test_wrappers_reject_bad_inputs(bad, err):
+    with pytest.raises(err):
+        ops.coordinate_median(bad)
+    with pytest.raises(err):
+        ops.row_norms(bad)
+
+
+def test_wrappers_reject_mismatched_row_vectors():
+    xs = torch.zeros(5, 8)
+    with pytest.raises(ValueError, match="mask must have shape"):
+        ops.coordinate_median(xs, torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="bucket_idx must have shape"):
+        ops.clip_then_aggregate(xs, 1.0, None, torch.arange(4), bucket_s=2)
+
+
+# ---------------------------------------------------------------------------
+# clip_aggregate.py (sites 1 and 2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_row_norms_plain_matches_reference(shape):
+    xs, _ = _data(shape, 6 + shape[1], False)
+    _, rnorms = rref._clip_rows_ref(_j(xs), 1.0, None)
+    np.testing.assert_allclose(ops.row_norms(_t(xs)).numpy(),
+                               np.asarray(rnorms), **SUM_TOL)
+
+
+def test_clip_factor_matches_reference():
+    from repro.kernels.clip_aggregate import clip_factor as rclip_factor
+
+    norms = np.array([0.0, 1e-31, 0.5, 2.0, 1e6, np.inf], np.float32)
+    for radius in (0.0, 1.5, np.inf):
+        np.testing.assert_array_equal(
+            ca.clip_factor(_t(norms), radius).numpy(),
+            np.asarray(rclip_factor(_j(norms), radius)))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("trim", [-1.0, 0.1])
+def test_fused_unbucketed_plain_matches_reference(shape, masked, trim):
+    xs, mask = _data(shape, 7 + shape[0] + shape[1], masked)
+    out, norms = ops.clip_then_aggregate(_t(xs), 1.5, _t(mask),
+                                         trim_ratio=trim)
+    rout, rnorms = rref.clip_then_aggregate_ref(_j(xs), 1.5, _j(mask),
+                                                trim_ratio=trim)
+    np.testing.assert_allclose(out.numpy(), np.asarray(rout), **SUM_TOL)
+    np.testing.assert_allclose(norms.numpy(), np.asarray(rnorms), **SUM_TOL)
+    tout, _ = tref.clip_then_aggregate_ref(_t(xs), 1.5, _t(mask),
+                                           trim_ratio=trim)
+    np.testing.assert_allclose(out.numpy(), tout.numpy(), **SUM_TOL)
+
+
+@pytest.mark.parametrize("n,d,s", BUCKET_CASES, ids=str)
+@pytest.mark.parametrize("trim", [-1.0, 0.1])
+@pytest.mark.parametrize("use_clip", [True, False], ids=["clip", "noclip"])
+def test_fused_bucketed_plain_matches_reference(n, d, s, trim, use_clip):
+    rng = np.random.RandomState(n * 17 + s)
+    xs = rng.randn(n, d).astype(np.float32)
+    mask = rng.rand(n) > 0.25
+    idx = rng.permutation(n).astype(np.int32)
+    out, norms = ops.clip_then_aggregate(_t(xs), 1.2, _t(mask), _t(idx),
+                                         trim_ratio=trim, bucket_s=s,
+                                         use_clip=use_clip)
+    radius = 1.2 if use_clip else np.inf
+    rout, _ = rref.clip_then_aggregate_ref(_j(xs), radius, _j(mask), _j(idx),
+                                           trim_ratio=trim, bucket_s=s)
+    np.testing.assert_allclose(out.numpy(), np.asarray(rout), **SUM_TOL)
+    assert (norms is None) == (not use_clip)
+    tout, _ = tref.clip_then_aggregate_ref(_t(xs), radius, _t(mask), _t(idx),
+                                           trim_ratio=trim, bucket_s=s)
+    np.testing.assert_allclose(out.numpy(), tout.numpy(), **SUM_TOL)
+
+
+@pytest.mark.parametrize("n,d,s", [(11, 700, 3), (21, 40, 2), (9, 130, 1)],
+                         ids=str)
+@pytest.mark.parametrize("trim", [-1.0, 0.1])
+def test_fused_plain_matches_pallas_interpret(n, d, s, trim):
+    """Given the same per-row factors, the plain version repeats the
+    Pallas kernel's arithmetic (x*f, mask-weighted bucket sums, one
+    division), so the median matches bit for bit; with pass 1 the
+    factors come from norms summed in another order."""
+    rng = np.random.RandomState(n * 3 + d)
+    xs = rng.randn(n, d).astype(np.float32)
+    mask = rng.rand(n) > 0.3
+    idx = rng.permutation(n).astype(np.int32)
+    factors = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    kw = dict(trim_ratio=trim, bucket_s=s)
+    out = ca.clip_bucket_select(_t(xs), _t(factors), _t(mask).float(),
+                                _t(idx) if s > 1 else None, s, trim)
+    rout, _ = rops.clip_then_aggregate(_j(xs), 0.9, _j(mask), _j(idx),
+                                       _j(factors), **kw)
+    if trim < 0:
+        np.testing.assert_array_equal(out.numpy(), np.asarray(rout))
+    else:
+        np.testing.assert_allclose(out.numpy(), np.asarray(rout), **SUM_TOL)
+    out, norms = ops.clip_then_aggregate(_t(xs), 0.9, _t(mask), _t(idx), **kw)
+    rout, rnorms = rops.clip_then_aggregate(_j(xs), 0.9, _j(mask), _j(idx),
+                                            **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(rout), **SUM_TOL)
+    np.testing.assert_allclose(norms.numpy(), np.asarray(rnorms), **SUM_TOL)
+
+
+def test_bucket_padding_and_out_of_range_indices_are_empty_slots():
+    """n = 5, s = 2 pads one slot; an index outside [0, n) is an empty
+    slot too, so both orders give the same buckets {0,1}, {2,3}, {4}."""
+    xs = torch.arange(15, dtype=torch.float32).view(5, 3)
+    a, _ = ops.clip_then_aggregate(xs, 0.0, None, torch.arange(5),
+                                   bucket_s=2, use_clip=False)
+    means = torch.stack([xs[0:2].mean(0), xs[2:4].mean(0), xs[4]])
+    np.testing.assert_array_equal(a.numpy(), means.median(0).values.numpy())
+    b = ca.clip_bucket_select_plain(xs, torch.ones(5), torch.ones(5),
+                                    torch.tensor([0, 1, 2, 3, 4]), 2, -1.0)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    c = ca.clip_bucket_select_plain(xs, torch.ones(5),
+                                    torch.tensor([1., 1, 1, 1, 0]),
+                                    torch.tensor([0, 1, 2, 3, 99]), 2, -1.0)
+    # bucket {4} is empty in c: the median of the first two bucket means
+    np.testing.assert_array_equal(c.numpy(), (0.5 * (means[0] + means[1]))
+                                  .numpy())
+
+
+def test_launch_counts_move_only_on_launch():
+    ops.reset_launch_counts()
+    xs = torch.randn(6, 20)
+    ops.clip_then_aggregate(xs, 1.0, bucket_s=2)
+    ops.coordinate_median(xs)
+    assert ops.launch_counts() == {"row_norms": 0, "clip_bucket_select": 0,
+                                   "coordinate_median": 0}
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A failed build raises; there is no fallback to the plain version."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert set(_build.SOURCES) == {"row_norms", "clip_aggregate"}
+    # each library is named by a hash of its sources and flags
+    assert _build._lib_path("row_norms") != _build._lib_path("clip_aggregate")

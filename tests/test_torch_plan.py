@@ -1,0 +1,129 @@
+"""The port's ServerPlan against the reference's: the same canonical JSON
+document drives both packages, and the same constructions fail."""
+import warnings
+
+import pytest
+
+import repro.api as R
+import repro_torch.api as T
+from repro.configs.paper import paper_plan as ref_paper_plan
+from repro_torch.configs.paper import fig1_marina_pp, paper_plan
+
+
+def _both(build):
+    """``build(api_module)`` in the reference and in the port."""
+    return build(R), build(T)
+
+
+@pytest.mark.parametrize("clip_alpha", [1.0, None], ids=["clip", "noclip"])
+def test_fig1_plans_serialize_byte_equal(clip_alpha):
+    ref = ref_paper_plan("cm", clip_alpha)
+    port = paper_plan("cm", clip_alpha)
+    assert port.to_json() == ref.to_json()
+    assert T.ServerPlan.from_json(ref.to_json()) == port
+    assert R.ServerPlan.from_json(port.to_json()) == ref
+    cfg = fig1_marina_pp(clip_alpha is not None)
+    assert cfg.plan.to_json() == ref.to_json()
+
+
+@pytest.mark.parametrize("build", [
+    lambda A: A.ServerPlan(aggregate=A.AggregatorSpec("tm", trim_ratio=0.2),
+                           clip=A.ClipSpec(radius=2.5), cohort=4),
+    lambda A: A.ServerPlan(aggregate=A.AggregatorSpec("mean"),
+                           compress=A.CompressSpec("rand_k", k=3),
+                           bucket=A.BucketSpec(s=3),
+                           schedule=A.ScheduleSpec(backend="jnp")),
+    lambda A: A.ServerPlan(aggregate=A.AggregatorSpec("krum", byz_bound=2),
+                           schedule=A.ScheduleSpec(
+                               placement="sharded", blocks="pipelined",
+                               superleaf_elems=4096,
+                               worker_axes=("pod", "data"))),
+], ids=["tm-radius", "mean-randk-jnp", "krum-sharded"])
+def test_other_plans_round_trip_byte_equal(build):
+    ref, port = _both(build)
+    assert port.to_json() == ref.to_json()
+    assert T.ServerPlan.from_json(ref.to_json()).to_json() == ref.to_json()
+
+
+BAD_PLANS = {
+    "clip-neither": lambda A: A.ClipSpec(),
+    "clip-both": lambda A: A.ClipSpec(alpha=1.0, radius=1.0),
+    "clip-nonpositive": lambda A: A.ClipSpec(alpha=0.0),
+    "compress-kind": lambda A: A.CompressSpec("top_k"),
+    "compress-randk-k": lambda A: A.CompressSpec("rand_k", k=0),
+    "compress-frac": lambda A: A.CompressSpec("rand_fraction", frac=1.5),
+    "bucket-s": lambda A: A.BucketSpec(s=1),
+    "rule": lambda A: A.AggregatorSpec("median"),
+    "trim": lambda A: A.AggregatorSpec("trimmed_mean", trim_ratio=0.5),
+    "byz-bound": lambda A: A.AggregatorSpec("krum", byz_bound=-1),
+    "m-select-rule": lambda A: A.AggregatorSpec("krum", m_select=2),
+    "tau": lambda A: A.AggregatorSpec("centered_clip", tau=0.0),
+    "iters": lambda A: A.AggregatorSpec("rfa", iters=-1),
+    "placement": lambda A: A.ScheduleSpec(placement="ring"),
+    "blocks": lambda A: A.ScheduleSpec(blocks="async"),
+    "superleaf": lambda A: A.ScheduleSpec(superleaf_elems=-1),
+    "backend": lambda A: A.ScheduleSpec(backend="tpu"),
+    "stage-type": lambda A: A.ServerPlan(aggregate=A.AggregatorSpec("cm"),
+                                         clip=A.BucketSpec(s=2)),
+    "cohort": lambda A: A.ServerPlan(aggregate="cm", cohort=0),
+    "pipelined-naive": lambda A: A.ServerPlan(
+        aggregate="cm", schedule=A.ScheduleSpec(blocks="pipelined")),
+    "version": lambda A: A.ServerPlan.from_json(
+        '{"version": 2, "aggregate": {"rule": "cm"}}'),
+    "unknown-field": lambda A: A.ServerPlan.from_json(
+        '{"aggregate": {"rule": "cm"}, "extra": 1}'),
+    "no-aggregate": lambda A: A.ServerPlan.from_dict({}),
+    "not-json": lambda A: A.ServerPlan.from_json("{nope"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BAD_PLANS))
+def test_plan_errors_match_reference(name):
+    build = BAD_PLANS[name]
+    for api in (R, T):
+        with pytest.raises(api.PlanError) as e:
+            build(api)
+        assert isinstance(e.value, ValueError)
+
+
+def test_superleaf_on_iterative_rule_warns_in_both():
+    for api in (R, T):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            api.ServerPlan(aggregate=api.AggregatorSpec("rfa"),
+                           schedule=api.ScheduleSpec(superleaf_elems=64))
+        assert any(issubclass(x.category, api.PlanWarning) for x in w)
+
+
+def test_sharded_and_mesh_builds_name_their_roadmap_item():
+    plan = T.ServerPlan(aggregate="cm",
+                        schedule=T.ScheduleSpec(placement="sharded"))
+    with pytest.raises(T.PlanError, match="queue 1 item 11"):
+        plan.build()
+    with pytest.raises(T.PlanError, match="queue 1 item 11"):
+        T.ServerPlan(aggregate="cm").build(mesh=object())
+
+
+def test_unported_rules_and_compressors_raise_not_implemented():
+    for rule in ("krum", "multi_krum", "rfa", "centered_clip"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+            T.ServerPlan(aggregate=rule).build()
+    plan = T.ServerPlan(aggregate="cm", compress=T.CompressSpec("rand_k", k=2))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        plan.build()
+
+
+def test_server_step_radius_and_static_clip():
+    import torch
+
+    step = paper_plan("cm", 2.0).build()
+    x_new, x_old = torch.tensor([3.0, 4.0]), torch.zeros(2)
+    assert float(step.radius(x_new, x_old)) == pytest.approx(10.0)
+    assert paper_plan("cm", None).build().radius(x_new, x_old) is None
+    fixed = T.ServerPlan(aggregate="cm", clip=T.ClipSpec(radius=0.5)).build()
+    assert fixed.radius(x_new, x_old) == 0.5
+    xs = 10.0 * torch.ones(3, 4)
+    # the static radius clips the rows (norm 20) to norm 0.5
+    torch.testing.assert_close(fixed(xs), torch.full((4,), 0.25))
+    # aggregate() is the unclipped form
+    torch.testing.assert_close(fixed.aggregate(xs), torch.full((4,), 10.0))
