@@ -7,29 +7,50 @@ Phases (any failure raises, prints no result and exits non-zero):
 
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of ``src/repro_torch/kernels/csrc`` built with nvcc (one process
-   per source, started together) and the build's wall seconds.
-2. Kernel vs plain version on the card: row norms (pass 1), the fused
-   clip -> Bucketing -> CM/TM pass (bucketed s = 2 and unbucketed, CM and
-   TM(0.1), clip on and off) and the standalone masked CM/TM, at the main
-   path's shape (n=20, d=40), an odd-n bucket-padding shape (n=21) and a
-   ragged wide server-step shape (n=20, d=2^24+37, 1.3 GB in f32), with
-   random masks.  Tolerances: the coordinate median exactly when kernel
-   and plain version get the same clip factors; sums f32 rtol 1e-5.  At
-   the wide shape: each kernel's median time (CUDA events), its bound,
-   the plain version's time and one library call's time.
-3. Main path: the paper's Fig. 1 configuration (20 clients, 15 good,
-   m=300, d=40, CM over Bucketing(2), shift-back, C=4, C_hat=20, p=0.2,
-   gamma=0.5) on "cuda" with backend "auto", clipped and unclipped, 300
-   steps each, plus the clipped run with CM without Bucketing (the path of
-   the standalone CM kernel).  Each run's launch counts, set to 0 just
-   before it and read just after it, must equal the counts that run's own
-   coins predict; the clipped run must converge (final loss < 0.64, within 1e-3 of the
-   optimum of the data) and the unclipped one diverge (> 5); the runs
-   must agree with the plain PyTorch path on the CPU, which makes the same
-   draws.
-4. A ``{"kernels": [...]}`` line, then the card line, then the result.
+   per source, started together), the build's wall seconds and each
+   source's ptxas registers and spills.
+2. Kernel vs plain version on the card.  Fig. 1's kernels: row norms
+   (pass 1), the fused clip -> Bucketing -> CM/TM pass (bucketed s = 2
+   and unbucketed, CM and TM(0.1), clip on and off) and the standalone
+   masked CM/TM, at the Fig. 1 shape (n=20, d=40), an odd-n bucket-padding
+   shape (n=21) and a ragged wide server-step shape (n=20, d=2^24+37,
+   1.3 GB in f32).  Tolerances: the coordinate median exactly when kernel
+   and plain version get the same clip factors; sums f32 rtol 1e-5.
+   Fig. 2's Weiszfeld geometric-median kernels (gm_resident, diff_row_ssq,
+   bucket_means, gm_update) and the whole clip_then_geometric_median,
+   each against its plain version at rtol 1e-5: at the Fig. 2 shape
+   (n=20, d=698, s = 1 and 2), odd n (n=21, s = 2 and 3), the largest d
+   the resident rule admits at n=20 and one past it (both sides of the
+   dispatch), and the wide shape (s = 1 and 2, clipped); random masks and
+   an all-masked case (result 0).  At the wide shape: each kernel's median
+   time (CUDA events), its bound, the plain version's time and one library
+   call's time (bucket_means: B @ x with B the (n/2, n) bucket-mean
+   weights; gm_update: (w / wsum) @ x; diff_row_ssq: torch.cdist);
+   gm_resident is timed at the Fig. 2 shape, the largest it takes on the
+   path.
+3. Fig. 1: the paper's configuration (20 clients, 15 good, m=300, d=40,
+   CM over Bucketing(2), shift-back, C=4, C_hat=20, p=0.2, gamma=0.5) on
+   "cuda" with backend "auto", clipped and unclipped, 300 steps each, plus
+   the clipped run with CM without Bucketing (the path of the standalone
+   CM kernel).  Each run's launch counts, set to 0 just before it and
+   read just after it, must equal the counts that run's own coins
+   predict; the clipped run must converge (final loss < 0.64, within 1e-3
+   of the optimum of the data) and the unclipped one diverge (> 5); the
+   runs must agree with the plain PyTorch path on the CPU, which makes
+   the same draws.
+4. Fig. 2: ``ClippedPPMomentum`` with RFA on the MLP problem, on "cuda"
+   with backend "auto": fig2-rfa (the paper's Fig. 2 configuration,
+   d = 698, 300 steps, the resident kernel), RFA without Bucketing on the
+   majority cell (10 clients, 7 good, C = 3, gamma = 0.15) clipped and
+   unclipped (300 steps each; clipped must end below 2.0 and unclipped
+   above 20), and fig2-rfa-wide (the Fig. 2 configuration at MNIST's
+   input width, d = 101,770, 50 steps, the tiled kernels).  Launch counts
+   as in phase 3, each equal to its run's prediction; each run agrees
+   with the CPU plain path at rtol 1e-4 (the unclipped run over its first
+   100 steps).
+5. A ``{"kernels": [...]}`` line, then the card line, then the result.
    A kernel's ``launches`` are those of the run of the path it serves
-   (``path``); ``launches_by_path`` has its counts in all three runs.
+   (``path``); ``launches_by_path`` has its counts in every run.
 """
 import json
 import math
@@ -44,7 +65,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, same source
 WIDE_D = 2 ** 24 + 37
 STEPS = 300
+WIDE_STEPS = 50  # fig2-rfa-wide
+GM_ITERS = 8
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
+# phase 4's thresholds for the unbucketed majority runs, fixed from the
+# port's own CPU run (clipped 1.6687, unclipped 199.42 after 300 steps)
+CLIPPED_BELOW, UNCLIPPED_ABOVE = 2.0, 20.0
+MAJORITY = dict(n_clients=10, n_good=7, m=128, in_dim=32, hidden=16,
+                heterogeneous=True)
 
 
 def _fail(msg):
@@ -225,6 +253,198 @@ def time_wide(x, mask, idx, factors):
     return out
 
 
+def _gm_mods():
+    """(centered_clip, geometric_median) kernel modules (the package
+    re-exports functions under the modules' names)."""
+    return (sys.modules["repro_torch.kernels.centered_clip"],
+            sys.modules["repro_torch.kernels.geometric_median"])
+
+
+def _gm_plain(x, radius, mask, idx, s):
+    """The plain clip_then_geometric_median: same dispatch and composition."""
+    _, gmk = _gm_mods()
+    return gmk.clip_then_geometric_median_plain(
+        x, radius, mask, idx, iters=GM_ITERS, bucket_s=s)[0]
+
+
+def check_gm(checks, x, mask, idx, s, tag, expect=None):
+    """The four GM kernels and the whole clip_then_geometric_median
+    against their plain versions on one input; ``expect`` ("resident" or
+    "tiled") is the schedule the whole call must take.  Returns the
+    padded auxiliaries."""
+    import torch
+
+    from repro_torch.kernels import clip_aggregate as ca
+    from repro_torch.kernels import ops
+
+    cc, gmk = _gm_mods()
+    n, d = x.shape
+    norms = ca.row_norms_plain(x)
+    radius = float(norms.median())
+    f = ca.clip_factor(norms, radius)
+    bidx = idx if s >= 2 else None
+    m, fp, ip = cc.pad_bucket_aux(mask.float(), f, bidx, n, s)
+    rows = m.shape[0] // s
+    fits = cc.resident_smem_bytes(rows, d) <= cc.smem_budget(x.device)
+    t = f"{tag} s={s}"
+    if fits:
+        checks.compare("gm_resident", t,
+                       gmk.gm_resident(x, m, fp, ip, s, iters=GM_ITERS),
+                       gmk.gm_resident_plain(x, m, fp, ip, s, iters=GM_ITERS,
+                                             eps=1e-8), exact=False)
+    if s >= 2:
+        checks.compare("bucket_means", t, cc.bucket_means(x, m, fp, ip, s),
+                       cc.bucket_means_plain(x, m, fp, ip, s)[0], exact=False)
+    z = _gm_plain(x, radius, mask, bidx, s)
+    checks.compare("diff_row_ssq", t, cc.diff_row_ssq(x, z, fp[:n]),
+                   cc.diff_row_ssq_plain(x, z, fp[:n]), exact=False)
+    ssq = cc.diff_row_ssq_plain(x, z, fp[:n])
+    w = m[:n] / (ssq + 1e-8).sqrt()
+    wsum = w.sum().clamp(min=1e-8)
+    checks.compare("gm_update", t, gmk.gm_update(x, w, fp[:n], wsum),
+                   gmk.gm_update_plain(x, w, fp[:n], wsum), exact=False)
+    ops.reset_launch_counts()
+    got, _ = ops.clip_then_geometric_median(x, radius, mask, bidx,
+                                            iters=GM_ITERS, bucket_s=s)
+    counts = ops.launch_counts()
+    took = "resident" if counts["gm_resident"] else "tiled"
+    if took != ("resident" if fits else "tiled") or (expect and took != expect):
+        raise AssertionError(f"{t}: the whole call took the {took} schedule "
+                             f"(expected {expect}, fits={fits}): {counts}")
+    checks.compare("clip_then_gm", f"{t} whole call ({took})", got, z,
+                   exact=False)
+    none = torch.zeros_like(mask)
+    zero = torch.zeros(d, device=x.device)
+    checks.compare("clip_then_gm", f"{t} all rows masked",
+                   ops.clip_then_geometric_median(x, radius, none, bidx,
+                                                  bucket_s=s)[0], zero,
+                   exact=True)
+    checks.compare("clip_then_gm", f"{t} all rows masked (plain)",
+                   _gm_plain(x, radius, none, bidx, s), zero, exact=True)
+    return m, fp, ip
+
+
+def gm_shapes(checks):
+    """Phase 2's GM checks at the Fig. 2, odd-n and threshold shapes."""
+    import torch
+
+    cc, _ = _gm_mods()
+    budget = cc.smem_budget(torch.device("cuda"))
+    print(f"gm shapes (opt-in shared memory per block: {budget} bytes)")
+
+    def data(n, d, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(n, d, device="cuda", generator=g)
+        mask = torch.rand(n, device="cuda", generator=g) > 0.3
+        mask[0] = True
+        return x, mask, torch.randperm(n, device="cuda", generator=g).int()
+
+    for s in (1, 2):
+        check_gm(checks, *data(20, 698, 10 + s), s, "n=20 d=698",
+                 expect="resident")
+    for s in (2, 3):
+        check_gm(checks, *data(21, 700, 20 + s), s, "n=21 d=700",
+                 expect="resident")
+    for s in (1, 2):
+        rows = 20 // s
+        d_max = 1
+        while cc.resident_smem_bytes(rows, d_max + 1) <= budget:
+            d_max += 1
+        for d, expect in ((d_max, "resident"), (d_max + 1, "tiled")):
+            check_gm(checks, *data(20, d, 30 + d), s, f"n=20 d={d}",
+                     expect=expect)
+
+
+def time_gm(x, mask, idx, checks):
+    """GM checks at the wide shape, then kernel, plain and library times:
+    the tiled kernels at the wide shape, gm_resident at the Fig. 2 shape."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cc, gmk = _gm_mods()
+    n, d = x.shape
+    nb = n // 2
+    for s in (1, 2):
+        check_gm(checks, x, mask, idx, s, f"n={n} d={d}", expect="tiled")
+    out = {}
+    z = torch.randn(d, device="cuda")
+    t = {"ms": _time_ms(lambda: cc.diff_row_ssq(x, z), 10),
+         "plain_ms": _time_ms(lambda: cc.diff_row_ssq_plain(x, z), 3),
+         "library_ms": _time_ms(
+             lambda: torch.cdist(x, z[None]) ** 2, 10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d + n), 3 * n * d)
+    out["diff_row_ssq"] = t
+
+    # the library call is one GEMM, B @ x with B[b, r] = f_r m_r / max(cnt_b,
+    # 1) for the rows r of bucket b, B made before the timing
+    m, fp, ip = cc.pad_bucket_aux(mask.float(), torch.rand(n, device="cuda"),
+                                  idx, n, 2)
+    slots = ip.long().view(nb, 2)
+    cnt = m[slots].sum(dim=1).clamp(min=1.0)
+    bmat = torch.zeros(nb, m.shape[0], device="cuda").scatter_(
+        1, slots, (fp * m)[slots] / cnt[:, None])[:, :n].contiguous()
+    checks.compare("B @ x (library)", f"n={n} d={d} s=2 vs bucket_means",
+                   bmat @ x, cc.bucket_means(x, m, fp, ip, 2), exact=False)
+    t = {"ms": _time_ms(lambda: cc.bucket_means(x, m, fp, ip, 2), 10),
+         "plain_ms": _time_ms(lambda: cc.bucket_means_plain(x, m, fp, ip, 2),
+                              3),
+         "library_ms": _time_ms(lambda: bmat @ x, 10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + nb * d), 4 * n * d)
+    out["bucket_means"] = t
+
+    w = torch.rand(n, device="cuda")
+    wsum = w.sum()
+    wn = w / wsum
+    t = {"ms": _time_ms(lambda: gmk.gm_update(x, w, None, wsum), 10),
+         "plain_ms": _time_ms(lambda: gmk.gm_update_plain(x, w, None, wsum),
+                              3),
+         "library_ms": _time_ms(lambda: wn @ x, 10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d), 2 * n * d)
+    out["gm_update"] = t
+
+    # gm_resident at the largest shape the Fig. 2 path gives it
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xr = torch.randn(20, 698, device="cuda", generator=g)
+    mr = (torch.rand(20, device="cuda", generator=g) > 0.3).float()
+    fr = torch.rand(20, device="cuda", generator=g)
+    ir = torch.randperm(20, device="cuda", generator=g).int()
+    t = {"ms": _time_ms(lambda: gmk.gm_resident(xr, mr, fr, ir, 2,
+                                                iters=GM_ITERS), 20),
+         "plain_ms": _time_ms(lambda: gmk.gm_resident_plain(
+             xr, mr, fr, ir, 2, iters=GM_ITERS, eps=1e-8), 10),
+         "library_ms": None}
+    rows, dr = 10, 698
+    t["bound_ms"], t["bound_by"] = _bound(
+        4 * (20 * dr + dr + 3 * 20),
+        3 * 20 * dr + 2 * rows * dr + GM_ITERS * 5 * rows * dr)
+    out["gm_resident"] = t
+    for name, v in out.items():
+        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
+        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.6f}"
+              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
+              f"library {lib} ms")
+
+    # the whole call, clipped, per schedule: the bytes its kernels move
+    # (pass 1, bucket means, z0 and two streams per step) against the
+    # bytes the function must move (its input once, its output once)
+    for s in (1, 2):
+        rows = n if s == 1 else nb
+        moved = (4 * n * d  # pass 1
+                 + (4 * (n + nb) * d if s == 2 else 0)  # bucket means
+                 + 4 * (rows * d + d)  # z0
+                 + GM_ITERS * 4 * (2 * rows * d + 2 * d))  # per step
+        bidx = idx if s == 2 else None
+        ms = _time_ms(lambda: ops.clip_then_geometric_median(
+            x, 1.0, mask, bidx, bucket_s=s), 5)
+        plain = _time_ms(lambda: _gm_plain(x, 1.0, mask, bidx, s), 3)
+        print(f"  clip_then_gm s={s}  whole call {ms:.4f} ms  schedule bytes "
+              f"{moved / 1e9:.3f} GB -> {moved / HBM_BYTES_PER_S * 1e3:.4f} ms"
+              f"  function bound {4 * (n * d + d) / HBM_BYTES_PER_S * 1e3:.4f}"
+              f" ms (bytes)  plain {plain:.4f} ms  library none")
+    return out
+
+
 def _optimum(prob):
     import torch
 
@@ -234,16 +454,21 @@ def _optimum(prob):
     return float(prob.loss(x)), torch.linalg.vector_norm(prob.grad(x))
 
 
+_NO_LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0,
+                "coordinate_median": 0, "diff_row_ssq": 0, "bucket_means": 0,
+                "gm_resident": 0, "gm_update": 0}
+
+
 def _predicted(name, n_diff):
     """Launches per kernel that a run of ``STEPS`` steps with ``n_diff``
     difference rounds makes: g^0 and every full round aggregate without
     clip, every difference round clips (pass 1) and aggregates."""
     n_full = STEPS - n_diff
     if name == "cm-unbucketed":  # the clip goes through pass 2 with s = 1
-        return {"row_norms": n_diff, "clip_bucket_select": n_diff,
-                "coordinate_median": 1 + n_full}
-    return {"row_norms": n_diff if name == "clipped" else 0,
-            "clip_bucket_select": 1 + STEPS, "coordinate_median": 0}
+        return dict(_NO_LAUNCHES, row_norms=n_diff, clip_bucket_select=n_diff,
+                    coordinate_median=1 + n_full)
+    return dict(_NO_LAUNCHES, row_norms=n_diff if name == "clipped" else 0,
+                clip_bucket_select=1 + STEPS)
 
 
 def main_path():
@@ -311,6 +536,91 @@ def main_path():
     return counts
 
 
+def _fig2_predicted(name):
+    """Launches per kernel of a Fig. 2 run: g^0 and every step aggregate
+    once, every clipped step (the 3.4e37 warm-up step 0 too) runs pass 1.
+    d = 698 fits the resident kernel; d = 101,770 under Bucketing(2) takes
+    one bucket_means pass, z0 and 8 Weiszfeld steps of diff_row_ssq +
+    gm_update per call."""
+    if name == "fig2-rfa-wide":
+        calls = WIDE_STEPS + 1
+        return dict(_NO_LAUNCHES, row_norms=WIDE_STEPS, bucket_means=calls,
+                    diff_row_ssq=GM_ITERS * calls,
+                    gm_update=(GM_ITERS + 1) * calls)
+    clipped = name != "fig2-rfa-unbucketed-noclip"
+    return dict(_NO_LAUNCHES, row_norms=STEPS if clipped else 0,
+                gm_resident=STEPS + 1)
+
+
+def fig2_path():
+    """The Fig. 2 runs on the card; returns each run's launch counts."""
+    import torch
+
+    from repro_torch.api import AggregatorSpec, ClipSpec, ServerPlan
+    from repro_torch.configs.paper import fig2_heuristic, fig2_problem_kwargs
+    from repro_torch.core import (ClippedPPConfig, ClippedPPMomentum,
+                                  mlp_problem)
+    from repro_torch.kernels import ops
+
+    def unbucketed(clip):
+        return ClippedPPConfig(gamma=0.15, C=3, attack="shb", plan=ServerPlan(
+            aggregate=AggregatorSpec("rfa"),
+            clip=ClipSpec(alpha=1.0) if clip else None))
+
+    fig2 = (0, fig2_problem_kwargs("shb"))
+    runs = {  # name: (problem seed and kwargs, config, steps)
+        "fig2-rfa": (fig2, fig2_heuristic("rfa", "shb", True), STEPS),
+        "fig2-rfa-unbucketed-clip": ((5, MAJORITY), unbucketed(True), STEPS),
+        "fig2-rfa-unbucketed-noclip": ((5, MAJORITY), unbucketed(False),
+                                       STEPS),
+        "fig2-rfa-wide": ((0, dict(fig2_problem_kwargs("shb"), in_dim=784,
+                                   hidden=128)),
+                          fig2_heuristic("rfa", "shb", True), WIDE_STEPS),
+    }
+    counts, final = {}, {}
+    for name, ((seed, kw), cfg, steps) in runs.items():
+        prob = mlp_problem(seed, device="cuda", **kw)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, met = ClippedPPMomentum(prob, cfg, device="cuda").run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        loss = met["loss"]
+        final[name] = float(loss[-1])
+        marks = ", ".join(f"{i + 1}: {float(loss[i]):.6f}"
+                          for i in (0, 49, 99, 199, 299) if i < steps)
+        print(f"  {name:26s} d={prob.dim} loss at steps {{{marks}}}  wall "
+              f"{wall / steps * 1e3:.3f} ms/step")
+        # the plain path on the CPU makes the same draws from the same seeds
+        cpu = mlp_problem(seed, device="cpu", **kw)
+        _, ref = ClippedPPMomentum(cpu, cfg, device="cpu").run(steps)
+        agree = 100 if name.endswith("noclip") else steps
+        if not torch.isfinite(loss[:agree]).all():
+            raise AssertionError(f"{name}: non-finite loss")
+        err = float(((loss[:agree] - ref["loss"][:agree]).abs()
+                     / ref["loss"][:agree].abs()).max())
+        print(f"  {name:26s} vs the CPU plain path, steps 1-{agree}: max rel "
+              f"err {err:.3e} [rtol 1e-4]; CPU final {float(ref['loss'][-1]):.6f}")
+        if err > 1e-4:
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+        predicted = _fig2_predicted(name)
+        print(f"  {name:26s} launches {counts[name]}  predicted {predicted}")
+        if counts[name] != predicted:
+            raise AssertionError(f"{name}: launch counts differ from the "
+                                 "prediction")
+    if not final["fig2-rfa-unbucketed-clip"] < CLIPPED_BELOW:
+        raise AssertionError(f"clipped unbucketed run ended at "
+                             f"{final['fig2-rfa-unbucketed-clip']}, not below "
+                             f"{CLIPPED_BELOW}")
+    if not final["fig2-rfa-unbucketed-noclip"] > UNCLIPPED_ABOVE:
+        raise AssertionError(f"unclipped unbucketed run ended at "
+                             f"{final['fig2-rfa-unbucketed-noclip']}, not "
+                             f"above {UNCLIPPED_ABOVE}")
+    return counts
+
+
 def main():
     import torch
 
@@ -350,13 +660,18 @@ def main():
     check_shape(checks, 21, 40, 2)
     wide = check_shape(checks, 20, WIDE_D, 3)
     times = time_wide(*wide)
+    gm_shapes(checks)
+    times.update(time_gm(*wide[:3], checks))
     del wide
     torch.cuda.empty_cache()
 
-    # 3. the main path
+    # 3. Fig. 1
     counts = main_path()
 
-    # 4. the kernels line, the card, the result
+    # 4. Fig. 2
+    counts.update(fig2_path())
+
+    # 5. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),
@@ -364,6 +679,14 @@ def main():
                                "clip_aggregate.py:67", "clipped"),
         "coordinate_median": ("csrc/clip_aggregate.cu",
                               "coordinate_median.py:65", "cm-unbucketed"),
+        "gm_resident": ("csrc/geometric_median.cu", "geometric_median.py:39",
+                        "fig2-rfa"),
+        "diff_row_ssq": ("csrc/geometric_median.cu", "centered_clip.py:149",
+                         "fig2-rfa-wide"),
+        "bucket_means": ("csrc/geometric_median.cu", "centered_clip.py:164",
+                         "fig2-rfa-wide"),
+        "gm_update": ("csrc/geometric_median.cu", "geometric_median.py:61",
+                      "fig2-rfa-wide"),
     }
     kernels = []
     for name, (source, replaces, path) in meta.items():

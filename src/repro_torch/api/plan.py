@@ -44,6 +44,7 @@ _RULES = ("mean", "cm", "trimmed_mean", "rfa", "krum", "multi_krum",
           "centered_clip")
 _RULE_ALIASES = dict(_CORE_ALIASES, geometric_median="rfa")
 _ITERATIVE_RULES = ("centered_clip", "rfa")
+_SELECTION_RULES = ("krum", "multi_krum")
 _COMPRESSOR_KINDS = ("identity", "rand_k", "rand_fraction",
                      "l2_quantization")
 _PLACEMENTS = ("naive", "sharded")
@@ -226,10 +227,20 @@ class ServerPlan:
     # -- compilation --------------------------------------------------------
 
     def build_aggregator(self) -> Aggregator:
+        """The ``Aggregator`` this plan's bucket and aggregate stages
+        resolve to, with the per-rule parameters the reference passes;
+        rules not ported yet raise NotImplementedError."""
         spec = self.aggregate
         kwargs = {}
         if spec.rule == "trimmed_mean":
             kwargs["trim_ratio"] = spec.trim_ratio
+        if spec.rule in _SELECTION_RULES:
+            kwargs["byz_bound"] = spec.byz_bound
+            kwargs["m_select"] = spec.m_select
+        if spec.rule == "centered_clip":
+            kwargs["tau"] = spec.tau
+        if spec.rule in _ITERATIVE_RULES and spec.iters:
+            kwargs["iters"] = spec.iters
         return make_aggregator(
             spec.rule,
             bucket_s=self.bucket.s if self.bucket is not None else 0,

@@ -1,11 +1,14 @@
-"""The paper's Fig. 1 configuration (Section 5 / Appendix F): homogeneous
-l2-regularized logistic regression (a9a-like synthetic), 15 good + 5
-byzantine, CM over Bucketing(2), shift-back, 20% sampling.  Fig. 2 comes
-with ROADMAP queue 1 item 7."""
+"""The paper's own experimental configurations (Section 5 / Appendix F).
+
+fig1: homogeneous l2-regularized logistic regression (a9a-like synthetic),
+      15 good + 5 byzantine, CM over Bucketing(2), shift-back, 20% sampling.
+fig2: heterogeneous MLP (MNIST-like synthetic) with the eq.-10 heuristic
+      around robust momentum SGD; {CM, RFA} x {BF, LF, ALIE, SHB}.
+"""
 from typing import Optional
 
 from repro_torch.api import AggregatorSpec, BucketSpec, ClipSpec, ServerPlan
-from repro_torch.core import MarinaPPConfig
+from repro_torch.core import ClippedPPConfig, MarinaPPConfig
 
 
 def paper_plan(aggregator: str = "cm",
@@ -31,3 +34,17 @@ def fig1_marina_pp(use_clipping: bool = True,
 def fig1_problem_kwargs() -> dict:
     return dict(n_clients=20, n_good=15, m=300, dim=40, homogeneous=True,
                 l2=0.01)
+
+
+def fig2_heuristic(aggregator: str = "cm", attack: str = "shb",
+                   use_clipping: bool = True) -> ClippedPPConfig:
+    return ClippedPPConfig(
+        gamma=0.1, beta=0.9, C=4, batch=32,
+        plan=paper_plan(aggregator, 1.0 if use_clipping else None),
+        attack=attack,
+    )
+
+
+def fig2_problem_kwargs(attack: str = "shb") -> dict:
+    return dict(n_clients=20, n_good=15, m=128, in_dim=32, hidden=16,
+                heterogeneous=True, label_flip_byz=(attack == "lf"))

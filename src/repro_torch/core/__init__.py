@@ -3,6 +3,7 @@ from .aggregators import (  # noqa: F401
     Aggregator,
     bucketing,
     coordinate_median,
+    geometric_median,
     make_aggregator,
     mean,
     trimmed_mean,
@@ -16,10 +17,24 @@ from .clipping import (  # noqa: F401
     theorem42_alpha,
 )
 from .compressors import Compressor, make_compressor  # noqa: F401
+from .estimators import page_update, page_update_tree, p_choice  # noqa: F401
+from .heuristic import (  # noqa: F401
+    ClippedPPConfig,
+    ClippedPPMomentum,
+    ClippedPPState,
+    ClippedPPTape,
+)
 from .marina_pp import (  # noqa: F401
     ByzVRMarinaPP,
     MarinaPPConfig,
     MarinaPPState,
     MarinaPPTape,
 )
-from .problems import FedProblem, logistic_problem, problem_from_numpy  # noqa: F401
+from .problems import (  # noqa: F401
+    FedProblem,
+    MLPProblem,
+    logistic_problem,
+    mlp_problem,
+    mlp_problem_from_numpy,
+    problem_from_numpy,
+)

@@ -10,9 +10,9 @@ into one (n, d) matrix first.
 ``"torch"`` the plain rules below on any device, ``"cuda"`` the kernels
 of ``repro_torch.kernels`` (raising on a CPU tensor), ``"auto"`` the
 kernels iff the tensor is on CUDA.  ``"jnp"``/``"pallas"`` are read as
-``"torch"``/``"cuda"``.  Ported rules: mean, cm, trimmed_mean, each
-optionally over Bucketing; rfa, krum, multi_krum and centered_clip raise
-NotImplementedError until their ROADMAP items.
+``"torch"``/``"cuda"``.  Ported rules: mean, cm, trimmed_mean and rfa
+(the geometric median), each optionally over Bucketing; krum, multi_krum
+and centered_clip raise NotImplementedError until their ROADMAP items.
 
 Bucketing's ``key`` is the row order source: an explicit permutation
 (an (n,) integer tensor, e.g. replayed from a recorded run), a
@@ -33,7 +33,8 @@ from .clipping import clip_factor
 from .tree_utils import tree_batch_ravel
 
 __all__ = ["Aggregator", "mean", "coordinate_median", "trimmed_mean",
-           "bucketing", "make_aggregator", "resolve_backend", "RULE_ALIASES"]
+           "geometric_median", "bucketing", "make_aggregator",
+           "resolve_backend", "RULE_ALIASES"]
 
 _BIG = 3.4e37  # +inf stand-in that survives arithmetic
 
@@ -81,6 +82,21 @@ def _trimmed_mean(xs, mask=None, key=None, *, trim_ratio: float = 0.1):
     keep = (idx >= t) & (idx < cnt - t)
     denom = (cnt - 2 * t).clamp(min=1)
     return (torch.where(keep, s, 0.0).sum(dim=0) / denom).to(xs.dtype)
+
+
+def _geometric_median(xs, mask=None, key=None, *, iters: int = 8,
+                      eps: float = 1e-8):
+    """Geometric median via smoothed Weiszfeld fixed-point iterations
+    (Pillutla et al., 2022 — "RFA"): eps inside the sqrt, an eps-guarded
+    weight sum.  F_A = 1 (it stays in the convex hull)."""
+    m = _full_mask(xs, mask).float()
+    x32 = xs.float()
+    z = (x32 * m[:, None]).sum(dim=0) / m.sum().clamp(min=1.0)
+    for _ in range(iters):
+        dist = torch.sqrt(((x32 - z[None]) ** 2).sum(dim=1) + eps)
+        w = m / dist
+        z = (x32 * w[:, None]).sum(dim=0) / w.sum().clamp(min=eps)
+    return z.to(xs.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +204,11 @@ def trimmed_mean(trim_ratio: float = 0.1) -> Aggregator:
                       lambda d: math.sqrt(d), True, 1.0)
 
 
+def geometric_median(iters: int = 8) -> Aggregator:
+    return Aggregator("rfa", partial(_geometric_median, iters=iters),
+                      lambda d: 1.0, False, 1.0)
+
+
 def bucketing(inner: Aggregator, s: int = 2) -> Aggregator:
     """Bucketing o inner: upgrades CM to a (delta, c)-ARAgg."""
     return Aggregator(
@@ -209,12 +230,13 @@ _FACTORY = {
     "cm": lambda **kw: coordinate_median(),
     "trimmed_mean": lambda **kw: trimmed_mean(
         float(kw.get("trim_ratio", _DEFAULT_TRIM))),
+    "rfa": lambda **kw: geometric_median(int(kw.get("iters", 8))),
+    "geometric_median": lambda **kw: geometric_median(
+        int(kw.get("iters", 8))),
 }
 
 # rules of the reference registry that later slices port
 _UNPORTED = {
-    "rfa": "ROADMAP queue 1 item 7 and queue 2 items 3-4",
-    "geometric_median": "ROADMAP queue 1 item 7 and queue 2 items 3-4",
     "krum": "ROADMAP queue 1 item 2 and queue 2 items 6-7",
     "multi_krum": "ROADMAP queue 1 item 2 and queue 2 items 6-7",
     "centered_clip": "ROADMAP queue 1 item 2 and queue 2 items 4-5",
@@ -233,9 +255,11 @@ def resolve_backend(backend: str) -> str:
     return resolved
 
 
-def _kernel_fns(trim_ratio: float, bucket_s: int):
-    """Kernel-backed (aggregate, fused clip -> aggregate) of CM/TM/mean,
-    optionally over Bucketing in the shared ``_bucket_order``."""
+def _kernel_fns(kernel_fn, bucket_s: int, **kernel_kwargs):
+    """Kernel-backed (aggregate, fused clip -> aggregate) pair from one of
+    the ``clip_then_*`` kernel functions, optionally over Bucketing in the
+    shared ``_bucket_order``.  ``kernel_fn(xs, radius, mask, bucket_idx, *,
+    bucket_s, use_clip, **kw) -> (out, norms)``."""
 
     def _idx(key, mask, xs):
         if bucket_s < 2:
@@ -243,19 +267,32 @@ def _kernel_fns(trim_ratio: float, bucket_s: int):
         return _bucket_order(key, mask, xs.shape[0], xs.device)
 
     def aggregate(xs, mask=None, key=None):
-        if bucket_s < 2:
-            return _kops.trimmed_mean(xs, mask, trim_ratio) if trim_ratio >= 0 \
-                else _kops.coordinate_median(xs, mask)
-        out, _ = _kops.clip_then_aggregate(
-            xs, 0.0, mask, _idx(key, mask, xs), trim_ratio=trim_ratio,
-            bucket_s=bucket_s, use_clip=False)
+        out, _ = kernel_fn(xs, 0.0, mask, _idx(key, mask, xs),
+                           bucket_s=max(bucket_s, 1), use_clip=False,
+                           **kernel_kwargs)
         return out
 
     def fused_clip(xs, radius, mask=None, key=None):
-        out, _ = _kops.clip_then_aggregate(
-            xs, radius, mask, _idx(key, mask, xs),
-            trim_ratio=trim_ratio, bucket_s=max(bucket_s, 1))
+        out, _ = kernel_fn(xs, radius, mask, _idx(key, mask, xs),
+                           bucket_s=max(bucket_s, 1), use_clip=True,
+                           **kernel_kwargs)
         return out
+
+    return aggregate, fused_clip
+
+
+def _cm_kernel_fns(trim_ratio: float, bucket_s: int):
+    """CM/TM/mean: the unbucketed, unclipped aggregate goes to the
+    standalone CM/TM kernel (no factor pass at all)."""
+    bucketed, fused_clip = _kernel_fns(_kops.clip_then_aggregate, bucket_s,
+                                       trim_ratio=trim_ratio)
+
+    def aggregate(xs, mask=None, key=None):
+        if bucket_s >= 2:
+            return bucketed(xs, mask=mask, key=key)
+        if trim_ratio >= 0:
+            return _kops.trimmed_mean(xs, mask, trim_ratio)
+        return _kops.coordinate_median(xs, mask)
 
     return aggregate, fused_clip
 
@@ -278,9 +315,14 @@ def make_aggregator(name: str, bucket_s: int = 0, backend: str = "torch",
         agg = bucketing(agg, s=bucket_s)
     if resolved == "torch":
         return agg
-    # mean == trimmed mean with t = ceil(0 * cnt) = 0 dropped rows
-    trim = {"cm": -1.0, "mean": 0.0}.get(
-        name, float(kwargs.get("trim_ratio", _DEFAULT_TRIM)))
-    kernel_fn, fused = _kernel_fns(trim, bucket_s if bucket_s else 0)
+    bs = bucket_s if bucket_s else 0
+    if name in ("rfa", "geometric_median"):
+        kernel_fn, fused = _kernel_fns(_kops.clip_then_geometric_median, bs,
+                                       iters=int(kwargs.get("iters", 8)))
+    else:
+        # mean == trimmed mean with t = ceil(0 * cnt) = 0 dropped rows
+        trim = {"cm": -1.0, "mean": 0.0}.get(
+            name, float(kwargs.get("trim_ratio", _DEFAULT_TRIM)))
+        kernel_fn, fused = _cm_kernel_fns(trim, bs)
     return dataclasses.replace(agg, backend=resolved, kernel_fn=kernel_fn,
                                fused_clip_fn=fused)

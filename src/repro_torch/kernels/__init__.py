@@ -2,6 +2,7 @@
 plain PyTorch version (see ops.py for the dispatch contract)."""
 from .ops import (  # noqa: F401
     clip_then_aggregate,
+    clip_then_geometric_median,
     coordinate_median,
     launch_counts,
     reset_launch_counts,

@@ -36,7 +36,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "cuda_available", "build_all", "load",
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/_build.py is 4 levels down
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("row_norms", "clip_aggregate")
+SOURCES = ("row_norms", "clip_aggregate", "geometric_median")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +44,8 @@ NVCC_FLAGS = (
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 # the C signature of each library's entry points: (name, restype, argtypes)
 _SIGNATURES = {
     "row_norms": (
@@ -54,6 +56,16 @@ _SIGNATURES = {
         ("clip_bucket_select_launch", _I,
          (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, ctypes.c_longlong, _I, _I,
           ctypes.c_float, _I, _VP)),
+    ),
+    "geometric_median": (
+        ("gm_smem_optin", _I, ()),
+        ("gm_resident_launch", _I,
+         (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _I, _I, _F, _LL, _VP)),
+        ("diff_row_ssq_chunk", _I, ()),
+        ("diff_row_ssq_launch", _I, (_VP, _VP, _VP, _VP, _I, _I, _LL, _I, _VP)),
+        ("bucket_means_launch", _I,
+         (_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _I, _I, _VP)),
+        ("gm_update_launch", _I, (_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _VP)),
     ),
 }
 

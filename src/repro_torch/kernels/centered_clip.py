@@ -1,0 +1,246 @@
+"""The machinery the iterative rules share: the Weiszfeld geometric median
+here (``geometric_median.py``) and CenteredClip in a later slice.
+
+``run_clip_then_iterative`` runs the fused clip -> (Bucketing) ->
+iterative aggregation for every such rule, the counterpart of the
+function of that name in ``src/repro/kernels/centered_clip.py``: pass 1
+(``row_norms``) and ``clip_factor`` give the per-row clip factors, the row
+auxiliaries are padded to a multiple of the bucket size s, and the work
+goes to one of two schedules:
+
+  resident  the whole problem in one block's shared memory: one launch of
+            the rule's resident kernel clips, takes the bucket means and
+            runs every iteration;
+  tiled     coordinate-tiled: (s >= 2) one ``bucket_means`` pass writes the
+            nb bucket means, then the rule's tiled function streams the
+            rows (or the means) twice per iteration through
+            ``diff_row_ssq`` and its update kernel, with the O(n) weights
+            computed on the device between launches (no host sync).
+
+**Dispatch rule.**  The resident kernel keeps ``rows`` f32 rows of width d
+(rows = n for s = 1, n_p / s bucket means for s >= 2), the iterate z and
+some per-row scratch in dynamic shared memory, ``resident_smem_bytes(rows,
+d)`` bytes; it runs iff that fits the card's opt-in shared memory per
+block (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes = 227 KB
+on an H100).  On a CPU tensor the plain versions take the same decision
+against the H100's 227 KB, so a CPU run takes the schedule an H100 run
+takes.  (The reference's rule, ``(n_p + 2) * d <= 2^20`` elements of TPU
+VMEM, is not used.)  At n = 20 that admits d <= 2,750 unbucketed and
+d <= 5,266 under Bucketing(2).
+
+Row padding (``pad_bucket_aux``): the auxiliaries are padded to n_p, a
+multiple of s, with mask 0, factor 1 and row indices n..n_p-1; an index
+outside [0, n) is an empty slot, which the kernels never read, so the
+matrix itself is never padded.
+
+Kernels here: ``diff_row_ssq`` (replaces ``_diff_ssq_kernel``) and
+``bucket_means`` (replaces ``_bucket_means_kernel``), both in
+``csrc/geometric_median.cu``.  On a CUDA tensor each wrapper launches its
+kernel or raises; on a CPU tensor it runs the plain PyTorch version
+beside it.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import _build
+from .clip_aggregate import clip_factor, row_norms, row_norms_plain
+from .coordinate_median import _row_vector, check_matrix
+
+__all__ = ["LAUNCHES", "H100_SMEM_OPTIN", "resident_smem_bytes",
+           "smem_budget", "pad_bucket_aux", "diff_row_ssq_plain",
+           "diff_row_ssq", "bucket_means_plain", "bucket_means",
+           "bucket_means_tiled", "run_clip_then_iterative"]
+
+LAUNCHES = {"diff_row_ssq": 0, "bucket_means": 0}
+H100_SMEM_OPTIN = 232448  # cudaDevAttrMaxSharedMemoryPerBlockOptin, H100
+_RES_WARPS = 16  # kResWarps of csrc/geometric_median.cu
+
+
+def resident_smem_bytes(rows: int, d: int) -> int:
+    """Dynamic shared memory of the resident kernel (the rows, z, two
+    per-row weights and the warp sums of each row), as
+    ``gm_resident_smem_floats`` of ``csrc/geometric_median.cu`` counts it:
+    the launch takes this count and refuses one that differs."""
+    return 4 * (rows * d + d + rows * (_RES_WARPS + 2))
+
+
+def smem_budget(device: torch.device) -> int:
+    """The opt-in shared memory per block that the resident kernel must
+    fit: the card's own, or the H100's for a CPU tensor.  The first call
+    on a card also lets the resident kernel take that much there."""
+    if device.type != "cuda":
+        return H100_SMEM_OPTIN
+    index = device.index
+    return _card_smem_budget(torch.cuda.current_device() if index is None
+                             else index)
+
+
+@functools.cache
+def _card_smem_budget(index: int) -> int:
+    with torch.cuda.device(index):
+        budget = _build.load("geometric_median").gm_smem_optin()
+    if budget <= 0:
+        raise RuntimeError("cudaDevAttrMaxSharedMemoryPerBlockOptin failed")
+    return budget
+
+
+def pad_bucket_aux(mask, factors, bucket_idx, n: int, s: int):
+    """Pad the (n,) row auxiliaries to n_p = n rounded up to a multiple of
+    s: mask with 0, factors with 1, the row order (rows in order when
+    None) with n..n_p-1.  Returns (mask, factors, bucket_idx int32)."""
+    dev = mask.device
+    idx = (torch.arange(n, device=dev) if bucket_idx is None
+           else bucket_idx)
+    idx = idx.to(torch.int32)
+    pad = (-n) % s if s >= 2 else 0
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+        factors = torch.cat([factors, factors.new_ones(pad)])
+        idx = torch.cat([idx, torch.arange(n, n + pad, dtype=torch.int32,
+                                           device=dev)])
+    return mask.contiguous(), factors.contiguous(), idx.contiguous()
+
+
+def diff_row_ssq_plain(x, z, factors=None) -> torch.Tensor:
+    """Plain version: (n, d), (d,) -> (n,) f32 sum_j (x_ij f_i - z_j)^2."""
+    x32 = x.float()
+    if factors is not None:
+        x32 = x32 * factors[:, None]
+    return ((x32 - z[None]) ** 2).sum(dim=1)
+
+
+def diff_row_ssq(x, z, factors=None) -> torch.Tensor:
+    """(n, d) rows, (d,) f32 point, (n,) f32 factors or None for 1 ->
+    (n,) f32 squared distances of the scaled rows to z."""
+    check_matrix(x, "diff_row_ssq")
+    n, d = x.shape
+    z = _row_vector(z, d, x.device, torch.float32, "z")
+    if factors is not None:
+        factors = _row_vector(factors, n, x.device, torch.float32, "factors")
+    if not x.is_cuda:
+        return diff_row_ssq_plain(x, z, factors)
+    lib = _build.load("geometric_median")
+    chunks = -(-d // lib.diff_row_ssq_chunk())
+    partial = torch.empty((n, chunks), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.diff_row_ssq_launch(
+            x.data_ptr(), None if factors is None else factors.data_ptr(),
+            z.data_ptr(), partial.data_ptr(), _build.dtype_code(x), n, d,
+            chunks, _build.stream_ptr())
+    _build.check(lib, "diff_row_ssq", rc)
+    LAUNCHES["diff_row_ssq"] += 1
+    return partial.sum(dim=1)
+
+
+def _check_aux(xs, mask, factors, bucket_idx, s):
+    n = xs.shape[0]
+    n_p = mask.shape[0]
+    if s < 1 or n_p % s or n_p < n or n_p - n >= max(s, 1):
+        raise ValueError(f"need (n_p,) auxiliaries with n_p = {n} rounded up "
+                         f"to a multiple of s = {s}, got n_p = {n_p}")
+    dev = xs.device
+    return (_row_vector(mask, n_p, dev, torch.float32, "mask"),
+            _row_vector(factors, n_p, dev, torch.float32, "factors"),
+            _row_vector(bucket_idx, n_p, dev, torch.int32, "bucket_idx"))
+
+
+def _slot_rows(bucket_idx, n: int) -> torch.Tensor:
+    """The row of each slot, with n (a zero row of mask 0) for an empty
+    slot, i.e. an index outside [0, n)."""
+    idx = bucket_idx.long()
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
+def _slot_masks(mask, bucket_idx, n: int, s: int) -> torch.Tensor:
+    """(nb, s) f32 mask of each bucket's slots."""
+    m = torch.cat([mask[:n].float(), mask.new_zeros(1).float()])
+    return m[_slot_rows(bucket_idx, n)].view(-1, s)
+
+
+def bucket_means_plain(xs, mask, factors, bucket_idx, s: int):
+    """Plain version: the s-row mask-weighted means of the scaled rows in
+    the order ``bucket_idx`` (an index outside [0, n) is an empty slot).
+    Returns (means (nb, d) f32, bucket mask (nb,) f32)."""
+    n, d = xs.shape
+    x = torch.cat([xs.float() * factors[:n, None], xs.new_zeros(1, d).float()])
+    xb = x[_slot_rows(bucket_idx, n)].view(-1, s, d)
+    mb = _slot_masks(mask, bucket_idx, n, s)
+    cnt = mb.sum(dim=1)
+    means = (xb * mb[:, :, None]).sum(dim=1) / cnt.clamp(min=1.0)[:, None]
+    return means, (cnt > 0.5).float()
+
+
+def bucket_means(xs, mask, factors, bucket_idx, s: int) -> torch.Tensor:
+    """(n, d) rows and (n_p,) padded auxiliaries -> (nb, d) f32 bucket
+    means (the kernel; the bucket mask is ``bucket_means_tiled``'s)."""
+    check_matrix(xs, "bucket_means")
+    mask, factors, bucket_idx = _check_aux(xs, mask, factors, bucket_idx, s)
+    if not xs.is_cuda:
+        return bucket_means_plain(xs, mask, factors, bucket_idx, s)[0]
+    n, d = xs.shape
+    nb = mask.shape[0] // s
+    out = torch.empty((nb, d), dtype=torch.float32, device=xs.device)
+    lib = _build.load("geometric_median")
+    with torch.cuda.device(xs.device):
+        rc = lib.bucket_means_launch(
+            xs.data_ptr(), factors.data_ptr(), mask.data_ptr(),
+            bucket_idx.data_ptr(), out.data_ptr(), _build.dtype_code(xs), n,
+            d, s, nb, _build.stream_ptr())
+    _build.check(lib, "bucket_means", rc)
+    LAUNCHES["bucket_means"] += 1
+    return out
+
+
+def bucket_means_tiled(xs, mask, factors, bucket_idx, s: int):
+    """Streaming bucket means with the clip factors applied in registers:
+    (means (nb, d) f32, bucket mask (nb,) f32, 1 where a bucket holds a
+    sampled row)."""
+    means = bucket_means(xs, mask, factors, bucket_idx, s)
+    cnt = _slot_masks(mask, bucket_idx, xs.shape[0], s).sum(dim=1)
+    return means, (cnt > 0.5).float()
+
+
+def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
+                            use_clip: bool, resident_fn, tiled_fn,
+                            plain: bool = False):
+    """The fused clip -> (Bucketing) -> iterative aggregation that the
+    iterative rules share (module docstring).
+
+    ``resident_fn(xs, mask, factors, bucket_idx, s)`` -> (d,) f32, the
+    one-launch schedule over the (n_p,) padded auxiliaries;
+    ``tiled_fn(x, mask, factors)`` -> (d,) f32, the streaming schedule over
+    the rows (factors (n,)) or over the bucket means (factors None).
+    ``plain=True`` takes pass 1 and the bucket means from their plain
+    versions whatever the device, for a rule's plain twin.
+    Returns ``(aggregated (d,) in xs.dtype, row_norms (n,) f32 or None)``.
+    """
+    check_matrix(xs, "run_clip_then_iterative")
+    n, d = xs.shape
+    dev = xs.device
+    mask = (torch.ones(n, dtype=torch.float32, device=dev) if mask is None
+            else _row_vector(mask, n, dev, torch.float32, "mask"))
+    if bucket_idx is not None:
+        bucket_idx = _row_vector(bucket_idx, n, dev, torch.int32,
+                                 "bucket_idx")
+    norms = None
+    if use_clip:
+        norms = row_norms_plain(xs) if plain else row_norms(xs)
+        factors = clip_factor(norms, radius)
+    else:
+        factors = torch.ones(n, dtype=torch.float32, device=dev)
+    s = bucket_s if bucket_s >= 2 else 1
+    mask, factors, bucket_idx = pad_bucket_aux(mask, factors, bucket_idx, n,
+                                               s)
+    rows = mask.shape[0] // s
+    if resident_smem_bytes(rows, d) <= smem_budget(dev):
+        out = resident_fn(xs, mask, factors, bucket_idx, s)
+    elif s >= 2:
+        means_fn = bucket_means_plain if plain else bucket_means_tiled
+        means, bucket_ok = means_fn(xs, mask, factors, bucket_idx, s)
+        out = tiled_fn(means, bucket_ok, None)
+    else:
+        out = tiled_fn(xs, mask, factors)
+    return out.to(xs.dtype), norms

@@ -17,14 +17,23 @@ kernels iff the tensor is on CUDA.  ``"jnp"`` and ``"pallas"`` are read as
 """
 from __future__ import annotations
 
+from . import centered_clip as _cc
 from . import clip_aggregate as _ca
 from . import coordinate_median as _cm
+from . import geometric_median as _gm
+from .centered_clip import bucket_means_tiled, diff_row_ssq  # noqa: F401
 from .clip_aggregate import clip_then_aggregate, row_norms  # noqa: F401
+from .geometric_median import (  # noqa: F401
+    clip_then_geometric_median,
+    geometric_median,
+)
 
 __all__ = ["coordinate_median", "trimmed_mean", "clip_then_aggregate",
-           "row_norms", "launch_counts", "reset_launch_counts"]
+           "row_norms", "clip_then_geometric_median", "geometric_median",
+           "diff_row_ssq", "bucket_means_tiled", "launch_counts",
+           "reset_launch_counts"]
 
-_COUNTERS = (_ca.LAUNCHES, _cm.LAUNCHES)
+_COUNTERS = (_ca.LAUNCHES, _cm.LAUNCHES, _cc.LAUNCHES, _gm.LAUNCHES)
 
 
 def coordinate_median(xs, mask=None):

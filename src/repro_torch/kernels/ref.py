@@ -1,5 +1,6 @@
 """Plain PyTorch oracles of the kernels, written from the definitions
-(sort, gather, pad) and independent of the kernels' own plain versions.
+(sort, gather, pad, the Weiszfeld fixed point) and independent of the
+kernels' own plain versions.
 The tests sweep both against these and against ``repro.kernels.ref``."""
 from __future__ import annotations
 
@@ -89,3 +90,31 @@ def clip_then_aggregate_ref(xs, radius, mask=None, bucket_idx=None, *,
         return inner(clipped, mask), norms
     means, bucket_ok = _bucket_means_ref(clipped, mask, bucket_idx, bucket_s)
     return inner(means, bucket_ok), norms
+
+
+def geometric_median_ref(xs, iters=8, eps=1e-8, mask=None):
+    """Smoothed Weiszfeld fixed point: eps inside the sqrt, an eps-guarded
+    weight sum, z0 = the masked mean sum x*m / max(sum m, 1)."""
+    mask = _mask_or_all(xs, mask)
+    m = mask.to(F32)
+    x32 = xs.to(F32)
+    z = (x32 * m[:, None]).sum(dim=0) / torch.clamp(m.sum(), min=1.0)
+    for _ in range(iters):
+        dist = torch.sqrt(((x32 - z[None]) ** 2).sum(dim=1) + eps)
+        w = m / dist
+        z = (x32 * w[:, None]).sum(dim=0) / torch.clamp(w.sum(), min=eps)
+    return z.to(xs.dtype)
+
+
+def clip_then_geometric_median_ref(xs, radius, mask=None, bucket_idx=None, *,
+                                   iters=8, eps=1e-8, bucket_s=1):
+    """Oracle of the fused clip -> (Bucketing) -> Weiszfeld GM kernels.
+    Returns (aggregated (d,), row_norms (n,))."""
+    n = xs.shape[0]
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=xs.device)
+    clipped, norms = _clip_rows_ref(xs, radius, mask)
+    if bucket_s < 2:
+        return geometric_median_ref(clipped, iters, eps, mask=mask), norms
+    means, bucket_ok = _bucket_means_ref(clipped, mask, bucket_idx, bucket_s)
+    return geometric_median_ref(means, iters, eps, mask=bucket_ok), norms

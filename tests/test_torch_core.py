@@ -22,7 +22,8 @@ from repro_torch.kernels import ops
 from repro_torch.scenarios import stage as tstage
 
 TOL = dict(rtol=1e-5, atol=1e-6)
-RULES = [("cm", {}), ("trimmed_mean", {"trim_ratio": 0.2}), ("mean", {})]
+RULES = [("cm", {}), ("trimmed_mean", {"trim_ratio": 0.2}), ("mean", {}),
+         ("rfa", {"iters": 5})]
 
 
 def _case(n, d, seed):
@@ -66,8 +67,12 @@ def test_kernel_composition_matches_reference_pallas(rule, kw, bucket_s):
     xs, mask = _case(n, d, 11 + bucket_s)
     key = jax.random.PRNGKey(3)
     ref = ragg.make_aggregator(rule, bucket_s, backend="pallas", **kw)
-    trim = {"cm": -1.0, "mean": 0.0}.get(rule, kw.get("trim_ratio"))
-    aggregate, fused = tagg._kernel_fns(trim, bucket_s)
+    if rule == "rfa":
+        aggregate, fused = tagg._kernel_fns(ops.clip_then_geometric_median,
+                                            bucket_s, **kw)
+    else:
+        trim = {"cm": -1.0, "mean": 0.0}.get(rule, kw.get("trim_ratio"))
+        aggregate, fused = tagg._cm_kernel_fns(trim, bucket_s)
     perm = torch.tensor(np.asarray(jax.random.permutation(key, n)))
     xt, mt = torch.from_numpy(xs), torch.from_numpy(mask)
     np.testing.assert_allclose(
@@ -116,9 +121,11 @@ def test_backends_dispatch_by_device():
         tagg.make_aggregator("cm", backend="xla")
     with pytest.raises(ValueError, match="unknown aggregator"):
         tagg.make_aggregator("median")
-    for rule in ("krum", "multi_krum", "rfa", "gm", "cclip"):
+    for rule in ("krum", "multi_krum", "cclip"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             tagg.make_aggregator(rule)
+    for rule in ("rfa", "gm", "geometric_median"):  # ported with Fig. 2
+        assert tagg.make_aggregator(rule, backend="auto").name == "rfa"
 
 
 def test_aggregators_take_dicts_of_tensors():

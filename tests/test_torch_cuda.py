@@ -22,6 +22,9 @@ from repro_torch.kernels import ops
 
 cmk = importlib.import_module("repro_torch.kernels.coordinate_median")
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
+NO_LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0, "coordinate_median": 0,
+               "diff_row_ssq": 0, "bucket_means": 0, "gm_resident": 0,
+               "gm_update": 0}
 
 
 @pytest.fixture
@@ -57,8 +60,9 @@ def test_cuda_kernels_match_plain(card, n, d, s, trim, dtype):
     torch.testing.assert_close(
         cm, cmk.coordinate_median_plain(xs, mask, trim).to(dtype), **exact)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"row_norms": 1, "clip_bucket_select": 1,
-                                   "coordinate_median": 1}
+    assert ops.launch_counts() == dict(NO_LAUNCHES, row_norms=1,
+                                       clip_bucket_select=1,
+                                       coordinate_median=1)
 
 
 @pytest.mark.cuda
@@ -120,8 +124,135 @@ def test_cuda_engine_goes_through_the_kernels(card):
     _, met = ByzVRMarinaPP(prob, fig1_marina_pp(True), device=card).run(40)
     counts = ops.launch_counts()
     diff_rounds = int((~met["full_round"]).sum())
-    assert counts == {"row_norms": diff_rounds, "clip_bucket_select": 41,
-                      "coordinate_median": 0}
+    assert counts == dict(NO_LAUNCHES, row_norms=diff_rounds,
+                          clip_bucket_select=41)
     cpu = logistic_problem(0, device="cpu", **fig1_problem_kwargs())
     _, ref = ByzVRMarinaPP(cpu, fig1_marina_pp(True), device="cpu").run(40)
+    torch.testing.assert_close(met["loss"], ref["loss"], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the Weiszfeld geometric-median kernels (csrc/geometric_median.cu)
+# ---------------------------------------------------------------------------
+
+def _gm_mods():
+    return (importlib.import_module("repro_torch.kernels.centered_clip"),
+            importlib.import_module("repro_torch.kernels.geometric_median"))
+
+
+def _gm_case(card, n, d, s, dtype, seed, masked=True):
+    cc, _ = _gm_mods()
+    g = torch.Generator(device=card).manual_seed(seed)
+    xs = torch.randn(n, d, device=card, generator=g).to(dtype)
+    mask = torch.rand(n, device=card, generator=g) > 0.3
+    mask[0] = True
+    if not masked:
+        mask[:] = False
+    idx = torch.randperm(n, device=card, generator=g).int()
+    factors = torch.rand(n, device=card, generator=g)
+    m, f, i = cc.pad_bucket_aux(mask.float(), factors, idx, n, s)
+    return xs, mask, idx, m, f, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 21])
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_gm_kernels_match_plain(card, n, s, dtype):
+    """Each kernel against its plain version on the same inputs; the
+    outputs are f32 for both input types, so the f32 tolerance holds."""
+    cc, gmk = _gm_mods()
+    xs, mask, idx, m, f, i = _gm_case(card, n, 698, s, dtype, n * 10 + s)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(
+        gmk.gm_resident(xs, m, f, i, s, iters=8),
+        gmk.gm_resident_plain(xs, m, f, i, s, iters=8, eps=1e-8), **SUM_TOL)
+    if s >= 2:
+        torch.testing.assert_close(cc.bucket_means(xs, m, f, i, s),
+                                   cc.bucket_means_plain(xs, m, f, i, s)[0],
+                                   **SUM_TOL)
+    z = torch.randn(698, device=card)
+    torch.testing.assert_close(cc.diff_row_ssq(xs, z, f[:n]),
+                               cc.diff_row_ssq_plain(xs, z, f[:n]), **SUM_TOL)
+    w = torch.rand(n, device=card)
+    torch.testing.assert_close(gmk.gm_update(xs, w, f[:n], w.sum()),
+                               gmk.gm_update_plain(xs, w, f[:n], w.sum()),
+                               **SUM_TOL)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, diff_row_ssq=1,
+                                       bucket_means=int(s >= 2),
+                                       gm_resident=1, gm_update=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2])
+def test_cuda_gm_dispatch_both_sides_of_the_threshold(card, s):
+    """The largest d the resident rule admits at n = 20 runs gm_resident;
+    one coordinate more runs the tiled kernels; both agree with the plain
+    versions composed the same way."""
+    cc, gmk = _gm_mods()
+    budget = cc.smem_budget(card)
+    rows = 20 // s
+    d_max = (budget // 4 - rows * 18) // (rows + 1)
+    assert cc.resident_smem_bytes(rows, d_max) <= budget \
+        < cc.resident_smem_bytes(rows, d_max + 1)
+    for d, resident in ((d_max, True), (d_max + 1, False)):
+        xs, mask, idx, _, _, _ = _gm_case(card, 20, d, s, torch.float32, d)
+        bidx = idx if s >= 2 else None
+        ops.reset_launch_counts()
+        got, norms = ops.clip_then_geometric_median(xs, 1.5, mask, bidx,
+                                                    bucket_s=s)
+        counts = ops.launch_counts()
+        assert counts["gm_resident"] == int(resident)
+        assert counts["gm_update"] == (0 if resident else 9)
+        want, wnorms = gmk.clip_then_geometric_median_plain(
+            xs, 1.5, mask, bidx, bucket_s=s)
+        torch.testing.assert_close(got, want, **SUM_TOL)
+        torch.testing.assert_close(norms, wnorms, **SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 3])
+def test_cuda_gm_all_masked_gives_zero(card, s):
+    xs, mask, idx, _, _, _ = _gm_case(card, 21, 700, s, torch.float32, 3,
+                                      masked=False)
+    bidx = idx if s >= 2 else None
+    zero = torch.zeros(700, device=card)
+    got, _ = ops.clip_then_geometric_median(xs, 1.0, mask, bidx, bucket_s=s)
+    torch.testing.assert_close(got, zero, rtol=0, atol=0)
+    wide = torch.randn(21, 6000, device=card)  # the tiled schedule
+    got, _ = ops.clip_then_geometric_median(wide, 1.0, mask, bidx, bucket_s=s)
+    torch.testing.assert_close(got, torch.zeros(6000, device=card), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_gm_kernels_repeat_bit_for_bit(card):
+    """No atomics: two launches on the same inputs are bitwise equal."""
+    cc, gmk = _gm_mods()
+    xs, _, _, m, f, i = _gm_case(card, 21, 70000, 3, torch.float32, 8)
+    z = torch.randn(70000, device=card)
+    w = torch.rand(21, device=card)
+    runs = [lambda: cc.diff_row_ssq(xs, z, f[:21]),
+            lambda: cc.bucket_means(xs, m, f, i, 3),
+            lambda: gmk.gm_update(xs, w, f[:21], w.sum()),
+            lambda: gmk.gm_resident(xs[:, :698].contiguous(), m, f, i, 3)]
+    for run in runs:
+        assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
+def test_cuda_fig2_engine_goes_through_the_kernels(card):
+    from repro_torch.configs.paper import fig2_heuristic, fig2_problem_kwargs
+    from repro_torch.core import ClippedPPMomentum, mlp_problem
+
+    cfg = fig2_heuristic("rfa", "shb", True)
+    prob = mlp_problem(0, device=card, **fig2_problem_kwargs("shb"))
+    ops.reset_launch_counts()
+    _, met = ClippedPPMomentum(prob, cfg, device=card).run(30)
+    counts = ops.launch_counts()
+    assert counts["gm_resident"] == 31 and counts["row_norms"] == 30
+    cpu = mlp_problem(0, device="cpu", **fig2_problem_kwargs("shb"))
+    _, ref = ClippedPPMomentum(cpu, cfg, device="cpu").run(30)
     torch.testing.assert_close(met["loss"], ref["loss"], rtol=1e-5, atol=0)

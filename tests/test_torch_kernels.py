@@ -306,8 +306,12 @@ def test_launch_counts_move_only_on_launch():
     xs = torch.randn(6, 20)
     ops.clip_then_aggregate(xs, 1.0, bucket_s=2)
     ops.coordinate_median(xs)
+    ops.clip_then_geometric_median(xs, 1.0, bucket_s=2)
+    ops.geometric_median(xs)
     assert ops.launch_counts() == {"row_norms": 0, "clip_bucket_select": 0,
-                                   "coordinate_median": 0}
+                                   "coordinate_median": 0, "diff_row_ssq": 0,
+                                   "bucket_means": 0, "gm_resident": 0,
+                                   "gm_update": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -318,6 +322,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert set(_build.SOURCES) == {"row_norms", "clip_aggregate"}
+    assert set(_build.SOURCES) == {"row_norms", "clip_aggregate",
+                                   "geometric_median"}
     # each library is named by a hash of its sources and flags
     assert _build._lib_path("row_norms") != _build._lib_path("clip_aggregate")

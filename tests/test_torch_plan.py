@@ -105,7 +105,7 @@ def test_sharded_and_mesh_builds_name_their_roadmap_item():
 
 
 def test_unported_rules_and_compressors_raise_not_implemented():
-    for rule in ("krum", "multi_krum", "rfa", "centered_clip"):
+    for rule in ("krum", "multi_krum", "centered_clip"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             T.ServerPlan(aggregate=rule).build()
     plan = T.ServerPlan(aggregate="cm", compress=T.CompressSpec("rand_k", k=2))
@@ -127,3 +127,38 @@ def test_server_step_radius_and_static_clip():
     torch.testing.assert_close(fixed(xs), torch.full((4,), 0.25))
     # aggregate() is the unclipped form
     torch.testing.assert_close(fixed.aggregate(xs), torch.full((4,), 10.0))
+
+
+@pytest.mark.parametrize("backend", ["jnp", "auto"])
+def test_rfa_plan_document_gives_the_same_aggregate_in_both(backend):
+    """One plan document, ``AggregatorSpec("rfa", iters=3)`` over
+    Bucketing(2), built by both packages: the same aggregate (clipped and
+    not) on the same rows, mask and Bucketing order, and ``iters``
+    reaches the rule (3 steps differ from the default 8)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    doc = R.ServerPlan(aggregate=R.AggregatorSpec("rfa", iters=3),
+                       clip=R.ClipSpec(alpha=1.0), bucket=R.BucketSpec(s=2),
+                       schedule=R.ScheduleSpec(backend=backend)).to_json()
+    ref, port = R.ServerPlan.from_json(doc).build(), \
+        T.ServerPlan.from_json(doc).build()
+    rng = np.random.RandomState(12)
+    xs = rng.randn(20, 300).astype(np.float32)
+    mask = rng.rand(20) > 0.3
+    key = jax.random.PRNGKey(4)
+    perm = torch.tensor(np.asarray(jax.random.permutation(key, 20)))
+    xt, mt = torch.from_numpy(xs), torch.from_numpy(mask)
+    xj, mj = jnp.asarray(xs), jnp.asarray(mask)
+    np.testing.assert_allclose(port(xt, mt, key=perm, radius=2.0).numpy(),
+                               np.asarray(ref(xj, mj, key=key, radius=2.0)),
+                               rtol=0, atol=1e-5)
+    got = port.aggregate(xt, mt, key=perm)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref.aggregate(xj, mj, key=key)),
+                               rtol=0, atol=1e-5)
+    eight = T.ServerPlan(aggregate=T.AggregatorSpec("rfa"),
+                         bucket=T.BucketSpec(s=2)).build()
+    assert float((eight.aggregate(xt, mt, key=perm) - got).abs().max()) > 1e-6
