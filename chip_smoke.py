@@ -28,6 +28,23 @@ Phases (any failure raises, prints no result and exits non-zero):
    weights; gm_update: (w / wsum) @ x; diff_row_ssq: torch.cdist);
    gm_resident is timed at the Fig. 2 shape, the largest it takes on the
    path.
+   Krum's four kernels (gram_matrix, cross_gram, weighted_row_sum,
+   select_row) against their plain versions at the serve shape (n=16,
+   d=4,096), an odd shape (n=17, d=4,097) and the wide shape (n=20,
+   d=2^24+37), with random masks as weights, an inf in a zero-weight row,
+   scale 0, winner indices out of range and bf16: the Gram and cross-Gram
+   to rtol 1e-5 of each entry's scale sqrt(G_ii G_jj), the row-sum to
+   rtol 1e-5, select_row exactly; and bit for bit G == G^T and
+   cross_gram(x, x) == gram_matrix(x) at all three shapes.  The Gram's f32
+   arithmetic is held against a float64 Gram of the same inputs, each
+   entry within GRAM_F32_K * 2^-24 * sqrt(D) * (sqrt(sum_k a_ik^2 b_jk^2)
+   + |G_ij|), D the most roundings a product passes through in the
+   kernel's sum (``gram_rounding_depth``): the f32 summation error of
+   sums of random-sign and of same-sign terms.  On f32 inputs the same
+   limit must reject two stand-ins, the float64 Gram of the operands
+   rounded to TF32 and to bf16, or the check fails as too loose.  At the wide
+   shape each is timed beside its bound, its plain version and one library
+   call (x @ x.T, a @ b.T, w @ x, x[winner] * scale; TF32 off).
 3. Fig. 1: the paper's configuration (20 clients, 15 good, m=300, d=40,
    CM over Bucketing(2), shift-back, C=4, C_hat=20, p=0.2, gamma=0.5) on
    "cuda" with backend "auto", clipped and unclipped, 300 steps each, plus
@@ -48,7 +65,20 @@ Phases (any failure raises, prints no result and exits non-zero):
    as in phase 3, each equal to its run's prediction; each run agrees
    with the CPU plain path at rtol 1e-4 (the unclipped run over its first
    100 steps).
-5. A ``{"kernels": [...]}`` line, then the card line, then the result.
+5. Serving: ``AggregationServer`` on "cuda" with backend "auto" at the
+   serve launcher's size (16 slots, the trailing 4 under ALIE, cohort
+   12), driven by ``repro_torch.launch.serve.run_stream``:
+   serve-krum-steady, serve-krum-burst (Krum, byz_bound 4, static radius
+   5.0, one row or a cohort per pump), serve-multikrum-bucketed
+   (multi-Krum over Bucketing(2), radius 5.0), serve-cm (CM, no clip) at
+   d = 4,096, 8 rounds, and serve-krum-wide (d = 2^20, 4 rounds).  Every
+   round's close must equal the one-shot ServerStep on the assembled
+   buffer bit for bit, each run must agree with the same stream on the
+   CPU plain path (rtol 1e-5, the same Krum winners and multi-Krum sets),
+   end without executor faults or degraded rounds, and launch exactly
+   what its own chunking predicts; a second, unchecked run of each
+   gives rows per second and p50/p99 submit-to-resolution ms.
+6. A ``{"kernels": [...]}`` line, then the card line, then the result.
    A kernel's ``launches`` are those of the run of the path it serves
    (``path``); ``launches_by_path`` has its counts in every run.
 """
@@ -68,6 +98,7 @@ STEPS = 300
 WIDE_STEPS = 50  # fig2-rfa-wide
 GM_ITERS = 8
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
+GRAM_F32_K = 8.0  # the Gram's limit against float64, in f32 rounding units
 # phase 4's thresholds for the unbucketed majority runs, fixed from the
 # port's own CPU run (clipped 1.6687, unclipped 199.42 after 300 steps)
 CLIPPED_BELOW, UNCLIPPED_ABOVE = 2.0, 20.0
@@ -104,19 +135,21 @@ class Checks:
     def __init__(self):
         self.max_abs = {}
 
-    def compare(self, kernel, what, got, want, exact):
+    def compare(self, kernel, what, got, want, exact, scale=None):
+        """``scale``: what rtol is relative to (default |want|)."""
         import torch
 
         torch.cuda.synchronize()
         got, want = got.float(), want.float()
         err = (got - want).abs()
         max_abs = float(err.max())
-        rel = float((err / want.abs().clamp(min=1e-30)).max())
+        scale = want.abs() if scale is None else scale
+        rel = float((err / scale.clamp(min=1e-30)).max())
         if exact:
             ok = torch.equal(got, want)
             tol = "exact"
         else:
-            ok = bool((err <= SUM_ATOL + SUM_RTOL * want.abs()).all())
+            ok = bool((err <= SUM_ATOL + SUM_RTOL * scale).all())
             tol = f"rtol {SUM_RTOL:g} atol {SUM_ATOL:g}"
         print(f"  {kernel:18s} {what:44s} max_abs {max_abs:.3e} "
               f"max_rel {rel:.3e} [{tol}] {'ok' if ok else 'FAIL'}")
@@ -445,6 +478,168 @@ def time_gm(x, mask, idx, checks):
     return out
 
 
+def _krum_mod():
+    return sys.modules["repro_torch.kernels.krum"]
+
+
+def _entry_scale(gram_a, gram_b):
+    """Each Gram entry's Cauchy-Schwarz scale sqrt(|A_ii B_jj|)."""
+    import torch
+
+    return torch.sqrt(torch.outer(gram_a.diagonal(), gram_b.diagonal()).abs())
+
+
+def _tf32(t):
+    """f32 values rounded to TF32's 10-bit mantissa (ties away from 0)."""
+    import torch
+
+    bits = (t.float().view(torch.int32) + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def check_gram_f64(what, tag, got, a, b):
+    """Hold a Gram or cross-Gram against the float64 product of its
+    operands at the f32 summation limit (module docstring); on f32 inputs
+    the limit must also reject the TF32 and bf16 stand-ins."""
+    import torch
+
+    kr = _krum_mod()
+    n, d = a.shape
+    a64, b64 = a.double(), b.double()
+    g64 = a64 @ b64.T
+    q = (a64 * a64) @ (b64 * b64).T
+    tol = (GRAM_F32_K * 2.0 ** -24 * math.sqrt(kr.gram_rounding_depth(n, d))
+           * (q.sqrt() + g64.abs()))
+    del a64, b64, q
+
+    def worst(g):
+        return float(((g.double() - g64).abs() / tol).max())
+
+    ratio = worst(got)
+    line = f"  {what:18s} {tag + ' vs float64':44s} err/limit {ratio:.3e}"
+    stand_ins = {}
+    if a.dtype == torch.float32:
+        stand_ins = {"tf32": worst(_tf32(a).double() @ _tf32(b).double().T),
+                     "bf16": worst(a.bfloat16().double()
+                                   @ b.bfloat16().double().T)}
+        line += "  stand-ins " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in stand_ins.items())
+    ok = ratio <= 1.0 and all(v > 1.0 for v in stand_ins.values())
+    print(line + f" [limit {GRAM_F32_K:g} units] {'ok' if ok else 'FAIL'}")
+    if ratio > 1.0:
+        raise AssertionError(f"{what} {tag}: beyond the f32 summation limit "
+                             f"of the float64 Gram ({ratio:.3e})")
+    if not ok:
+        raise AssertionError(f"{what} {tag}: the f32 limit does not reject a "
+                             f"rounded-operand stand-in {stand_ins}")
+
+
+def check_krum(checks, x, y, tag):
+    """Krum's four kernels against their plain versions on (n, d) rows x
+    (and y, the second cross-Gram operand), and the Gram's bitwise
+    properties."""
+    import torch
+
+    kr = _krum_mod()
+    n, d = x.shape
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    mask = torch.rand(n, device="cuda", generator=g) > 0.3
+    gram = kr.gram_matrix(x)
+    want = kr.gram_matrix_plain(x)
+    want_y = kr.gram_matrix_plain(y)
+    checks.compare("gram_matrix", tag, gram, want, exact=False,
+                   scale=_entry_scale(want, want))
+    check_gram_f64("gram_matrix", tag, gram, x, x)
+    torch.cuda.synchronize()
+    sym = torch.equal(gram, gram.T)
+    same = torch.equal(kr.cross_gram(x, x), gram)
+    print(f"  {'gram_matrix':18s} {tag + ' G == G^T, cross(x,x) == gram(x)':44s}"
+          f" {'bit for bit' if sym and same else 'FAIL'}")
+    if not (sym and same):
+        raise AssertionError(f"{tag}: symmetric {sym}, cross == gram {same}")
+    cross = kr.cross_gram(x, y)
+    checks.compare("cross_gram", tag, cross, kr.cross_gram_plain(x, y),
+                   exact=False, scale=_entry_scale(want, want_y))
+    check_gram_f64("cross_gram", tag, cross, x, y)
+    w = torch.rand(n, device="cuda", generator=g) * mask
+    checks.compare("weighted_row_sum", f"{tag} masked weights",
+                   kr.weighted_row_sum(x, w), kr.weighted_row_sum_plain(x, w),
+                   exact=False)
+    for win, sc in ((n // 2, 0.75), (-3, 1.0), (n + 5, 2.0), (1, 0.0)):
+        win_t = torch.tensor(win, device="cuda")
+        sc_t = torch.tensor(sc, device="cuda")
+        checks.compare("select_row", f"{tag} row {win} scale {sc}",
+                       kr.select_row(x, win_t, sc_t),
+                       kr.select_row_plain(x, win_t, sc_t), exact=True)
+
+
+def krum_edges(checks):
+    """At the serve shape: an inf row of weight 0 and of scale 0, and bf16."""
+    import torch
+
+    kr = _krum_mod()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(16, 4096, device="cuda", generator=g)
+    x[3] = float("inf")
+    w = torch.rand(16, device="cuda", generator=g)
+    w[3] = 0.0
+    got = kr.weighted_row_sum(x, w)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("weighted_row_sum: an inf row of weight 0 "
+                             "leaked into the sum")
+    checks.compare("weighted_row_sum", "n=16 d=4096 inf row of weight 0", got,
+                   kr.weighted_row_sum_plain(x, w), exact=False)
+    zero = torch.zeros(4096, device="cuda")
+    checks.compare("select_row", "n=16 d=4096 inf row, scale 0",
+                   kr.select_row(x, torch.tensor(3, device="cuda"),
+                                 torch.tensor(0.0, device="cuda")), zero,
+                   exact=True)
+    xb = torch.randn(17, 4097, device="cuda", generator=g).bfloat16()
+    yb = torch.randn(17, 4097, device="cuda", generator=g).bfloat16()
+    check_krum(checks, xb, yb, "n=17 d=4097 bf16")
+
+
+def time_krum(x, y):
+    """Krum's kernels at the wide shape: kernel, plain and library times
+    (TF32 is off for the library products)."""
+    import torch
+
+    kr = _krum_mod()
+    n, d = x.shape
+    nt = -(-n // 4)  # the kernels' 4 x 4 tiles per side
+    w = torch.rand(n, device="cuda") + 0.5  # every row read
+    win = torch.tensor(n // 2, device="cuda")
+    sc = torch.tensor(0.5, device="cuda")
+    out = {}
+    t = {"ms": _time_ms(lambda: kr.gram_matrix(x), 10),
+         "plain_ms": _time_ms(lambda: kr.gram_matrix_plain(x), 2),
+         "library_ms": _time_ms(lambda: x @ x.T, 10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + n * n),
+                                          2 * 16 * nt * (nt + 1) // 2 * d)
+    out["gram_matrix"] = t
+    t = {"ms": _time_ms(lambda: kr.cross_gram(x, y), 10),
+         "plain_ms": _time_ms(lambda: kr.cross_gram_plain(x, y), 2),
+         "library_ms": _time_ms(lambda: x @ y.T, 10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (2 * n * d + n * n),
+                                          2 * 16 * nt * nt * d)
+    out["cross_gram"] = t
+    t = {"ms": _time_ms(lambda: kr.weighted_row_sum(x, w), 10),
+         "plain_ms": _time_ms(lambda: kr.weighted_row_sum_plain(x, w), 3),
+         "library_ms": _time_ms(lambda: w @ x, 10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d + n), 2 * n * d)
+    out["weighted_row_sum"] = t
+    t = {"ms": _time_ms(lambda: kr.select_row(x, win, sc), 20),
+         "plain_ms": _time_ms(lambda: kr.select_row_plain(x, win, sc), 10),
+         "library_ms": _time_ms(lambda: x[win] * sc, 20)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * 2 * d, d)
+    out["select_row"] = t
+    for name, v in out.items():
+        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.4f}"
+              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
+              f"library {v['library_ms']:.4f} ms")
+    return out
+
+
 def _optimum(prob):
     import torch
 
@@ -456,7 +651,8 @@ def _optimum(prob):
 
 _NO_LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0,
                 "coordinate_median": 0, "diff_row_ssq": 0, "bucket_means": 0,
-                "gm_resident": 0, "gm_update": 0}
+                "gm_resident": 0, "gm_update": 0, "gram_matrix": 0,
+                "cross_gram": 0, "weighted_row_sum": 0, "select_row": 0}
 
 
 def _predicted(name, n_diff):
@@ -621,6 +817,169 @@ def fig2_path():
     return counts
 
 
+SERVE_RUNS = (  # name, rule, bucket_s, radius, arrival, rounds, dim
+    ("serve-krum-steady", "krum", 0, 5.0, "steady", 8, 4096),
+    ("serve-krum-burst", "krum", 0, 5.0, "burst", 8, 4096),
+    ("serve-multikrum-bucketed", "multi_krum", 2, 5.0, "steady", 8, 4096),
+    ("serve-cm", "cm", 0, None, "steady", 8, 4096),
+    ("serve-krum-wide", "krum", 0, 5.0, "steady", 4, 1 << 20),
+)
+SERVE_SLOTS, SERVE_BYZ, SERVE_COHORT, SERVE_SEED = 16, 4, 12, 0
+
+
+class _Audit:
+    """An ``on_close`` hook that records, at every close, the round's
+    selection (winner and the rows of non-zero weight) and, when asked,
+    the one-shot ServerStep on the assembled buffer and mask."""
+
+    def __init__(self, one_shot):
+        self.one_shot = one_shot
+        self.server = None
+        self.records = []
+
+    def __call__(self, result, state):
+        import torch
+
+        from repro_torch.serve import round_key
+
+        srv = self.server
+        ex = srv.executor
+        buf, arrived, stats = state
+        picked = once = None
+        if ex.two_phase:  # (n, n) algebra only: no kernel launches
+            sel = ex.aggregator.finalize(
+                stats, mask=arrived,
+                key=round_key(srv.config.seed, result.round_id),
+                radius=ex.radius)
+            picked = (int(sel.winner),
+                      tuple(torch.nonzero(sel.weights).flatten().tolist()))
+        if self.one_shot:
+            once = ex.step(buf, mask=arrived,
+                           key=round_key(srv.config.seed, result.round_id))
+            once = once.cpu().numpy()
+        self.records.append((result, picked, once))
+
+
+def _audited(plan, cfg, device, one_shot=False):
+    """An AggregationServer with an _Audit on its closes."""
+    from repro_torch.serve import AggregationServer
+
+    audit = _Audit(one_shot)
+    audit.server = AggregationServer(plan, cfg, device=device,
+                                     on_close=audit)
+    return audit
+
+
+def _serve_predicted(rule, bucket_s, rounds, chunks):
+    """Launches of a checked serve run: one cross-Gram per chunk; per
+    round one apply at the close and one Gram + apply for the one-shot
+    check; CM closes (and checks) through the standalone CM kernel."""
+    if rule == "cm":
+        return dict(_NO_LAUNCHES, coordinate_median=2 * rounds)
+    apply = "select_row" if rule == "krum" and bucket_s < 2 \
+        else "weighted_row_sum"
+    return dict(_NO_LAUNCHES, cross_gram=chunks, gram_matrix=rounds,
+                **{apply: 2 * rounds})
+
+
+def serve_path():
+    """Phase 5: the streaming server on the card; returns each run's
+    launch counts and its rows/s and latency."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ClipSpec,
+                                 ScheduleSpec, ServerPlan)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import latency_ms, run_stream
+    from repro_torch.scenarios import SyntheticCohort
+    from repro_torch.serve import AggregationServer, ServeConfig
+
+    counts, rates = {}, {}
+    for name, rule, bucket_s, radius, arrival, rounds, dim in SERVE_RUNS:
+        plan = ServerPlan(
+            aggregate=AggregatorSpec(rule, byz_bound=SERVE_BYZ),
+            clip=ClipSpec(radius=radius) if radius else None,
+            bucket=BucketSpec(s=bucket_s) if bucket_s else None,
+            schedule=ScheduleSpec(placement="naive", backend="auto"))
+        cfg = ServeConfig(n_slots=SERVE_SLOTS, dim=dim,
+                          cohort_size=SERVE_COHORT, seed=SERVE_SEED)
+        per = SERVE_COHORT if arrival == "burst" else 1
+
+        def drive(server):
+            cohort = SyntheticCohort("alie", n_slots=SERVE_SLOTS, dim=dim,
+                                     n_byz=SERVE_BYZ)
+            return run_stream(server, cohort, rounds=rounds, seed=SERVE_SEED,
+                              rows_per_pump=per)
+
+        card = _audited(plan, cfg, "cuda", one_shot=True)
+        if not card.server.executor.kernels:
+            raise AssertionError(f"{name}: the executor did not take the "
+                                 "kernel form on the card")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        drive(card.server)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        cpu = _audited(plan, cfg, "cpu")
+        drive(cpu.server)
+        timed = AggregationServer(plan, cfg, device="cuda")
+        tickets, wall = drive(timed)
+        lat = latency_ms(tickets)
+        rates[name] = dict(rows_per_s=timed.metrics.rows_ingested / wall,
+                           **lat)
+
+        worst = 0.0
+        for server in (card.server, cpu.server, timed):
+            m = server.metrics
+            if (m.rounds_closed != rounds or m.executor_faults
+                    or m.rounds_degraded):
+                raise AssertionError(f"{name}: {m.snapshot()}")
+        for (rc, pc, once), (rp, pp, _), rt in zip(card.records, cpu.records,
+                                                    _closed(tickets)):
+            if not np.array_equal(once, rc.aggregate):
+                raise AssertionError(f"{name} round {rc.round_id}: the close "
+                                     "differs from the one-shot ServerStep")
+            if not np.array_equal(rt, rc.aggregate):
+                raise AssertionError(f"{name} round {rc.round_id}: the timed "
+                                     "run closed another aggregate")
+            if (rc.round_id, rc.close_reason, rc.cohort_fill) != \
+                    (rp.round_id, rp.close_reason, rp.cohort_fill) \
+                    or pc != pp:
+                raise AssertionError(f"{name} round {rc.round_id}: card "
+                                     f"{pc} vs CPU {pp}")
+            err = np.abs(rc.aggregate - rp.aggregate)
+            if not np.all(err <= 1e-7 + 1e-5 * np.abs(rp.aggregate)):
+                raise AssertionError(f"{name} round {rc.round_id}: card and "
+                                     "CPU aggregates differ")
+            worst = max(worst, float((err / np.maximum(
+                np.abs(rp.aggregate), 1e-30)).max()))
+        predicted = _serve_predicted(rule, bucket_s, rounds,
+                                     card.server.metrics.chunks_ingested)
+        picks = [p for _, p, _ in card.records]
+        print(f"  {name:25s} d={dim} rounds {rounds} bitwise == one-shot: ok;"
+              f" vs CPU max rel err {worst:.3e} [rtol 1e-5], same winners")
+        print(f"  {name:25s} winners (row, rows of non-zero weight) "
+              f"{picks[:3]}{' ...' if len(picks) > 3 else ''}")
+        print(f"  {name:25s} launches {counts[name]}  predicted {predicted}")
+        print(f"  {name:25s} {rates[name]['rows_per_s']:.1f} rows/s  p50 "
+              f"{rates[name]['p50_ms']:.3f} ms  p99 {rates[name]['p99_ms']:.3f}"
+              f" ms ({len(tickets)} rows, {wall:.3f} s, unchecked run)")
+        if counts[name] != predicted:
+            raise AssertionError(f"{name}: launch counts differ from the "
+                                 "prediction")
+    return counts, rates
+
+
+def _closed(tickets):
+    """The aggregates of a finished run's rounds, in round order."""
+    seen = {}
+    for t in tickets:
+        if t.done:
+            seen[t.result.round_id] = t.result.aggregate
+    return [seen[k] for k in sorted(seen)]
+
+
 def main():
     import torch
 
@@ -662,7 +1021,17 @@ def main():
     times = time_wide(*wide)
     gm_shapes(checks)
     times.update(time_gm(*wide[:3], checks))
-    del wide
+    print("krum shapes")
+    for n, d, seed in ((16, 4096, 4), (17, 4097, 5)):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        check_krum(checks, torch.randn(n, d, device="cuda", generator=g),
+                   torch.randn(n, d, device="cuda", generator=g),
+                   f"n={n} d={d}")
+    krum_edges(checks)
+    wide_y = torch.randn_like(wide[0])
+    check_krum(checks, wide[0], wide_y, f"n=20 d={WIDE_D}")
+    times.update(time_krum(wide[0], wide_y))
+    del wide, wide_y
     torch.cuda.empty_cache()
 
     # 3. Fig. 1
@@ -671,7 +1040,11 @@ def main():
     # 4. Fig. 2
     counts.update(fig2_path())
 
-    # 5. the kernels line, the card, the result
+    # 5. serving
+    serve_counts, _ = serve_path()
+    counts.update(serve_counts)
+
+    # 6. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),
@@ -687,6 +1060,11 @@ def main():
                          "fig2-rfa-wide"),
         "gm_update": ("csrc/geometric_median.cu", "geometric_median.py:61",
                       "fig2-rfa-wide"),
+        "gram_matrix": ("csrc/krum.cu", "krum.py:111", "serve-krum-steady"),
+        "cross_gram": ("csrc/krum.cu", "krum.py:140", "serve-krum-steady"),
+        "weighted_row_sum": ("csrc/krum.cu", "krum.py:185",
+                             "serve-multikrum-bucketed"),
+        "select_row": ("csrc/krum.cu", "krum.py:225", "serve-krum-steady"),
     }
     kernels = []
     for name, (source, replaces, path) in meta.items():

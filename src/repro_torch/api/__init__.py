@@ -1,4 +1,5 @@
-"""The declarative server-step API (``ServerPlan``)."""
+"""The declarative server-step API (``ServerPlan``) and the adversarial
+scenario beside it (``ScenarioSpec``)."""
 from .plan import (  # noqa: F401
     PLAN_VERSION,
     AggregatorSpec,
@@ -11,3 +12,4 @@ from .plan import (  # noqa: F401
     ServerPlan,
     ServerStep,
 )
+from .scenario import ADAPTIVE_ATTACKS, ScenarioSpec  # noqa: F401

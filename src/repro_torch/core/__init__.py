@@ -1,16 +1,20 @@
 """Core library: the paper's engine and its parts (the ported slice)."""
 from .aggregators import (  # noqa: F401
     Aggregator,
+    RowSelection,
     bucketing,
     coordinate_median,
     geometric_median,
+    krum,
     make_aggregator,
     mean,
+    multi_krum,
     trimmed_mean,
 )
 from .attacks import ATTACKS, Attack, AttackContext, make_attack  # noqa: F401
 from .clipping import (  # noqa: F401
     clip,
+    clip_rows,
     clip_tree,
     marina_radius,
     theorem41_alpha,

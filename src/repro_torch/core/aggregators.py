@@ -10,9 +10,23 @@ into one (n, d) matrix first.
 ``"torch"`` the plain rules below on any device, ``"cuda"`` the kernels
 of ``repro_torch.kernels`` (raising on a CPU tensor), ``"auto"`` the
 kernels iff the tensor is on CUDA.  ``"jnp"``/``"pallas"`` are read as
-``"torch"``/``"cuda"``.  Ported rules: mean, cm, trimmed_mean and rfa
-(the geometric median), each optionally over Bucketing; krum, multi_krum
-and centered_clip raise NotImplementedError until their ROADMAP items.
+``"torch"``/``"cuda"``.  Ported rules: mean, cm, trimmed_mean, rfa (the
+geometric median), krum and multi_krum, each optionally over Bucketing;
+centered_clip raises NotImplementedError until its ROADMAP item.
+
+Krum and multi-Krum are (n, n) algebra on the Gram matrix of the rows
+(``repro_torch.kernels.krum``) on every backend, Bucketing included, and
+they also expose the TWO-PHASE contract, for callers that see the rows
+in several coordinate blocks or as they stream in:
+
+    stats = agg.accumulate_stats(blocks)      # the (n, n) Gram, additive
+    sel   = agg.finalize(stats, mask=..., key=..., radius=...)
+    outs  = agg.apply_selection(blocks, sel)
+
+``update_stats`` folds a chunk of newly arrived rows into running stats
+(``repro_torch.serve``); ``supports_two_phase`` says whether a rule has
+the contract.  A clipped ``clip_then_aggregate`` takes the clip factors
+from diag(G) on every backend, as the fused one-shot kernels do.
 
 Bucketing's ``key`` is the row order source: an explicit permutation
 (an (n,) integer tensor, e.g. replayed from a recorded run), a
@@ -28,13 +42,15 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import krum as _kkrum
 from ..kernels import ops as _kops
-from .clipping import clip_factor
+from ..kernels.krum import RowSelection
+from .clipping import clip_rows
 from .tree_utils import tree_batch_ravel
 
-__all__ = ["Aggregator", "mean", "coordinate_median", "trimmed_mean",
-           "geometric_median", "bucketing", "make_aggregator",
-           "resolve_backend", "RULE_ALIASES"]
+__all__ = ["Aggregator", "RowSelection", "mean", "coordinate_median",
+           "trimmed_mean", "geometric_median", "krum", "multi_krum",
+           "bucketing", "make_aggregator", "resolve_backend", "RULE_ALIASES"]
 
 _BIG = 3.4e37  # +inf stand-in that survives arithmetic
 
@@ -99,6 +115,21 @@ def _geometric_median(xs, mask=None, key=None, *, iters: int = 8,
     return z.to(xs.dtype)
 
 
+def _krum(xs, mask=None, key=None, *, byz_bound: Optional[int] = None,
+          m_select: int = 0, multi: bool = False, bucket_s: int = 0):
+    """Krum (Blanchard et al., 2017), or multi-Krum (Damaskinos et al.,
+    2019) with ``multi``: the row, or the mean of the m rows, with the
+    best summed squared distance to the cnt-B-2 nearest sampled
+    neighbours; over Bucketing's bucket means when ``bucket_s >= 2``
+    (the M G M^T algebra, ``key`` the row order).  F_A = 1."""
+    idx = (_bucket_order(key, mask, xs.shape[0], xs.device)
+           if bucket_s >= 2 else None)
+    out, _ = _kkrum.clip_then_krum_plain(
+        xs, 0.0, mask, idx, byz_bound=byz_bound, m_select=m_select,
+        multi=multi, bucket_s=max(bucket_s, 1), use_clip=False)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Bucketing (Algorithm 2, Karimireddy et al., 2022)
 # ---------------------------------------------------------------------------
@@ -144,7 +175,11 @@ class Aggregator:
     ``is_aragg``: satisfies Def 2.1 agnostically (possibly via Bucketing).
     ``fn``: the plain rule.  ``backend``: "torch", "cuda" or "auto";
     ``kernel_fn``/``fused_clip_fn`` are the kernel-backed aggregate and
-    clip -> aggregate, set for the two kernel backends.
+    clip -> aggregate, set for the two kernel backends.  ``clip_fn``: the
+    plain clip -> aggregate of a rule that clips its own way (Krum, by the
+    norms on diag G); None: clip the rows, then ``fn``.
+    ``stats_fn``/``finalize_fn``/``apply_fn``/``update_stats_fn``: the
+    two-phase contract (module docstring), None for rules without one.
     """
 
     name: str
@@ -155,8 +190,20 @@ class Aggregator:
     backend: str = "torch"
     kernel_fn: Optional[Callable] = None
     fused_clip_fn: Optional[Callable] = None
+    clip_fn: Optional[Callable] = None
+    stats_fn: Optional[Callable] = None
+    finalize_fn: Optional[Callable] = None
+    apply_fn: Optional[Callable] = None
+    update_stats_fn: Optional[Callable] = None
 
-    def _use_kernels(self, xs) -> bool:
+    @property
+    def supports_two_phase(self) -> bool:
+        """Whether accumulate_stats/finalize/apply_selection are usable."""
+        return self.stats_fn is not None
+
+    def uses_kernels(self, xs) -> bool:
+        """Whether this rule runs its kernels on ``xs``' device (backend
+        "cuda" raises on a CPU tensor)."""
         if self.backend == "torch":
             return False
         if xs.is_cuda:
@@ -171,7 +218,7 @@ class Aggregator:
         if isinstance(xs, dict):
             mat, unravel_row = tree_batch_ravel(xs)
             return unravel_row(self(mat, mask=mask, key=key))
-        fn = self.kernel_fn if self._use_kernels(xs) else self.fn
+        fn = self.kernel_fn if self.uses_kernels(xs) else self.fn
         return fn(xs, mask=mask, key=key)
 
     def clip_then_aggregate(self, xs, radius, mask=None, key=None):
@@ -181,12 +228,56 @@ class Aggregator:
             mat, unravel_row = tree_batch_ravel(xs)
             return unravel_row(self.clip_then_aggregate(
                 mat, radius, mask=mask, key=key))
-        if self._use_kernels(xs):
+        if self.uses_kernels(xs):
             return self.fused_clip_fn(xs, radius, mask=mask, key=key)
-        factors = clip_factor(torch.linalg.vector_norm(xs.float(), dim=1),
-                              radius)
-        clipped = xs * factors[:, None].to(xs.dtype)
-        return self.fn(clipped, mask=mask, key=key)
+        if self.clip_fn is not None:
+            return self.clip_fn(xs, radius, mask=mask, key=key)
+        return self.fn(clip_rows(xs, radius), mask=mask, key=key)
+
+    # -- two-phase selection (one decision over many blocks) --
+
+    def _two_phase(self, xs):
+        if self.stats_fn is None:
+            raise NotImplementedError(
+                f"aggregator {self.name!r} has no two-phase selection form")
+        blocks = xs if isinstance(xs, (list, tuple)) else [xs]
+        for block in blocks[:1]:  # backend "cuda" refuses a CPU tensor
+            self.uses_kernels(block)
+
+    def accumulate_stats(self, xs):
+        """Phase 1: the (n, n) Gram of one (n, d) block, or summed in list
+        order over a list of coordinate chunks; additive over any
+        coordinate partition, so a caller sums it over its blocks."""
+        self._two_phase(xs)
+        return _kops.accumulate_stats_blocks(self.stats_fn, xs)
+
+    def update_stats(self, stats, buffer, chunk_emb, chunk_mask):
+        """Phase 1 for rows that stream in: fold a chunk into the running
+        (n, n) stats.  ``buffer`` is the (n, d) row buffer with the chunk
+        in it, ``chunk_emb`` the chunk at its slot rows of a zero (n, d)
+        matrix, ``chunk_mask`` the (n,) chunk membership.  The cross-Gram
+        runs at the full (n, d) shape and the entries the chunk touches are
+        replaced, so once every row is in, the stats equal the one-shot
+        Gram of the buffer bit for bit (the Gram being exactly symmetric)."""
+        self._two_phase(buffer)
+        return self.update_stats_fn(stats, buffer, chunk_emb, chunk_mask)
+
+    def finalize(self, stats, mask=None, key=None, radius=None,
+                 factors=None):
+        """Phase 2: the selection from the accumulated stats, clipping at
+        ``factors`` or, else, at ``radius`` by the norms on diag(stats)
+        (neither: no clip).  Returns a RowSelection for apply_selection."""
+        if self.finalize_fn is None:
+            raise NotImplementedError(
+                f"aggregator {self.name!r} has no two-phase selection form")
+        return self.finalize_fn(stats, mask=mask, key=key, radius=radius,
+                                factors=factors)
+
+    def apply_selection(self, xs, selection):
+        """Phase 3: the selection's row combination over one (n, d) block,
+        or the per-chunk outputs over a list."""
+        self._two_phase(xs)
+        return _kops.apply_selection_blocks(self.apply_fn, xs, selection)
 
 
 def mean() -> Aggregator:
@@ -207,6 +298,20 @@ def trimmed_mean(trim_ratio: float = 0.1) -> Aggregator:
 def geometric_median(iters: int = 8) -> Aggregator:
     return Aggregator("rfa", partial(_geometric_median, iters=iters),
                       lambda d: 1.0, False, 1.0)
+
+
+def krum(byz_bound: Optional[int] = None) -> Aggregator:
+    return Aggregator("krum", partial(_krum, byz_bound=byz_bound),
+                      lambda d: 1.0, False, 1.0)
+
+
+def multi_krum(byz_bound: Optional[int] = None,
+               m_select: int = 0) -> Aggregator:
+    return Aggregator(
+        "multikrum",
+        partial(_krum, byz_bound=byz_bound, m_select=m_select, multi=True),
+        lambda d: 1.0,  # the mean of input rows stays in the hull
+        False, 1.0)
 
 
 def bucketing(inner: Aggregator, s: int = 2) -> Aggregator:
@@ -233,13 +338,14 @@ _FACTORY = {
     "rfa": lambda **kw: geometric_median(int(kw.get("iters", 8))),
     "geometric_median": lambda **kw: geometric_median(
         int(kw.get("iters", 8))),
+    "krum": lambda **kw: krum(kw.get("byz_bound")),
+    "multi_krum": lambda **kw: multi_krum(kw.get("byz_bound"),
+                                          int(kw.get("m_select", 0))),
 }
 
 # rules of the reference registry that later slices port
 _UNPORTED = {
-    "krum": "ROADMAP queue 1 item 2 and queue 2 items 6-7",
-    "multi_krum": "ROADMAP queue 1 item 2 and queue 2 items 6-7",
-    "centered_clip": "ROADMAP queue 1 item 2 and queue 2 items 4-5",
+    "centered_clip": "ROADMAP queue 1 item 2 and queue 2 item 5",
 }
 
 _BACKEND_ALIASES = {"jnp": "torch", "pallas": "cuda"}
@@ -297,6 +403,62 @@ def _cm_kernel_fns(trim_ratio: float, bucket_s: int):
     return aggregate, fused_clip
 
 
+def _krum_two_phase_fns(*, byz_bound, m_select, multi, bucket_s, kernels):
+    """(stats_fn, finalize_fn, apply_fn, update_stats_fn) of krum or
+    multi-Krum.  The selection is the one ``krum_select_from_gram`` on
+    every backend; the Gram, cross-Gram and apply are the kernel wrappers
+    (``kernels``; their plain versions on a CPU tensor) or the plain
+    versions on any device."""
+    bs = max(bucket_s, 1)
+    onehot = _kkrum.selection_is_onehot(multi, bs)
+    if kernels:
+        stats_fn, cross_fn = _kkrum.gram_matrix, _kkrum.cross_gram
+        apply_fn = partial(_kkrum.apply_row_selection, onehot=onehot)
+    else:
+        stats_fn, cross_fn = _kkrum.gram_matrix_plain, _kkrum.cross_gram_plain
+        apply_fn = partial(_kkrum.apply_row_selection_plain, onehot=onehot)
+
+    def update_stats_fn(stats, buffer, chunk_emb, chunk_mask):
+        cm = chunk_mask.bool()
+        # the chunk's rows at their slots against the whole buffer: the
+        # one-shot Gram's operand shapes, so every entry sums alike
+        blk = cross_fn(chunk_emb, buffer)
+        touch = cm[:, None] | cm[None, :]
+        # replace (never add) the entries the chunk touches, so a
+        # resubmitted row and -0.0 payloads stay bit-faithful
+        return torch.where(touch, torch.where(cm[:, None], blk, blk.T), stats)
+
+    def finalize_fn(stats, mask=None, key=None, radius=None, factors=None):
+        n = stats.shape[0]
+        idx = _bucket_order(key, mask, n, stats.device) if bs >= 2 else None
+        sel, _ = _kkrum.krum_select_from_gram(
+            stats, mask, radius, factors, idx, byz_bound=byz_bound,
+            m_select=m_select, multi=multi, bucket_s=bs,
+            use_clip=factors is not None or radius is not None)
+        return sel
+
+    return stats_fn, finalize_fn, apply_fn, update_stats_fn
+
+
+def _krum_aggregator(agg: Aggregator, backend: str, bucket_s: int,
+                     **selection) -> Aggregator:
+    """Krum or multi-Krum on ``backend``.  Bucketing and clipping are the
+    (n, n) algebra inside the rule on every backend, as in the two-phase
+    finalize, so the one-shot and the two-phase forms select alike."""
+    sfn, ffn, afn, ufn = _krum_two_phase_fns(
+        bucket_s=bucket_s, kernels=backend != "torch", **selection)
+    _, clip_fn = _kernel_fns(_kkrum.clip_then_krum_plain, bucket_s,
+                             **selection)
+    agg = dataclasses.replace(
+        agg, fn=partial(_krum, bucket_s=bucket_s, **selection), backend=backend,
+        clip_fn=clip_fn, stats_fn=sfn, finalize_fn=ffn, apply_fn=afn,
+        update_stats_fn=ufn)
+    if backend == "torch":
+        return agg
+    kernel_fn, fused = _kernel_fns(_kops.clip_then_krum, bucket_s, **selection)
+    return dataclasses.replace(agg, kernel_fn=kernel_fn, fused_clip_fn=fused)
+
+
 def make_aggregator(name: str, bucket_s: int = 0, backend: str = "torch",
                     **kwargs) -> Aggregator:
     """Build an aggregator by name, optionally over Bucketing
@@ -311,11 +473,16 @@ def make_aggregator(name: str, bucket_s: int = 0, backend: str = "torch",
             f"{sorted(set(_FACTORY) | set(_UNPORTED))}")
     resolved = resolve_backend(backend)
     agg = _FACTORY[name](**kwargs)
-    if bucket_s and bucket_s >= 2:
-        agg = bucketing(agg, s=bucket_s)
+    bs = bucket_s if bucket_s and bucket_s >= 2 else 0
+    if bs:
+        agg = bucketing(agg, s=bs)
+    if name in ("krum", "multi_krum"):
+        return _krum_aggregator(
+            agg, resolved, bs, byz_bound=kwargs.get("byz_bound"),
+            m_select=int(kwargs.get("m_select", 0)),
+            multi=name == "multi_krum")
     if resolved == "torch":
         return agg
-    bs = bucket_s if bucket_s else 0
     if name in ("rfa", "geometric_median"):
         kernel_fn, fused = _kernel_fns(_kops.clip_then_geometric_median, bs,
                                        iters=int(kwargs.get("iters", 8)))

@@ -16,7 +16,7 @@ import torch
 from ..kernels.clip_aggregate import clip_factor
 from .tree_utils import tree_norm
 
-__all__ = ["clip", "clip_tree", "clip_factor", "marina_radius",
+__all__ = ["clip", "clip_rows", "clip_tree", "clip_factor", "marina_radius",
            "theorem41_alpha", "theorem42_alpha"]
 
 
@@ -24,6 +24,15 @@ def clip(x: torch.Tensor, radius) -> torch.Tensor:
     """Clip one tensor by its global l2 norm."""
     norm = torch.linalg.vector_norm(x.float())
     return x * clip_factor(norm, radius).to(x.dtype)
+
+
+def clip_rows(xs: torch.Tensor, radius) -> torch.Tensor:
+    """Clip every row of an (n, d) matrix by its own l2 norm (the server's
+    re-clip of each received message).  A row's result depends on that
+    row alone."""
+    factors = clip_factor(torch.linalg.vector_norm(xs.float(), dim=1),
+                          radius)
+    return xs * factors[:, None].to(xs.dtype)
 
 
 def clip_tree(tree: dict, radius) -> dict:

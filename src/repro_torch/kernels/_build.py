@@ -13,9 +13,11 @@ PyTorch versions round them.  ``-Xptxas -v`` writes each kernel's
 registers, shared memory and spills into ``<name>-<hash>.log`` beside the
 library.
 
-A failed build raises, and so does a refused launch: every C entry point
-returns ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
-Nothing falls back to a plain version.
+A failed build raises :class:`KernelError`, and so does a refused
+launch: every C entry point returns ``cudaGetLastError()`` and
+:func:`check` raises when it is not 0.  Nothing falls back to a plain
+version, and callers that degrade on other errors (the streaming server)
+let a :class:`KernelError` through.
 """
 from __future__ import annotations
 
@@ -30,13 +32,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "cuda_available", "build_all", "load",
-           "check", "stream_ptr"]
+__all__ = ["SOURCES", "BUILD_DIR", "KernelError", "cuda_available",
+           "build_all", "load", "check", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/_build.py is 4 levels down
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("row_norms", "clip_aggregate", "geometric_median")
+SOURCES = ("row_norms", "clip_aggregate", "geometric_median", "krum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -67,9 +69,19 @@ _SIGNATURES = {
          (_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _I, _I, _VP)),
         ("gm_update_launch", _I, (_VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _VP)),
     ),
+    "krum": (
+        ("krum_gram_launch", _I,
+         (_VP, _VP, _VP, _VP, _I, _I, _LL, _I, _I, _VP)),
+        ("weighted_row_sum_launch", _I, (_VP, _VP, _VP, _I, _I, _LL, _VP)),
+        ("select_row_launch", _I, (_VP, _VP, _VP, _VP, _I, _I, _LL, _VP)),
+    ),
 }
 
 _LIBS: dict = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel did not build, load or launch."""
 
 
 @functools.cache
@@ -84,7 +96,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
         "CUDA kernels are built from src/repro_torch/kernels/csrc at first use"
     )
@@ -120,7 +132,7 @@ def _finish_build(name: str, job) -> None:
     log.write_text(out)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -135,10 +147,10 @@ def build_all(names=SOURCES) -> float:
             continue
         try:
             _finish_build(name, job)
-        except RuntimeError as e:  # wait for every nvcc before raising
+        except KernelError as e:  # wait for every nvcc before raising
             errors.append(str(e))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return time.perf_counter() - t0
 
 
@@ -152,7 +164,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        try:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+        except OSError as e:
+            raise KernelError(f"cannot load csrc/{name}.cu's library: {e}") \
+                from e
         for fn, restype, argtypes in _SIGNATURES[name]:
             f = getattr(lib, fn)
             f.restype = restype
@@ -168,7 +184,7 @@ def check(lib: ctypes.CDLL, what: str, rc: int) -> None:
     """Raise when a C entry point returned a CUDA error."""
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+        raise KernelError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
 def stream_ptr() -> int:

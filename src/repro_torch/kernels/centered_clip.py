@@ -83,7 +83,8 @@ def _card_smem_budget(index: int) -> int:
     with torch.cuda.device(index):
         budget = _build.load("geometric_median").gm_smem_optin()
     if budget <= 0:
-        raise RuntimeError("cudaDevAttrMaxSharedMemoryPerBlockOptin failed")
+        raise _build.KernelError(
+            "cudaDevAttrMaxSharedMemoryPerBlockOptin failed")
     return budget
 
 

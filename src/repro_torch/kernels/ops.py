@@ -21,19 +21,35 @@ from . import centered_clip as _cc
 from . import clip_aggregate as _ca
 from . import coordinate_median as _cm
 from . import geometric_median as _gm
+from . import krum as _kr
 from .centered_clip import bucket_means_tiled, diff_row_ssq  # noqa: F401
 from .clip_aggregate import clip_then_aggregate, row_norms  # noqa: F401
 from .geometric_median import (  # noqa: F401
     clip_then_geometric_median,
     geometric_median,
 )
+from .krum import (  # noqa: F401
+    RowSelection,
+    clip_then_krum,
+    krum,
+    krum_select_from_gram,
+    multi_krum,
+    select_row,
+    selection_is_onehot,
+    weighted_row_sum,
+)
 
 __all__ = ["coordinate_median", "trimmed_mean", "clip_then_aggregate",
            "row_norms", "clip_then_geometric_median", "geometric_median",
-           "diff_row_ssq", "bucket_means_tiled", "launch_counts",
-           "reset_launch_counts"]
+           "diff_row_ssq", "bucket_means_tiled", "clip_then_krum", "krum",
+           "multi_krum", "krum_gram", "krum_cross_gram",
+           "krum_select_from_gram", "krum_apply", "select_row",
+           "weighted_row_sum", "selection_is_onehot", "RowSelection",
+           "accumulate_stats_blocks", "apply_selection_blocks",
+           "launch_counts", "reset_launch_counts"]
 
-_COUNTERS = (_ca.LAUNCHES, _cm.LAUNCHES, _cc.LAUNCHES, _gm.LAUNCHES)
+_COUNTERS = (_ca.LAUNCHES, _cm.LAUNCHES, _cc.LAUNCHES, _gm.LAUNCHES,
+             _kr.LAUNCHES)
 
 
 def coordinate_median(xs, mask=None):
@@ -56,3 +72,44 @@ def reset_launch_counts() -> None:
     for counter in _COUNTERS:
         for name in counter:
             counter[name] = 0
+
+
+def accumulate_stats_blocks(stats_fn, xs):
+    """Phase 1 of the two-phase contract over one (n, d) block, or summed
+    in list order over a list of coordinate chunks."""
+    if isinstance(xs, (list, tuple)):
+        if not xs:
+            raise ValueError("accumulate_stats: empty chunk list")
+        stats = stats_fn(xs[0])
+        for block in xs[1:]:
+            stats = stats + stats_fn(block)
+        return stats
+    return stats_fn(xs)
+
+
+def apply_selection_blocks(apply_fn, xs, selection):
+    """Phase 3 over one block, or per chunk over a list (the per-chunk
+    outputs)."""
+    if isinstance(xs, (list, tuple)):
+        return [apply_fn(block, selection) for block in xs]
+    return apply_fn(xs, selection)
+
+
+def krum_gram(xs):
+    """(n, d) -> (n, n) f32 Gram (one ``gram_matrix`` launch per block of a
+    chunk list, summed in order): phase 1 of the two-phase Krum contract."""
+    return accumulate_stats_blocks(_kr.gram_matrix, xs)
+
+
+def krum_cross_gram(a, b):
+    """(n, d), (n, d) -> (n, n) f32 A B^T, bitwise ``krum_gram(a)`` when
+    b is a: the streaming server folds each chunk of rows in with it."""
+    return _kr.cross_gram(a, b)
+
+
+def krum_apply(xs, selection, *, onehot: bool = False):
+    """Apply a RowSelection to a block (or per chunk of a list); a one-hot
+    selection streams only the winner row."""
+    return apply_selection_blocks(
+        lambda block, sel: _kr.apply_row_selection(block, sel, onehot=onehot),
+        xs, selection)

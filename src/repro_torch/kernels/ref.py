@@ -1,6 +1,6 @@
 """Plain PyTorch oracles of the kernels, written from the definitions
-(sort, gather, pad, the Weiszfeld fixed point) and independent of the
-kernels' own plain versions.
+(sort, gather, pad, the Weiszfeld fixed point, explicit pairwise
+distances for Krum) and independent of the kernels' own plain versions.
 The tests sweep both against these and against ``repro.kernels.ref``."""
 from __future__ import annotations
 
@@ -72,24 +72,28 @@ def _bucket_means_ref(vals, mask, bucket_idx, s):
     return means.to(vals.dtype), cnt[:, 0] > 0.5
 
 
-def clip_then_aggregate_ref(xs, radius, mask=None, bucket_idx=None, *,
-                            trim_ratio=-1.0, bucket_s=1):
-    """Oracle of the fused clip -> (Bucketing) -> CM/TM kernels.
-    Returns (aggregated (d,), row_norms (n,))."""
-    n = xs.shape[0]
+def _clip_bucket_then_ref(inner, xs, radius, mask, bucket_idx, bucket_s):
+    """clip rows -> optional Bucketing -> ``inner(vals, mask)``."""
     if mask is None:
-        mask = torch.ones(n, dtype=torch.bool, device=xs.device)
-
-    def inner(vals, m):
-        if trim_ratio < 0:
-            return coordinate_median_ref(vals, m)
-        return trimmed_mean_ref(vals, m, trim_ratio=trim_ratio)
-
+        mask = torch.ones(xs.shape[0], dtype=torch.bool, device=xs.device)
     clipped, norms = _clip_rows_ref(xs, radius, mask)
     if bucket_s < 2:
         return inner(clipped, mask), norms
     means, bucket_ok = _bucket_means_ref(clipped, mask, bucket_idx, bucket_s)
     return inner(means, bucket_ok), norms
+
+
+def clip_then_aggregate_ref(xs, radius, mask=None, bucket_idx=None, *,
+                            trim_ratio=-1.0, bucket_s=1):
+    """Oracle of the fused clip -> (Bucketing) -> CM/TM kernels.
+    Returns (aggregated (d,), row_norms (n,))."""
+    def inner(vals, m):
+        if trim_ratio < 0:
+            return coordinate_median_ref(vals, m)
+        return trimmed_mean_ref(vals, m, trim_ratio=trim_ratio)
+
+    return _clip_bucket_then_ref(inner, xs, radius, mask, bucket_idx,
+                                 bucket_s)
 
 
 def geometric_median_ref(xs, iters=8, eps=1e-8, mask=None):
@@ -110,11 +114,58 @@ def clip_then_geometric_median_ref(xs, radius, mask=None, bucket_idx=None, *,
                                    iters=8, eps=1e-8, bucket_s=1):
     """Oracle of the fused clip -> (Bucketing) -> Weiszfeld GM kernels.
     Returns (aggregated (d,), row_norms (n,))."""
+    return _clip_bucket_then_ref(
+        lambda vals, m: geometric_median_ref(vals, iters, eps, mask=m),
+        xs, radius, mask, bucket_idx, bucket_s)
+
+
+def _krum_scores_ref(xs, mask, byz_bound):
+    """Krum scores from EXPLICIT pairwise distances, independent of the
+    Gram algebra and the selection helpers of the kernels.  Returns
+    (scores, bool mask)."""
     n = xs.shape[0]
-    if mask is None:
-        mask = torch.ones(n, dtype=torch.bool, device=xs.device)
-    clipped, norms = _clip_rows_ref(xs, radius, mask)
-    if bucket_s < 2:
-        return geometric_median_ref(clipped, iters, eps, mask=mask), norms
-    means, bucket_ok = _bucket_means_ref(clipped, mask, bucket_idx, bucket_s)
-    return geometric_median_ref(means, iters, eps, mask=bucket_ok), norms
+    m = _mask_or_all(xs, mask)
+    x32 = xs.to(F32)
+    d2 = ((x32[:, None, :] - x32[None, :, :]) ** 2).sum(dim=-1)
+    eye = torch.eye(n, dtype=torch.bool, device=xs.device)
+    d2 = torch.where(m[:, None] & m[None, :] & ~eye, d2, _BIG)
+    cnt = int(m.sum())
+    b = byz_bound if byz_bound is not None else 0
+    d2_sorted = torch.sort(d2, dim=1).values
+    csum = torch.cumsum(torch.where(d2_sorted >= _BIG, 0.0, d2_sorted), dim=1)
+    k_nb = min(max(cnt - b - 2, 1), n - 1)
+    return torch.where(m, csum[:, k_nb - 1], _BIG), m
+
+
+def krum_ref(xs, mask=None, byz_bound=None):
+    """Krum (Blanchard et al., 2017): the row minimizing the summed squared
+    distance to its cnt-B-2 nearest sampled neighbours."""
+    scores, _ = _krum_scores_ref(xs, mask, byz_bound)
+    return xs[int(torch.argmin(scores))]
+
+
+def multi_krum_ref(xs, mask=None, byz_bound=None, m_select=0):
+    """Multi-Krum: the mean of the best-Krum-scored sampled rows."""
+    n = xs.shape[0]
+    scores, m = _krum_scores_ref(xs, mask, byz_bound)
+    b = byz_bound if byz_bound is not None else 0
+    m_sel = min(max(m_select if m_select else int(m.sum()) - b - 2, 1), n)
+    rank = torch.empty(n, dtype=torch.long)
+    rank[torch.argsort(scores, stable=True)] = torch.arange(n)
+    w = ((rank.to(xs.device) < m_sel) & m).to(F32)
+    return ((xs.to(F32) * w[:, None]).sum(dim=0)
+            / torch.clamp(w.sum(), min=1.0)).to(xs.dtype)
+
+
+def clip_then_krum_ref(xs, radius, mask=None, bucket_idx=None, *,
+                       byz_bound=None, m_select=0, multi=False, bucket_s=1):
+    """Oracle of clip -> (Bucketing) -> Krum/multi-Krum over explicit
+    bucket means.  Returns (aggregated (d,), row_norms (n,))."""
+
+    def inner(vals, m):
+        if multi:
+            return multi_krum_ref(vals, m, byz_bound, m_select)
+        return krum_ref(vals, m, byz_bound)
+
+    return _clip_bucket_then_ref(inner, xs, radius, mask, bucket_idx,
+                                 bucket_s)

@@ -1,2 +1,2 @@
-"""The attack stage of the engine (the ported slice of repro.scenarios)."""
-from .stage import AttackStage, make_context  # noqa: F401
+"""The attack stage (the ported slice of repro.scenarios)."""
+from .stage import AttackStage, SyntheticCohort, make_context  # noqa: F401

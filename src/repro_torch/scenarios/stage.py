@@ -1,15 +1,19 @@
-"""The attack stage of the engine: ``make_context`` builds one round's
+"""The attack stage: ``make_context`` builds one round's
 ``AttackContext`` (the one place that computes the sampled-cohort
-byzantine-majority bit) and ``AttackStage`` corrupts the (n, d) message
-matrix.  The pytree and synthetic-cohort forms of ``repro.scenarios``
-come with ROADMAP queue 1 items 9-11."""
+byzantine-majority bit), ``AttackStage`` corrupts the engine's (n, d)
+message matrix, and ``SyntheticCohort`` is the host-side form that gives
+the streaming server's synthetic clients their wire rows.  The pytree
+form of ``repro.scenarios`` comes with ROADMAP queue 1 item 11."""
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ..core.attacks import Attack, AttackContext, make_attack
 
-__all__ = ["AttackStage", "make_context"]
+__all__ = ["AttackStage", "SyntheticCohort", "make_context"]
 
 
 def make_context(honest, *, good_mask, sampled, x_now=None, x_prev=None,
@@ -43,3 +47,43 @@ class AttackStage:
         payload = self.attack(ctx)
         return torch.where(ctx.good_mask[:, None], ctx.honest,
                            payload.to(ctx.honest.dtype))
+
+
+class SyntheticCohort:
+    """Host-side synthetic client cohort for the streaming server.
+
+    One call is one round: draw the honest rows of the given slots from
+    the caller's ``np.random.RandomState`` (one ``randn`` block and one int,
+    exactly as the reference draws them, so both packages see the same
+    honest rows), run the registry attack with the trailing ``n_byz`` of
+    ``n_slots`` slots as the colluding byzantines, and return the rows each
+    slot puts on the wire.  The attack's own randomness (gauss) comes from
+    a ``torch.Generator`` seeded with the drawn int."""
+
+    def __init__(self, attack, *, n_slots: int, dim: int, n_byz: int,
+                 z_max: Optional[float] = None):
+        kw = {}
+        if z_max is not None and (
+                attack == "alie" or getattr(attack, "name", "") == "alie"):
+            kw["z_max"] = float(z_max)
+        self.attack: Attack = make_attack(attack, **kw)
+        self.n_slots = int(n_slots)
+        self.dim = int(dim)
+        self.n_byz = int(n_byz)
+
+    def round_rows(self, rng, slots=None) -> np.ndarray:
+        """Wire rows (k, dim) f32 for ``slots`` (default: every slot in
+        order); ``rng`` advances by one (k, dim) normal block and one int."""
+        slots = np.arange(self.n_slots) if slots is None \
+            else np.asarray(slots)
+        honest = rng.randn(len(slots), self.dim).astype(np.float32)
+        seed = int(rng.randint(0, 2**31 - 1))
+        good = slots < (self.n_slots - self.n_byz)
+        if self.n_byz == 0 or self.attack.name == "none" or good.all():
+            return honest
+        ctx = make_context(
+            torch.from_numpy(honest), good_mask=torch.from_numpy(good),
+            sampled=torch.ones(len(slots), dtype=torch.bool),
+            key=torch.Generator().manual_seed(seed))
+        payload = self.attack(ctx).numpy().astype(np.float32)
+        return np.where(good[:, None], honest, payload)

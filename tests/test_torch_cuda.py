@@ -8,7 +8,8 @@ machine with PyTorch alone:
 Tolerances: the coordinate median selects values and averages two with
 the same f32 operations as the plain version, so it matches exactly when
 both get the same clip factors; sums (row norms, trimmed means) agree to
-f32 rtol 1e-5.
+f32 rtol 1e-5; a Gram entry to rtol 1e-5 of sqrt(G_ii G_jj); select_row
+exactly.
 """
 import importlib
 
@@ -24,7 +25,8 @@ cmk = importlib.import_module("repro_torch.kernels.coordinate_median")
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 NO_LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0, "coordinate_median": 0,
                "diff_row_ssq": 0, "bucket_means": 0, "gm_resident": 0,
-               "gm_update": 0}
+               "gm_update": 0, "gram_matrix": 0, "cross_gram": 0,
+               "weighted_row_sum": 0, "select_row": 0}
 
 
 @pytest.fixture
@@ -256,3 +258,196 @@ def test_cuda_fig2_engine_goes_through_the_kernels(card):
     cpu = mlp_problem(0, device="cpu", **fig2_problem_kwargs("shb"))
     _, ref = ClippedPPMomentum(cpu, cfg, device="cpu").run(30)
     torch.testing.assert_close(met["loss"], ref["loss"], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the Krum kernels (csrc/krum.cu) and the streaming server on the card
+# ---------------------------------------------------------------------------
+
+def _krum_mod():
+    return importlib.import_module("repro_torch.kernels.krum")
+
+
+def _gram_close(got, want):
+    scale = torch.sqrt(torch.outer(want.diagonal(), want.diagonal()).abs())
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * scale + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(16, 4096), (17, 4097), (20, 1 << 16),
+                                 (5, 1), (64, 999), (128, 300), (3, 70000)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_krum_kernels_match_plain(card, n, d, dtype):
+    kr = _krum_mod()
+    g = torch.Generator(device=card).manual_seed(n + d)
+    xs = torch.randn(n, d, device=card, generator=g).to(dtype)
+    ys = torch.randn(n, d, device=card, generator=g).to(dtype)
+    w = torch.rand(n, device=card, generator=g)
+    w[torch.rand(n, device=card, generator=g) > 0.6] = 0.0
+    ops.reset_launch_counts()
+    gram = kr.gram_matrix(xs)
+    _gram_close(gram, kr.gram_matrix_plain(xs))
+    cross = kr.cross_gram(xs, ys)
+    want = kr.cross_gram_plain(xs, ys)
+    scale = torch.sqrt(torch.outer(kr.gram_matrix_plain(xs).diagonal(),
+                                   kr.gram_matrix_plain(ys).diagonal()))
+    assert bool(((cross - want).abs() <= 1e-5 * scale + 1e-6).all())
+    torch.testing.assert_close(kr.weighted_row_sum(xs, w),
+                               kr.weighted_row_sum_plain(xs, w), **SUM_TOL)
+    win, sc = torch.tensor(n // 2, device=card), torch.tensor(0.5, device=card)
+    torch.testing.assert_close(kr.select_row(xs, win, sc),
+                               kr.select_row_plain(xs, win, sc), rtol=0,
+                               atol=0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, gram_matrix=1,
+                                       cross_gram=1, weighted_row_sum=1,
+                                       select_row=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(16, 4096), (17, 4097), (20, 1 << 20),
+                                 (128, 3000)], ids=str)
+def test_cuda_gram_is_symmetric_and_cross_equals_gram_bitwise(card, n, d):
+    kr = _krum_mod()
+    g = torch.Generator(device=card).manual_seed(d)
+    xs = torch.randn(n, d, device=card, generator=g)
+    gram = kr.gram_matrix(xs)
+    assert torch.equal(gram, gram.T)
+    assert torch.equal(kr.cross_gram(xs, xs), gram)
+    assert torch.equal(kr.gram_matrix(xs), gram)  # no atomics
+    emb = torch.zeros_like(xs)
+    rows = torch.arange(1, n, 3, device=card)
+    emb[rows] = xs[rows]
+    blk = kr.cross_gram(emb, xs)
+    assert torch.equal(blk[rows], gram[rows])
+    assert torch.equal(blk.T[:, rows], gram[:, rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(16, 4096), (17, 4097), (20, 1 << 20),
+                                 (128, 3000)], ids=str)
+def test_cuda_gram_within_f32_summation_limit_of_float64(card, n, d):
+    """Every Gram and cross-Gram entry lies within 8 f32 rounding units
+    of the float64 product: 2^-24 sqrt(D) (sqrt(sum_k a_ik^2 b_jk^2) +
+    |G_ij|), D the kernel's rounding depth.  The same limit rejects the
+    operands rounded to TF32."""
+    kr = _krum_mod()
+    g = torch.Generator(device=card).manual_seed(n * d)
+    xs = torch.randn(n, d, device=card, generator=g)
+    ys = torch.randn(n, d, device=card, generator=g)
+    unit = 2.0 ** -24 * kr.gram_rounding_depth(n, d) ** 0.5
+    tf32 = ((xs.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    for got, a, b in ((kr.gram_matrix(xs), xs, xs),
+                      (kr.cross_gram(xs, ys), xs, ys)):
+        a64, b64 = a.double(), b.double()
+        g64 = a64 @ b64.T
+        limit = 8 * unit * (((a64 * a64) @ (b64 * b64).T).sqrt() + g64.abs())
+        assert bool(((got.double() - g64).abs() <= limit).all())
+    g64 = xs.double() @ xs.double().T
+    limit = 8 * unit * (((xs.double() ** 2) @ (xs.double() ** 2).T).sqrt()
+                        + g64.abs())
+    stand_in = tf32.double() @ tf32.double().T
+    assert not bool(((stand_in - g64).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+def test_cuda_apply_kernels_guard_inf_and_clamp(card):
+    kr = _krum_mod()
+    xs = torch.randn(6, 5000, device=card)
+    xs[2] = float("inf")
+    w = torch.tensor([0.5, 1.0, 0.0, 0.25, 0.0, 2.0], device=card)
+    got = kr.weighted_row_sum(xs, w)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, kr.weighted_row_sum_plain(xs, w),
+                               rtol=0, atol=0)
+    zero = kr.select_row(xs, torch.tensor(2, device=card),
+                         torch.tensor(0.0, device=card))
+    assert torch.equal(zero, torch.zeros(5000, device=card))
+    for win, row in ((-4, 0), (99, 5)):
+        got = kr.select_row(xs, torch.tensor(win, device=card),
+                            torch.tensor(1.5, device=card))
+        assert torch.equal(got, xs[row] * 1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 3])
+@pytest.mark.parametrize("multi", [False, True], ids=["krum", "multikrum"])
+@pytest.mark.parametrize("tf32", [False, True], ids=["fp32", "tf32-on"])
+def test_cuda_bucketed_selection_equals_the_cpu(card, s, multi, tf32):
+    """The (n, n) selection algebra on the card selects as on the CPU,
+    whatever the TF32 setting: it has no matmul for TF32 to touch."""
+    kr = _krum_mod()
+    g = torch.Generator().manual_seed(s + 2 * multi)
+    xs = torch.randn(20, 3000, generator=g) * torch.rand(20, 1, generator=g)
+    mask = torch.rand(20, generator=g) > 0.2
+    idx = torch.randperm(20, generator=g).int()
+    gram = kr.gram_matrix_plain(xs)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        on_card, _ = kr.krum_select_from_gram(
+            gram.to(card), mask.to(card), 0.8, None, idx.to(card),
+            byz_bound=2, multi=multi, bucket_s=s)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    on_cpu, _ = kr.krum_select_from_gram(gram, mask, 0.8, None, idx,
+                                         byz_bound=2, multi=multi, bucket_s=s)
+    assert int(on_card.winner) == int(on_cpu.winner)
+    torch.testing.assert_close(on_card.weights.cpu(), on_cpu.weights,
+                               rtol=1e-5, atol=1e-7)
+    assert torch.equal(on_card.weights.cpu() != 0, on_cpu.weights != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,bucket_s", [("krum", 0), ("multi_krum", 0),
+                                           ("krum", 2), ("multi_krum", 2),
+                                           ("cm", 0)])
+@pytest.mark.parametrize("radius", [None, 5.0], ids=["noclip", "clip"])
+def test_cuda_serve_close_bitwise_equals_one_shot(card, rule, bucket_s,
+                                                  radius):
+    """On the card the executor takes the kernel form: every round's
+    incremental close equals the one-shot ServerStep bit for bit, the
+    kernels were launched, and the aggregates agree with the CPU path."""
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ClipSpec,
+                                 ScheduleSpec, ServerPlan)
+    from repro_torch.serve import CohortBuilder, round_key
+
+    plan = ServerPlan(aggregate=AggregatorSpec(rule, byz_bound=4),
+                      clip=ClipSpec(radius=radius) if radius else None,
+                      bucket=BucketSpec(s=bucket_s) if bucket_s else None,
+                      schedule=ScheduleSpec(placement="naive", backend="auto"))
+    rng = torch.Generator().manual_seed(1)
+    xs = torch.randn(16, 4096, generator=rng) * 3
+    step = plan.build()
+    for trial, k in enumerate((12, 16, 5)):
+        slots = torch.randperm(16, generator=rng)[:k]
+        on_card = CohortBuilder(plan, 16, 4096, chunk_size=3, device=card)
+        on_cpu = CohortBuilder(plan, 16, 4096, chunk_size=3, device="cpu")
+        assert on_card.executor.kernels and not on_cpu.executor.kernels
+        ops.reset_launch_counts()
+        for lo in range(0, k, 4):
+            ids = slots[lo:lo + 4].numpy()
+            on_card.ingest(xs[ids].numpy(), ids)
+            on_cpu.ingest(xs[ids].numpy(), ids)
+        got = on_card.close(round_key(3, trial))
+        buf, arrived, _ = on_card.state()
+        want = step(buf, mask=arrived, key=round_key(3, trial))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        counts = ops.launch_counts()
+        if rule == "cm" and radius:  # pass 1 + pass 2, close and one-shot
+            assert counts == dict(NO_LAUNCHES, row_norms=2,
+                                  clip_bucket_select=2)
+        elif rule == "cm":
+            assert counts == dict(NO_LAUNCHES, coordinate_median=2)
+        else:
+            chunks = sum(-(-min(4, k - lo) // 3) for lo in range(0, k, 4))
+            apply = "select_row" if rule == "krum" and not bucket_s \
+                else "weighted_row_sum"
+            assert counts == dict(NO_LAUNCHES, cross_gram=chunks,
+                                  gram_matrix=1, **{apply: 2})
+        torch.testing.assert_close(got.cpu(), on_cpu.close(
+            round_key(3, trial)), rtol=1e-5, atol=1e-6)

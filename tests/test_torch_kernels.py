@@ -308,10 +308,36 @@ def test_launch_counts_move_only_on_launch():
     ops.coordinate_median(xs)
     ops.clip_then_geometric_median(xs, 1.0, bucket_s=2)
     ops.geometric_median(xs)
+    ops.clip_then_krum(xs, 1.0, bucket_s=2, multi=True)
+    ops.krum(xs)
+    ops.krum_cross_gram(xs, xs)
     assert ops.launch_counts() == {"row_norms": 0, "clip_bucket_select": 0,
                                    "coordinate_median": 0, "diff_row_ssq": 0,
                                    "bucket_means": 0, "gm_resident": 0,
-                                   "gm_update": 0}
+                                   "gm_update": 0, "gram_matrix": 0,
+                                   "cross_gram": 0, "weighted_row_sum": 0,
+                                   "select_row": 0}
+
+
+def test_failed_launch_and_build_raise_kernel_error(monkeypatch, tmp_path):
+    """Build and launch failures are KernelErrors, which callers that
+    degrade on other errors let through."""
+
+    class Lib:
+        @staticmethod
+        def repro_cuda_error_string(rc):
+            return b"an illegal memory access was encountered"
+
+    _build.check(Lib, "gram_matrix", 0)
+    with pytest.raises(_build.KernelError, match="gram_matrix launch failed"):
+        _build.check(Lib, "gram_matrix", 700)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        _build.build_all(("krum",))
+    assert issubclass(_build.KernelError, RuntimeError)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -323,6 +349,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert set(_build.SOURCES) == {"row_norms", "clip_aggregate",
-                                   "geometric_median"}
+                                   "geometric_median", "krum"}
     # each library is named by a hash of its sources and flags
     assert _build._lib_path("row_norms") != _build._lib_path("clip_aggregate")

@@ -105,9 +105,11 @@ def test_sharded_and_mesh_builds_name_their_roadmap_item():
 
 
 def test_unported_rules_and_compressors_raise_not_implemented():
-    for rule in ("krum", "multi_krum", "centered_clip"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-            T.ServerPlan(aggregate=rule).build()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+        T.ServerPlan(aggregate="centered_clip").build()
+    for rule in ("krum", "multi_krum"):  # ported with the serve slice
+        assert T.ServerPlan(aggregate=rule).build().aggregator \
+            .supports_two_phase
     plan = T.ServerPlan(aggregate="cm", compress=T.CompressSpec("rand_k", k=2))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         plan.build()
@@ -162,3 +164,40 @@ def test_rfa_plan_document_gives_the_same_aggregate_in_both(backend):
     eight = T.ServerPlan(aggregate=T.AggregatorSpec("rfa"),
                          bucket=T.BucketSpec(s=2)).build()
     assert float((eight.aggregate(xt, mt, key=perm) - got).abs().max()) > 1e-6
+
+
+@pytest.mark.parametrize("rule,bucket_s", [("krum", 0), ("multi_krum", 0),
+                                           ("krum", 2), ("multi_krum", 2)])
+@pytest.mark.parametrize("backend", ["jnp", "auto"])
+def test_krum_plan_document_gives_the_same_aggregate_in_both(rule, bucket_s,
+                                                             backend):
+    """One Krum plan document (byz_bound, m_select, a static clip radius,
+    optional Bucketing), built by both packages: the same aggregate,
+    clipped and not, on the same rows, mask and Bucketing order."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    doc = R.ServerPlan(
+        aggregate=R.AggregatorSpec(rule, byz_bound=2,
+                                   m_select=3 if rule == "multi_krum" else 0),
+        clip=R.ClipSpec(radius=4.0),
+        bucket=R.BucketSpec(s=bucket_s) if bucket_s else None,
+        schedule=R.ScheduleSpec(placement="naive", backend=backend)).to_json()
+    ref, port = R.ServerPlan.from_json(doc).build(), \
+        T.ServerPlan.from_json(doc).build()
+    assert T.ServerPlan.from_json(doc).to_json() == doc
+    rng = np.random.RandomState(21)
+    xs = (rng.randn(16, 200) * rng.rand(16, 1) * 0.7).astype(np.float32)
+    mask = rng.rand(16) > 0.2
+    key = jax.random.PRNGKey(5)
+    perm = torch.tensor(np.asarray(jax.random.permutation(key, 16)))
+    xt, mt = torch.from_numpy(xs), torch.from_numpy(mask)
+    xj, mj = jnp.asarray(xs), jnp.asarray(mask)
+    np.testing.assert_allclose(port(xt, mt, key=perm).numpy(),
+                               np.asarray(ref(xj, mj, key=key)),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(port.aggregate(xt, mt, key=perm).numpy(),
+                               np.asarray(ref.aggregate(xj, mj, key=key)),
+                               rtol=1e-5, atol=1e-6)
