@@ -45,6 +45,24 @@ Phases (any failure raises, prints no result and exits non-zero):
    rounded to TF32 and to bf16, or the check fails as too loose.  At the wide
    shape each is timed beside its bound, its plain version and one library
    call (x @ x.T, a @ b.T, w @ x, x[winner] * scale; TF32 off).
+   CenteredClip's two kernels (cclip_resident, cclip_update) and the whole
+   clip_then_centered_clip (tau = 10, 5 steps) against their plain versions
+   at rtol 1e-5, atol 1e-6: at the Fig. 1 shape (n=20, d=40, s = 2 and 1),
+   odd n (n=21, s = 2 and 3), the largest d its own shared-memory rule
+   admits at n=20 and one past it, and the wide shape (s = 1 and 2,
+   tiled); random masks and an all-masked case (result 0).  cclip_update
+   is timed at the wide shape beside its library call (torch.addmv with
+   the weights s_i f_i / den and beta = 1 - sum s_i / den, checked against
+   the kernel first), cclip_resident at the Fig. 1 shape and at the
+   largest it takes, and the whole tiled call (s = 1, 2) with its
+   launches.  The entry points: clipped_diff on one vector of 2^24+37
+   values (f32 with a bool and a numeric keep mask, bf16, a 2-D shape):
+   its norm to rtol 1e-6 and d and the output bit for bit given the same
+   factor; bucketed_coordinate_median (an explicit permutation of the
+   padded slots) bit for bit at the wide shape, in bf16 and with padded
+   slots; then the entry-points run (one call of each, counted from 0)
+   and their times (library: d * factor for the scale pass; none for the
+   others).
 3. Fig. 1: the paper's configuration (20 clients, 15 good, m=300, d=40,
    CM over Bucketing(2), shift-back, C=4, C_hat=20, p=0.2, gamma=0.5) on
    "cuda" with backend "auto", clipped and unclipped, 300 steps each, plus
@@ -54,7 +72,16 @@ Phases (any failure raises, prints no result and exits non-zero):
    predict; the clipped run must converge (final loss < 0.64, within 1e-3
    of the optimum of the data) and the unclipped one diverge (> 5); the
    runs must agree with the plain PyTorch path on the CPU, which makes
-   the same draws.
+   the same draws.  Then Algorithm 1 with compression and CenteredClip:
+   fig1-randk-{40,20,5} (bench_ablation.py's RandK sweep, 400 steps, gap
+   to the optimum below 1e-3, fixed from the port's CPU run),
+   fig1-cclip (CenteredClip(10, 5) over Bucketing(2), 300 steps, the
+   resident kernel, gap below 1e-3), fig1-theory (``from_theory`` with
+   Theorem 4.2, CenteredClip and RandK k=10, 300 steps; the final loss
+   below the first) and d30-randk-10 (test_compression_still_converges'
+   problem and criterion: gap below 2e-2 after 400 steps); each within
+   rtol 1e-4 of the CPU plain path, with its predicted launches and its
+   wall ms per step.
 4. Fig. 2: ``ClippedPPMomentum`` with RFA on the MLP problem, on "cuda"
    with backend "auto": fig2-rfa (the paper's Fig. 2 configuration,
    d = 698, 300 steps, the resident kernel), RFA without Bucketing on the
@@ -70,8 +97,9 @@ Phases (any failure raises, prints no result and exits non-zero):
    12), driven by ``repro_torch.launch.serve.run_stream``:
    serve-krum-steady, serve-krum-burst (Krum, byz_bound 4, static radius
    5.0, one row or a cohort per pump), serve-multikrum-bucketed
-   (multi-Krum over Bucketing(2), radius 5.0), serve-cm (CM, no clip) at
-   d = 4,096, 8 rounds, and serve-krum-wide (d = 2^20, 4 rounds).  Every
+   (multi-Krum over Bucketing(2), radius 5.0), serve-cm (CM, no clip),
+   serve-cclip (CenteredClip, radius 5.0, the tiled kernels) at d = 4,096,
+   8 rounds, and serve-krum-wide (d = 2^20, 4 rounds).  Every
    round's close must equal the one-shot ServerStep on the assembled
    buffer bit for bit, each run must agree with the same stream on the
    CPU plain path (rtol 1e-5, the same Krum winners and multi-Krum sets),
@@ -80,7 +108,9 @@ Phases (any failure raises, prints no result and exits non-zero):
    gives rows per second and p50/p99 submit-to-resolution ms.
 6. A ``{"kernels": [...]}`` line, then the card line, then the result.
    A kernel's ``launches`` are those of the run of the path it serves
-   (``path``); ``launches_by_path`` has its counts in every run.
+   (``path``; "entry-points" for clipped_diff's and the bucketed median's,
+   which no engine calls); ``launches_by_path`` has its counts in every
+   run.
 """
 import json
 import math
@@ -97,11 +127,18 @@ WIDE_D = 2 ** 24 + 37
 STEPS = 300
 WIDE_STEPS = 50  # fig2-rfa-wide
 GM_ITERS = 8
+CCLIP_TAU, CCLIP_ITERS = 10.0, 5
+RANDK_KS, RANDK_STEPS = (40, 20, 5), 400  # bench_ablation.py's sweep
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
+NORM_RTOL = 1e-6  # clipped_diff's norm against its plain version
 GRAM_F32_K = 8.0  # the Gram's limit against float64, in f32 rounding units
 # phase 4's thresholds for the unbucketed majority runs, fixed from the
 # port's own CPU run (clipped 1.6687, unclipped 199.42 after 300 steps)
 CLIPPED_BELOW, UNCLIPPED_ABOVE = 2.0, 20.0
+# phase 3's thresholds for the compressed and CenteredClip runs, fixed
+# from the port's own CPU run: gaps to the optimum 1.01e-4 (RandK k = 40,
+# 20, 5, 400 steps) and 4.75e-4 (CenteredClip, 300 steps)
+SWEEP_GAP_BELOW = 1e-3
 MAJORITY = dict(n_clients=10, n_good=7, m=128, in_dim=32, hidden=16,
                 heterogeneous=True)
 
@@ -135,7 +172,8 @@ class Checks:
     def __init__(self):
         self.max_abs = {}
 
-    def compare(self, kernel, what, got, want, exact, scale=None):
+    def compare(self, kernel, what, got, want, exact, scale=None,
+                rtol=SUM_RTOL, atol=SUM_ATOL):
         """``scale``: what rtol is relative to (default |want|)."""
         import torch
 
@@ -149,8 +187,8 @@ class Checks:
             ok = torch.equal(got, want)
             tol = "exact"
         else:
-            ok = bool((err <= SUM_ATOL + SUM_RTOL * scale).all())
-            tol = f"rtol {SUM_RTOL:g} atol {SUM_ATOL:g}"
+            ok = bool((err <= atol + rtol * scale).all())
+            tol = f"rtol {rtol:g} atol {atol:g}"
         print(f"  {kernel:18s} {what:44s} max_abs {max_abs:.3e} "
               f"max_rel {rel:.3e} [{tol}] {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -640,6 +678,324 @@ def time_krum(x, y):
     return out
 
 
+def _cc_mod():
+    return sys.modules["repro_torch.kernels.centered_clip"]
+
+
+def _cclip_plain(x, radius, mask, idx, s, tau=CCLIP_TAU):
+    """The plain clip_then_centered_clip: same dispatch and composition."""
+    return _cc_mod().clip_then_centered_clip_plain(
+        x, radius, mask, idx, tau=tau, iters=CCLIP_ITERS, bucket_s=s)[0]
+
+
+def check_cclip(checks, x, mask, idx, s, tag, expect=None):
+    """The two CenteredClip kernels and the whole clip_then_centered_clip
+    against their plain versions on one input (tau at the median distance,
+    so that some rows are clipped); ``expect`` is the schedule the whole
+    call must take."""
+    import torch
+
+    from repro_torch.kernels import clip_aggregate as ca
+    from repro_torch.kernels import ops
+
+    cc = _cc_mod()
+    n, d = x.shape
+    norms = ca.row_norms_plain(x)
+    radius = float(norms.median())
+    f = ca.clip_factor(norms, radius)
+    bidx = idx if s >= 2 else None
+    m, fp, ip = cc.pad_bucket_aux(mask.float(), f, bidx, n, s)
+    rows = m.shape[0] // s
+    fits = (cc.resident_smem_bytes(rows, d, "cclip")
+            <= cc.smem_budget(x.device, "cclip"))
+    tau = 0.5 * radius
+    t = f"{tag} s={s}"
+    if fits:
+        checks.compare("cclip_resident", t,
+                       cc.cclip_resident(x, m, fp, ip, s, iters=CCLIP_ITERS,
+                                         tau=tau),
+                       cc.cclip_resident_plain(x, m, fp, ip, s,
+                                               iters=CCLIP_ITERS, tau=tau),
+                       exact=False)
+    v = _cclip_plain(x, radius, mask, bidx, s, tau)
+    sc = cc._cclip_scale(tau, cc.diff_row_ssq_plain(x, v, fp[:n]), m[:n])
+    den = m[:n].sum().clamp(min=1.0)
+    checks.compare("cclip_update", t, cc.cclip_update(x, sc, fp[:n], v, den),
+                   cc.cclip_update_plain(x, sc, fp[:n], v, den), exact=False)
+    checks.compare("cclip_update", f"{t} v0 (z = 0, s = m)",
+                   cc.cclip_update(x, m[:n], fp[:n], None, den),
+                   cc.cclip_update_plain(x, m[:n], fp[:n], None, den),
+                   exact=False)
+    ops.reset_launch_counts()
+    got, _ = ops.clip_then_centered_clip(x, radius, mask, bidx, tau=tau,
+                                         iters=CCLIP_ITERS, bucket_s=s)
+    counts = ops.launch_counts()
+    took = "resident" if counts["cclip_resident"] else "tiled"
+    if took != ("resident" if fits else "tiled") or (expect and took != expect):
+        raise AssertionError(f"{t}: the whole call took the {took} schedule "
+                             f"(expected {expect}, fits={fits}): {counts}")
+    checks.compare("clip_then_cclip", f"{t} whole call ({took})", got, v,
+                   exact=False)
+    none = torch.zeros_like(mask)
+    zero = torch.zeros(d, device=x.device)
+    checks.compare("clip_then_cclip", f"{t} all rows masked",
+                   ops.clip_then_centered_clip(x, radius, none, bidx, tau=tau,
+                                               bucket_s=s)[0], zero,
+                   exact=True)
+    checks.compare("clip_then_cclip", f"{t} all rows masked (plain)",
+                   _cclip_plain(x, radius, none, bidx, s, tau), zero,
+                   exact=True)
+    return counts
+
+
+def cclip_shapes(checks):
+    """Phase 2's CenteredClip checks at the Fig. 1, odd-n and threshold
+    shapes; returns the largest resident d at n = 20 under Bucketing(2)."""
+    import torch
+
+    cc = _cc_mod()
+    budget = cc.smem_budget(torch.device("cuda"), "cclip")
+    print(f"cclip shapes (opt-in shared memory per block: {budget} bytes)")
+
+    def data(n, d, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(n, d, device="cuda", generator=g)
+        mask = torch.rand(n, device="cuda", generator=g) > 0.3
+        mask[0] = True
+        return x, mask, torch.randperm(n, device="cuda", generator=g).int()
+
+    for s in (2, 1):
+        check_cclip(checks, *data(20, 40, 50 + s), s, "n=20 d=40",
+                    expect="resident")
+    for s in (2, 3):
+        check_cclip(checks, *data(21, 700, 60 + s), s, "n=21 d=700",
+                    expect="resident")
+    largest = {}
+    for s in (1, 2):
+        rows = 20 // s
+        d_max = 1
+        while cc.resident_smem_bytes(rows, d_max + 1, "cclip") <= budget:
+            d_max += 1
+        largest[s] = d_max
+        for d, expect in ((d_max, "resident"), (d_max + 1, "tiled")):
+            check_cclip(checks, *data(20, d, 70 + d), s, f"n=20 d={d}",
+                        expect=expect)
+    return largest
+
+
+def time_cclip(x, mask, idx, checks, largest):
+    """CenteredClip at the wide shape (checks, then times): cclip_update
+    with its library call, the whole tiled call for s = 1 and 2 with its
+    launches; cclip_resident at the Fig. 1 shape and at the largest shape
+    its rule admits."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cc = _cc_mod()
+    n, d = x.shape
+    nb = n // 2
+    for s in (1, 2):
+        check_cclip(checks, x, mask, idx, s, f"n={n} d={d}", expect="tiled")
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    z = torch.randn(d, device="cuda", generator=g)
+    f = torch.rand(n, device="cuda", generator=g)
+    sc = torch.rand(n, device="cuda", generator=g) * mask.float()
+    den = mask.float().sum().clamp(min=1.0)
+    # the library call: z + sum_i s_i (f_i x_i - z) / den = beta z + x^T w
+    # with w_i = s_i f_i / den and beta = 1 - sum_i s_i / den, made before
+    # the timing; a check of the yardstick, kept out of the kernel's error
+    w = sc * f / den
+    beta = float(1.0 - sc.sum() / den)
+    # rtol 1e-5 of the summands' magnitude |z| + sum_i |w_i x_i|, as the
+    # two sum them in different orders
+    checks.compare("addmv (library)", f"n={n} d={d} vs cclip_update",
+                   torch.addmv(z, x.T, w, beta=beta),
+                   cc.cclip_update(x, sc, f, z, den), exact=False,
+                   scale=z.abs() + w.abs() @ x.abs())
+    t = {"ms": _time_ms(lambda: cc.cclip_update(x, sc, f, z, den), 10),
+         "plain_ms": _time_ms(lambda: cc.cclip_update_plain(x, sc, f, z, den),
+                              3),
+         "library_ms": _time_ms(lambda: torch.addmv(z, x.T, w, beta=beta),
+                                10)}
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + 2 * d + 2 * n),
+                                          4 * n * d + 2 * d)
+    out["cclip_update"] = t
+
+    # cclip_resident at the Fig. 1 shape (its path's) and the largest
+    def resident(n_r, d_r, s):
+        gr = torch.Generator(device="cuda").manual_seed(d_r)
+        xr = torch.randn(n_r, d_r, device="cuda", generator=gr)
+        mr = (torch.rand(n_r, device="cuda", generator=gr) > 0.3).float()
+        fr = torch.rand(n_r, device="cuda", generator=gr)
+        ir = torch.randperm(n_r, device="cuda", generator=gr).int()
+        rows = n_r // s
+        t = {"ms": _time_ms(lambda: cc.cclip_resident(
+                xr, mr, fr, ir, s, iters=CCLIP_ITERS, tau=1.0), 20),
+             "plain_ms": _time_ms(lambda: cc.cclip_resident_plain(
+                 xr, mr, fr, ir, s, iters=CCLIP_ITERS, tau=1.0), 10),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = _bound(
+            4 * (n_r * d_r + d_r + 3 * n_r),
+            3 * n_r * d_r + 2 * rows * d_r + CCLIP_ITERS * 6 * rows * d_r)
+        return t
+
+    out["cclip_resident"] = resident(20, 40, 2)
+    big = resident(20, largest[2], 2)
+    for name, v in out.items():
+        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
+        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.6f}"
+              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
+              f"library {lib} ms")
+    print(f"  {'cclip_resident':18s} at n=20 d={largest[2]} s=2 (the largest "
+          f"it takes): kernel {big['ms']:.4f} ms  bound {big['bound_ms']:.6f}"
+          f" ms ({big['bound_by']})  plain {big['plain_ms']:.4f} ms")
+
+    # the whole call, clipped, per schedule, with its launches
+    for s in (1, 2):
+        rows = n if s == 1 else nb
+        moved = (4 * n * d  # pass 1
+                 + (4 * (n + nb) * d if s == 2 else 0)  # bucket means
+                 + 4 * (rows * d + d)  # v0
+                 + CCLIP_ITERS * 4 * (2 * rows * d + 3 * d))  # per step
+        bidx = idx if s == 2 else None
+        ops.reset_launch_counts()
+        ops.clip_then_centered_clip(x, 1.0, mask, bidx, bucket_s=s)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        ms = _time_ms(lambda: ops.clip_then_centered_clip(
+            x, 1.0, mask, bidx, bucket_s=s), 5)
+        plain = _time_ms(lambda: _cclip_plain(x, 1.0, mask, bidx, s), 3)
+        print(f"  clip_then_cclip s={s}  whole call {ms:.4f} ms  launches "
+              f"{launched}  schedule bytes {moved / 1e9:.3f} GB -> "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms  function bound "
+              f"{4 * (n * d + d) / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)  "
+              f"plain {plain:.4f} ms  library none")
+    return out
+
+
+def _cd_mod():
+    return sys.modules["repro_torch.kernels.clipped_diff"]
+
+
+def check_clipped_diff(checks, gn, go, keep, tag):
+    """clipped_diff against its plain version: the norm to rtol 1e-6, the
+    output bit for bit given the same factor (the plain d rescaled by the
+    factor of the kernel's norm)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cd = _cd_mod()
+    radius = 0.25 * float(gn.numel()) ** 0.5  # clips: ||d|| ~ sqrt(0.6 N)
+    scale = 10.0 / 3.0
+    got, norm = ops.clipped_diff(gn, go, radius, keep, scale)
+    d, psum = cd.clipped_diff_ssq_plain(gn.view(-1), go.view(-1),
+                                        keep.view(-1), scale)
+    checks.compare("clipped_diff_ssq", f"{tag} norm", norm,
+                   torch.sqrt(psum.sum()), exact=False, rtol=NORM_RTOL,
+                   atol=0.0)
+    kd, _ = cd.clipped_diff_ssq(gn.view(-1), go.view(-1),
+                                (keep if keep.dtype == torch.bool
+                                 else keep.to(gn.dtype)).view(-1), scale)
+    checks.compare("clipped_diff_ssq", f"{tag} d", kd, d, exact=True)
+    factor = sys.modules["repro_torch.kernels.clip_aggregate"].clip_factor(
+        norm, torch.tensor(radius, device=gn.device))
+    checks.compare("clipped_diff_scale", f"{tag} out (same factor)",
+                   got.view(-1), cd.clipped_diff_scale_plain(d, factor),
+                   exact=True)
+    return radius, scale
+
+
+def time_entry_points(checks, x, mask):
+    """The worker-side clipped_diff (sites 13-14) on one vector of
+    2^24+37 values and the bucketed coordinate median (site 15) at the
+    wide shape: checks (f32 with a bool and a numeric keep mask, bf16),
+    the entry-points run whose launches the kernels line reports, and
+    kernel, plain and library times."""
+    import torch
+
+    from repro_torch.kernels import clip_aggregate as ca
+    from repro_torch.kernels import ops
+
+    cd = _cd_mod()
+    n, d = x.shape
+    g = torch.Generator(device="cuda").manual_seed(31)
+    gn = torch.randn(WIDE_D, device="cuda", generator=g)
+    go = torch.randn(WIDE_D, device="cuda", generator=g)
+    keep = torch.rand(WIDE_D, device="cuda", generator=g) < 0.3
+    radius, scale = check_clipped_diff(checks, gn, go, keep,
+                                       f"len={WIDE_D} f32 bool keep")
+    check_clipped_diff(checks, gn, go, keep.float(),
+                       f"len={WIDE_D} f32 f32 keep")
+    check_clipped_diff(checks, gn.bfloat16(), go.bfloat16(), keep,
+                       f"len={WIDE_D} bf16 bool keep")
+    check_clipped_diff(checks, gn[:1001].view(7, 143), go[:1001].view(7, 143),
+                       keep[:1001].view(7, 143), "shape (7, 143) f32")
+    n_p = n + n % 2
+    perm = torch.randperm(n_p, device="cuda", generator=g).int()
+    checks.compare("bucketed_cm", f"n={n} d={d} s=2",
+                   ops.bucketed_coordinate_median(x, perm, mask.float()),
+                   ca.bucketed_cm_plain(x, perm, mask.float(), 2), exact=True)
+    xb = x[:, :4133].bfloat16().contiguous()
+    checks.compare("bucketed_cm", "n=20 d=4133 s=2 bf16",
+                   ops.bucketed_coordinate_median(xb, perm, mask.float()),
+                   ca.bucketed_cm_plain(xb, perm, mask.float(), 2)
+                   .bfloat16(), exact=True)
+    x16 = x[:16, :4133].contiguous()
+    perm18 = torch.randperm(18, device="cuda", generator=g).int()
+    checks.compare("bucketed_cm", "n=16 d=4133 s=3 (2 padded slots)",
+                   ops.bucketed_coordinate_median(x16, perm18, mask[:16], s=3),
+                   ca.bucketed_cm_plain(x16, perm18, mask[:16].float(), 3),
+                   exact=True)
+
+    # the entry points, through the calls a user makes, counted from 0
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.clipped_diff(gn, go, radius, keep, scale)
+    ops.bucketed_coordinate_median(x, perm, mask.float())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+
+    out = {}
+    keep_f = keep.float()
+    kd, _ = cd.clipped_diff_ssq(gn, go, keep, scale)
+    factor = torch.tensor(0.5, device="cuda")
+    # bool keep: g_new, g_old (4 bytes), keep (1), d written (4), partials
+    t = {"ms": _time_ms(lambda: cd.clipped_diff_ssq(gn, go, keep, scale), 20),
+         "plain_ms": _time_ms(
+             lambda: cd.clipped_diff_ssq_plain(gn, go, keep, scale), 5),
+         "library_ms": None}
+    t["bound_ms"], t["bound_by"] = _bound(13 * WIDE_D + 4 * 1024, 5 * WIDE_D)
+    out["clipped_diff_ssq"] = t
+    t_f = _time_ms(lambda: cd.clipped_diff_ssq(gn, go, keep_f, scale), 20)
+    t = {"ms": _time_ms(lambda: cd.clipped_diff_scale(kd, factor), 20),
+         "plain_ms": _time_ms(lambda: cd.clipped_diff_scale_plain(kd, factor),
+                              5),
+         "library_ms": _time_ms(lambda: kd * factor, 20)}
+    t["bound_ms"], t["bound_by"] = _bound(8 * WIDE_D + 4, WIDE_D)
+    out["clipped_diff_scale"] = t
+    nb = n_p // 2
+    t = {"ms": _time_ms(lambda: ops.bucketed_coordinate_median(
+            x, perm, mask.float()), 10),
+         "plain_ms": _time_ms(lambda: ca.bucketed_cm_plain(
+             x, perm, mask.float(), 2), 3),
+         "library_ms": None}
+    t["bound_ms"], t["bound_by"] = _bound(
+        4 * n * d + 4 * d + 4 * (n + n_p), (3 * n_p + nb + _bitonic_ops(nb)) * d)
+    out["bucketed_cm"] = t
+    for name, v in out.items():
+        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
+        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.4f}"
+              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
+              f"library {lib} ms")
+    f32_bound, _ = _bound(16 * WIDE_D + 4 * 1024, 5 * WIDE_D)
+    print(f"  {'clipped_diff_ssq':18s} with an f32 keep mask: kernel {t_f:.4f}"
+          f" ms  bound {f32_bound:.4f} ms (bytes)")
+    return out, counts
+
+
 def _optimum(prob):
     import torch
 
@@ -652,7 +1008,9 @@ def _optimum(prob):
 _NO_LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0,
                 "coordinate_median": 0, "diff_row_ssq": 0, "bucket_means": 0,
                 "gm_resident": 0, "gm_update": 0, "gram_matrix": 0,
-                "cross_gram": 0, "weighted_row_sum": 0, "select_row": 0}
+                "cross_gram": 0, "weighted_row_sum": 0, "select_row": 0,
+                "bucketed_cm": 0, "cclip_resident": 0, "cclip_update": 0,
+                "clipped_diff_ssq": 0, "clipped_diff_scale": 0}
 
 
 def _predicted(name, n_diff):
@@ -730,6 +1088,137 @@ def main_path():
             raise AssertionError(f"{name}: launch counts differ from the "
                                  "prediction")
     return counts
+
+
+def _compress_predicted(rule, steps, n_diff):
+    """Launches of a compressed or CenteredClip Algorithm-1 run: g^0 and
+    every step aggregate once over Bucketing(2) (d = 40 or 30: CenteredClip
+    takes its resident kernel), every difference round clips (pass 1).
+    Compression is elementwise work on the clients' rows, no kernel."""
+    agg = "cclip_resident" if rule == "centered_clip" else \
+        "clip_bucket_select"
+    return dict(_NO_LAUNCHES, row_norms=n_diff, **{agg: 1 + steps})
+
+
+def compress_path():
+    """Phase 3's compressed and CenteredClip runs of Algorithm 1 on the
+    card: fig1-randk-{40,20,5} (bench_ablation.py's sweep, 400 steps),
+    fig1-cclip, fig1-theory (300 steps) and the reference's
+    test_compression_still_converges problem (d = 30, 400 steps).  Each
+    agrees with the CPU plain path at rtol 1e-4 and launches what its own
+    coins predict.  Returns each run's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ClipSpec,
+                                 CompressSpec, ScheduleSpec, ServerPlan)
+    from repro_torch.configs.paper import (fig1_marina_pp, fig1_problem_kwargs,
+                                           paper_plan)
+    from repro_torch.core import (ByzVRMarinaPP, MarinaPPConfig,
+                                  logistic_problem)
+    from repro_torch.kernels import ops
+
+    fig1 = fig1_marina_pp(True)
+    problems = {  # kwargs, optimum on the CPU
+        "fig1": (fig1_problem_kwargs(), lambda p: _optimum(p)[0]),
+        "d30": (dict(n_clients=20, n_good=15, m=200, dim=30,
+                     homogeneous=True), _optimum_d30),
+    }
+
+    def plan_cfg(plan):
+        return lambda prob, dev: ByzVRMarinaPP(
+            prob, dataclasses.replace(fig1, plan=plan), device=dev)
+
+    def theory(prob, dev):
+        return ByzVRMarinaPP.from_theory(
+            prob, C=4, C_hat=20, p=0.2, delta=0.25, theorem="4.2",
+            aggregator="centered_clip", compressor="rand_k",
+            compressor_kwargs=(("k", 10),), attack="shb", device=dev)
+
+    def d30_run(prob, dev):  # tests/test_marina_pp.py's _run settings
+        return ByzVRMarinaPP(prob, MarinaPPConfig(
+            gamma=0.5, p=0.2, C=4, C_hat=20, batch=32, attack="shb", seed=1,
+            plan=ServerPlan(aggregate=AggregatorSpec("cm"),
+                            clip=ClipSpec(alpha=1.0),
+                            compress=CompressSpec("rand_k", k=10),
+                            bucket=BucketSpec(s=2),
+                            schedule=ScheduleSpec(backend="auto"))),
+            device=dev)
+
+    runs = {  # name: (problem, engine factory, steps, rule)
+        **{f"fig1-randk-{k}": ("fig1", plan_cfg(
+            dataclasses.replace(paper_plan("cm", 1.0),
+                                compress=CompressSpec("rand_k", k=k))),
+            RANDK_STEPS, "cm") for k in RANDK_KS},
+        "fig1-cclip": ("fig1", plan_cfg(paper_plan("centered_clip", 1.0)),
+                       STEPS, "centered_clip"),
+        "fig1-theory": ("fig1", theory, STEPS, "centered_clip"),
+        "d30-randk-10": ("d30", d30_run, RANDK_STEPS, "cm"),
+    }
+    optima = {k: opt(logistic_problem(0, device="cpu", **kw))
+              for k, (kw, opt) in problems.items()}
+    print("optima of the data (GD on the CPU): "
+          + ", ".join(f"{k} {v:.6f}" for k, v in optima.items()))
+    counts, final = {}, {}
+    for name, (pname, make, steps, rule) in runs.items():
+        kw = problems[pname][0]
+        f_star = optima[pname]
+        prob = logistic_problem(0, device="cuda", **kw)
+        algo = make(prob, "cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, met = algo.run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        loss = met["loss"]
+        cpu = logistic_problem(0, device="cpu", **kw)
+        final[name] = (float(loss[0]), float(loss[-1]), f_star)
+        marks = ", ".join(f"{i + 1}: {float(loss[i]):.6f}"
+                          for i in (0, 99, 199, steps - 1))
+        print(f"  {name:14s} loss at steps {{{marks}}}  gap to the optimum "
+              f"{float(loss[-1]) - f_star:.3e}  wall {wall / steps * 1e3:.3f}"
+              f" ms/step" + (f"  gamma {algo.cfg.gamma:.6f} alpha "
+                             f"{algo.plan.clip.alpha:.6f}"
+                             if name == "fig1-theory" else ""))
+        if not torch.isfinite(loss).all():
+            raise AssertionError(f"{name}: non-finite loss")
+        # the plain path on the CPU makes the same draws from the same seeds
+        _, ref = make(cpu, "cpu").run(steps)
+        err = float(((loss - ref["loss"]).abs() / ref["loss"].abs()).max())
+        print(f"  {name:14s} vs the CPU plain path, steps 1-{steps}: max rel "
+              f"err {err:.3e} [rtol 1e-4]; CPU final "
+              f"{float(ref['loss'][-1]):.6f}")
+        if err > 1e-4 or not torch.equal(met["full_round"], ref["full_round"]):
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+        n_diff = int((~met["full_round"]).sum())
+        predicted = _compress_predicted(rule, steps, n_diff)
+        print(f"  {name:14s} launches {counts[name]}  predicted {predicted}")
+        if counts[name] != predicted:
+            raise AssertionError(f"{name}: launch counts differ from the "
+                                 "prediction")
+    for name, (first, last, f_star) in final.items():
+        if name == "fig1-theory":
+            ok = last < first  # the reference's criterion for from_theory
+        elif name == "d30-randk-10":
+            ok = last - f_star < 2e-2  # test_compression_still_converges
+        else:
+            ok = last - f_star < SWEEP_GAP_BELOW
+        if not ok:
+            raise AssertionError(f"{name} did not converge: first {first}, "
+                                 f"last {last}, optimum {f_star}")
+    return counts
+
+
+def _optimum_d30(prob):
+    """The reference's optimum of its d = 30 problem: 3,000 GD steps of
+    0.5 (tests/test_marina_pp.py ``fstar``)."""
+    x = prob.x0.clone()
+    for _ in range(3000):
+        x = x - 0.5 * prob.grad(x)
+    return float(prob.loss(x))
 
 
 def _fig2_predicted(name):
@@ -823,6 +1312,7 @@ SERVE_RUNS = (  # name, rule, bucket_s, radius, arrival, rounds, dim
     ("serve-multikrum-bucketed", "multi_krum", 2, 5.0, "steady", 8, 4096),
     ("serve-cm", "cm", 0, None, "steady", 8, 4096),
     ("serve-krum-wide", "krum", 0, 5.0, "steady", 4, 1 << 20),
+    ("serve-cclip", "centered_clip", 0, 5.0, "steady", 8, 4096),
 )
 SERVE_SLOTS, SERVE_BYZ, SERVE_COHORT, SERVE_SEED = 16, 4, 12, 0
 
@@ -873,9 +1363,16 @@ def _audited(plan, cfg, device, one_shot=False):
 def _serve_predicted(rule, bucket_s, rounds, chunks):
     """Launches of a checked serve run: one cross-Gram per chunk; per
     round one apply at the close and one Gram + apply for the one-shot
-    check; CM closes (and checks) through the standalone CM kernel."""
+    check; CM closes (and checks) through the standalone CM kernel.
+    CenteredClip at n = 16, d = 4,096 (262 KB of rows) takes the tiled
+    schedule at every close and check: pass 1, v0 and CCLIP_ITERS steps
+    of diff_row_ssq + cclip_update."""
     if rule == "cm":
         return dict(_NO_LAUNCHES, coordinate_median=2 * rounds)
+    if rule == "centered_clip":
+        return dict(_NO_LAUNCHES, row_norms=2 * rounds,
+                    diff_row_ssq=2 * CCLIP_ITERS * rounds,
+                    cclip_update=2 * (CCLIP_ITERS + 1) * rounds)
     apply = "select_row" if rule == "krum" and bucket_s < 2 \
         else "weighted_row_sum"
     return dict(_NO_LAUNCHES, cross_gram=chunks, gram_matrix=rounds,
@@ -1031,11 +1528,19 @@ def main():
     wide_y = torch.randn_like(wide[0])
     check_krum(checks, wide[0], wide_y, f"n=20 d={WIDE_D}")
     times.update(time_krum(wide[0], wide_y))
-    del wide, wide_y
+    del wide_y
+    largest = cclip_shapes(checks)
+    times.update(time_cclip(*wide[:3], checks, largest))
+    print("entry points: clipped_diff, bucketed_coordinate_median")
+    entry_times, entry_counts = time_entry_points(checks, *wide[:2])
+    times.update(entry_times)
+    del wide
     torch.cuda.empty_cache()
 
-    # 3. Fig. 1
+    # 3. Algorithm 1: Fig. 1, then the compressed and CenteredClip runs
     counts = main_path()
+    counts.update(compress_path())
+    counts["entry-points"] = entry_counts
 
     # 4. Fig. 2
     counts.update(fig2_path())
@@ -1065,6 +1570,16 @@ def main():
         "weighted_row_sum": ("csrc/krum.cu", "krum.py:185",
                              "serve-multikrum-bucketed"),
         "select_row": ("csrc/krum.cu", "krum.py:225", "serve-krum-steady"),
+        "cclip_resident": ("csrc/centered_clip.cu", "centered_clip.py:104",
+                           "fig1-cclip"),
+        "cclip_update": ("csrc/centered_clip.cu", "centered_clip.py:156",
+                         "serve-cclip"),
+        "clipped_diff_ssq": ("csrc/clipped_diff.cu", "clipped_diff.py:28",
+                             "entry-points"),
+        "clipped_diff_scale": ("csrc/clipped_diff.cu", "clipped_diff.py:38",
+                               "entry-points"),
+        "bucketed_cm": ("csrc/clip_aggregate.cu", "bucketing.py:26",
+                        "entry-points"),
     }
     kernels = []
     for name, (source, replaces, path) in meta.items():

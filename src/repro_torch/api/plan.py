@@ -228,8 +228,7 @@ class ServerPlan:
 
     def build_aggregator(self) -> Aggregator:
         """The ``Aggregator`` this plan's bucket and aggregate stages
-        resolve to, with the per-rule parameters the reference passes;
-        rules not ported yet raise NotImplementedError."""
+        resolve to, with the per-rule parameters the reference passes."""
         spec = self.aggregate
         kwargs = {}
         if spec.rule == "trimmed_mean":

@@ -3,6 +3,7 @@ from .aggregators import (  # noqa: F401
     Aggregator,
     RowSelection,
     bucketing,
+    centered_clip,
     coordinate_median,
     geometric_median,
     krum,
@@ -20,7 +21,14 @@ from .clipping import (  # noqa: F401
     theorem41_alpha,
     theorem42_alpha,
 )
-from .compressors import Compressor, make_compressor  # noqa: F401
+from .compressors import (  # noqa: F401
+    Compressor,
+    identity,
+    l2_quantization,
+    make_compressor,
+    rand_fraction,
+    rand_k,
+)
 from .estimators import page_update, page_update_tree, p_choice  # noqa: F401
 from .heuristic import (  # noqa: F401
     ClippedPPConfig,
@@ -41,4 +49,11 @@ from .problems import (  # noqa: F401
     mlp_problem,
     mlp_problem_from_numpy,
     problem_from_numpy,
+)
+from .theory import (  # noqa: F401
+    MarinaTheory,
+    cohort_probabilities,
+    stepsize,
+    theorem41_A,
+    theorem42_A,
 )

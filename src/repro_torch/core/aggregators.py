@@ -10,9 +10,9 @@ into one (n, d) matrix first.
 ``"torch"`` the plain rules below on any device, ``"cuda"`` the kernels
 of ``repro_torch.kernels`` (raising on a CPU tensor), ``"auto"`` the
 kernels iff the tensor is on CUDA.  ``"jnp"``/``"pallas"`` are read as
-``"torch"``/``"cuda"``.  Ported rules: mean, cm, trimmed_mean, rfa (the
-geometric median), krum and multi_krum, each optionally over Bucketing;
-centered_clip raises NotImplementedError until its ROADMAP item.
+``"torch"``/``"cuda"``.  Rules: mean, cm, trimmed_mean, rfa (the
+geometric median), krum, multi_krum and centered_clip, each optionally
+over Bucketing: the whole registry of the reference.
 
 Krum and multi-Krum are (n, n) algebra on the Gram matrix of the rows
 (``repro_torch.kernels.krum``) on every backend, Bucketing included, and
@@ -50,7 +50,8 @@ from .tree_utils import tree_batch_ravel
 
 __all__ = ["Aggregator", "RowSelection", "mean", "coordinate_median",
            "trimmed_mean", "geometric_median", "krum", "multi_krum",
-           "bucketing", "make_aggregator", "resolve_backend", "RULE_ALIASES"]
+           "centered_clip", "bucketing", "make_aggregator", "resolve_backend",
+           "RULE_ALIASES"]
 
 _BIG = 3.4e37  # +inf stand-in that survives arithmetic
 
@@ -113,6 +114,23 @@ def _geometric_median(xs, mask=None, key=None, *, iters: int = 8,
         w = m / dist
         z = (x32 * w[:, None]).sum(dim=0) / w.sum().clamp(min=eps)
     return z.to(xs.dtype)
+
+
+def _centered_clip(xs, mask=None, key=None, *, tau: float = 10.0,
+                   iters: int = 5):
+    """CenteredClip (Karimireddy et al., 2021): from the masked mean v0,
+    ``iters`` steps of v <- v + sum_i m_i min(1, tau/||x_i - v||)(x_i - v)
+    / max(sum m, 1), the norm taken as sqrt(||x_i - v||^2 + 1e-30)."""
+    m = _full_mask(xs, mask).float()
+    x32 = xs.float()
+    denom = m.sum().clamp(min=1.0)
+    v = (x32 * m[:, None]).sum(dim=0) / denom
+    for _ in range(iters):
+        diff = x32 - v[None]
+        nrm = torch.sqrt((diff * diff).sum(dim=1) + 1e-30)
+        scale = torch.clamp(nrm.new_tensor(tau) / nrm, max=1.0)  # f32 divide
+        v = v + (diff * (scale * m)[:, None]).sum(dim=0) / denom
+    return v.to(xs.dtype)
 
 
 def _krum(xs, mask=None, key=None, *, byz_bound: Optional[int] = None,
@@ -314,6 +332,12 @@ def multi_krum(byz_bound: Optional[int] = None,
         False, 1.0)
 
 
+def centered_clip(tau: float = 10.0, iters: int = 5) -> Aggregator:
+    return Aggregator("cclip", partial(_centered_clip, tau=tau, iters=iters),
+                      lambda d: 1.0,  # v0 in the hull, each step moves <= tau
+                      True, 1.0)
+
+
 def bucketing(inner: Aggregator, s: int = 2) -> Aggregator:
     """Bucketing o inner: upgrades CM to a (delta, c)-ARAgg."""
     return Aggregator(
@@ -341,11 +365,8 @@ _FACTORY = {
     "krum": lambda **kw: krum(kw.get("byz_bound")),
     "multi_krum": lambda **kw: multi_krum(kw.get("byz_bound"),
                                           int(kw.get("m_select", 0))),
-}
-
-# rules of the reference registry that later slices port
-_UNPORTED = {
-    "centered_clip": "ROADMAP queue 1 item 2 and queue 2 item 5",
+    "centered_clip": lambda **kw: centered_clip(float(kw.get("tau", 10.0)),
+                                                int(kw.get("iters", 5))),
 }
 
 _BACKEND_ALIASES = {"jnp": "torch", "pallas": "cuda"}
@@ -464,13 +485,9 @@ def make_aggregator(name: str, bucket_s: int = 0, backend: str = "torch",
     """Build an aggregator by name, optionally over Bucketing
     (``bucket_s >= 2``), backed by ``backend`` (module docstring)."""
     name = RULE_ALIASES.get(name, name)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"aggregator {name!r} is not ported yet ({_UNPORTED[name]})")
     if name not in _FACTORY:
         raise ValueError(
-            f"unknown aggregator {name!r}; have "
-            f"{sorted(set(_FACTORY) | set(_UNPORTED))}")
+            f"unknown aggregator {name!r}; have {sorted(_FACTORY)}")
     resolved = resolve_backend(backend)
     agg = _FACTORY[name](**kwargs)
     bs = bucket_s if bucket_s and bucket_s >= 2 else 0
@@ -486,6 +503,10 @@ def make_aggregator(name: str, bucket_s: int = 0, backend: str = "torch",
     if name in ("rfa", "geometric_median"):
         kernel_fn, fused = _kernel_fns(_kops.clip_then_geometric_median, bs,
                                        iters=int(kwargs.get("iters", 8)))
+    elif name == "centered_clip":
+        kernel_fn, fused = _kernel_fns(_kops.clip_then_centered_clip, bs,
+                                       tau=float(kwargs.get("tau", 10.0)),
+                                       iters=int(kwargs.get("iters", 5)))
     else:
         # mean == trimmed mean with t = ceil(0 * cnt) = 0 dropped rows
         trim = {"cm": -1.0, "mean": 0.0}.get(

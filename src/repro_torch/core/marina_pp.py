@@ -13,8 +13,13 @@ The engine runs the server/client protocol over a ``FedProblem``:
 Clipping happens at the server, fused into the aggregation on the kernel
 backends.  Only the sampled rows enter the mask-aware aggregation.
 
+Compression.  Each client compresses its own difference (Algorithm 1,
+line 8): the (n, d) differences go through ``Compressor.rows``, one draw
+per row, never through the compressor of the flattened matrix.
+
 Randomness.  Each step draws c_k, the cohort permutation, the (n, batch)
-minibatch indices and Bucketing's permutation from the state's CPU
+minibatch indices, (difference rounds with a compressor) the (n, d)
+compressor uniforms and Bucketing's permutation from the state's CPU
 ``torch.Generator``, so a run makes the same draws on every device.  A
 ``MarinaPPTape`` replaces every draw by a recorded one (the reference's,
 in the parity tests); the tape's bucket orders are final orders, which
@@ -35,6 +40,7 @@ import torch
 from .._device import resolve_device
 from .attacks import make_attack
 from .compressors import identity as _identity_compressor
+from .compressors import make_compressor
 from .problems import FedProblem
 
 __all__ = ["MarinaPPConfig", "MarinaPPState", "MarinaPPTape",
@@ -92,13 +98,16 @@ class MarinaPPTape:
     """Recorded draws of ``steps`` steps over n clients: ``c`` (steps,)
     bool coins, ``sampled`` (steps, n) bool cohorts, ``batch_idx``
     (steps, n, batch) minibatch indices, ``order`` (steps, n) Bucketing
-    row orders, and ``g0_order`` (n,) the order of g^0's aggregation."""
+    row orders, ``g0_order`` (n,) the order of g^0's aggregation, and
+    ``q_draws`` (steps, n, d) the compressor's draws of each client (its
+    uniforms, or RandK keep masks), needed only with a compressor."""
 
     c: np.ndarray
     sampled: np.ndarray
     batch_idx: np.ndarray
     order: np.ndarray
     g0_order: np.ndarray
+    q_draws: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.c)
@@ -131,6 +140,40 @@ class ByzVRMarinaPP:
         n = problem.n_clients
         self._good = torch.arange(n, device=self.device) < problem.n_good
 
+    @classmethod
+    def from_theory(cls, problem: FedProblem, *, C: int, C_hat: int,
+                    p: float, delta: float, theorem: str = "4.1",
+                    aggregator: str = "cm", bucket_s: int = 2,
+                    attack: str = "none", batch: int = 32,
+                    compressor: str = "identity", compressor_kwargs=(),
+                    backend: str = "auto", device=None):
+        """The engine with the stepsize and clip level of Theorem 4.1 or 4.2
+        (``core.theory``) from the problem's smoothness bound; the
+        reference's signature, plus ``device`` (None = "cuda")."""
+        from ..api import (AggregatorSpec, BucketSpec, ClipSpec, CompressSpec,
+                           ScheduleSpec, ServerPlan)
+        from .theory import MarinaTheory
+
+        comp = make_compressor(compressor, **dict(compressor_kwargs))
+        th = MarinaTheory(
+            n=problem.n_clients, G=problem.n_good, C=C, C_hat=C_hat,
+            delta=delta, p=p, L=problem.smoothness(),
+            omega=comp.omega(problem.dim), d_q=comp.dq(problem.dim) or 1.0)
+        comp_spec = None
+        if compressor not in ("identity", "none"):
+            kw = dict(compressor_kwargs)
+            comp_spec = CompressSpec(kind=compressor, k=int(kw.get("k", 1)),
+                                     frac=float(kw.get("frac", 0.01)))
+        plan = ServerPlan(
+            aggregate=AggregatorSpec(aggregator),
+            clip=ClipSpec(alpha=th.clip_alpha(theorem)),
+            compress=comp_spec,
+            bucket=BucketSpec(s=bucket_s) if bucket_s >= 2 else None,
+            schedule=ScheduleSpec(backend=backend))
+        cfg = MarinaPPConfig(gamma=th.gamma(theorem), p=p, C=C, C_hat=C_hat,
+                             batch=batch, plan=plan, attack=attack)
+        return cls(problem, cfg, device=device)
+
     def init(self, x0=None, tape: Optional[MarinaPPTape] = None
              ) -> MarinaPPState:
         """g^0: the aggregate of the initial full gradients of ALL clients,
@@ -145,14 +188,23 @@ class ByzVRMarinaPP:
 
     # ------------------------------------------------------------------
     def _draws(self, state: MarinaPPState, tape, k: int):
-        """(c_k, sampled (n,) bool, batch idx (n, b) or None, bucket key)
-        on the host: from the tape's step ``k``, or from the generator."""
+        """(c_k, sampled (n,) bool, batch idx (n, b) or None, compressor
+        key, bucket key) on the host: from the tape's step ``k``, or from
+        the generator (which the compressor then draws from)."""
         n, cfg = self.problem.n_clients, self.cfg
         if tape is not None:
             c = bool(tape.c[k])
-            idx = None if c else torch.tensor(np.asarray(tape.batch_idx[k]))
+            idx = qkey = None
+            if not c:
+                idx = torch.tensor(np.asarray(tape.batch_idx[k]))
+                if self.compressor.rows_fn is not None:
+                    if tape.q_draws is None:
+                        raise ValueError(f"the plan compresses with "
+                                         f"{self.compressor.name!r}: the "
+                                         "tape needs its q_draws")
+                    qkey = torch.tensor(np.asarray(tape.q_draws[k]))
             return (c, torch.tensor(np.asarray(tape.sampled[k], bool)), idx,
-                    torch.tensor(np.asarray(tape.order[k])))
+                    qkey, torch.tensor(np.asarray(tape.order[k])))
         gen = state.gen
         c = bool(torch.rand((), generator=gen) < cfg.p)
         perm = torch.randperm(n, generator=gen)
@@ -161,7 +213,7 @@ class ByzVRMarinaPP:
         sampled = rank < (cfg.C_hat if c else cfg.C)
         idx = None if c else torch.randint(0, self.problem.m, (n, cfg.batch),
                                            generator=gen)
-        return c, sampled, idx, gen
+        return c, sampled, idx, gen, gen
 
     def step(self, state: MarinaPPState, tape: Optional[MarinaPPTape] = None
              ) -> tuple:
@@ -170,13 +222,14 @@ class ByzVRMarinaPP:
 
         prob = self.problem
         dev = self.device
-        c, sampled, idx, key = self._draws(state, tape, state.step)
+        c, sampled, idx, qkey, key = self._draws(state, tape, state.step)
         sampled = sampled.to(dev)
         x_new = state.x - self.cfg.gamma * state.g
         if c:
             honest = prob.all_full_grads(x_new)
         else:
-            honest = self.compressor(None, prob.all_minibatch_diffs(
+            # each client compresses its own row, with its own draw
+            honest = self.compressor.rows(qkey, prob.all_minibatch_diffs(
                 idx.to(dev), x_new, state.x))
         ctx = make_context(honest, good_mask=self._good, sampled=sampled,
                            x_now=x_new, x_prev=state.x, x0=state.x0,

@@ -118,6 +118,13 @@ class FedProblem:
     def grad(self, x):
         return self.all_full_grads(x)[: self.n_good].mean(dim=0)
 
+    def smoothness(self) -> float:
+        """An upper bound on L: 0.25 max_j ||a_j||^2 + l2 over every
+        client's samples, in f32 as the reference computes it."""
+        feats = self.features[:1] if self.homogeneous else self.features
+        row_sq = (feats * feats).sum(dim=-1)
+        return float(0.25 * row_sq.max() + self.l2)
+
 
 def _gather_batch(features, labels, idx):
     """The (n, b, ...) features and (n, b) labels of the samples ``idx``."""

@@ -38,7 +38,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "KernelError", "cuda_available",
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch: src/repro_torch/kernels/_build.py is 4 levels down
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("row_norms", "clip_aggregate", "geometric_median", "krum")
+SOURCES = ("row_norms", "clip_aggregate", "geometric_median", "krum",
+           "centered_clip", "clipped_diff")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -58,6 +59,8 @@ _SIGNATURES = {
         ("clip_bucket_select_launch", _I,
          (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, ctypes.c_longlong, _I, _I,
           ctypes.c_float, _I, _VP)),
+        ("bucketed_cm_launch", _I,
+         (_VP, _VP, _VP, _VP, _I, _I, _I, _LL, _I, _I, _I, _VP)),
     ),
     "geometric_median": (
         ("gm_smem_optin", _I, ()),
@@ -74,6 +77,19 @@ _SIGNATURES = {
          (_VP, _VP, _VP, _VP, _I, _I, _LL, _I, _I, _VP)),
         ("weighted_row_sum_launch", _I, (_VP, _VP, _VP, _I, _I, _LL, _VP)),
         ("select_row_launch", _I, (_VP, _VP, _VP, _VP, _I, _I, _LL, _VP)),
+    ),
+    "centered_clip": (
+        ("cclip_smem_optin", _I, ()),
+        ("cclip_resident_launch", _I,
+         (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _I, _I, _F, _LL, _VP)),
+        ("cclip_update_launch", _I,
+         (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _LL, _VP)),
+    ),
+    "clipped_diff": (
+        ("clipped_diff_blocks", _I, (_LL,)),
+        ("clipped_diff_ssq_launch", _I,
+         (_VP, _VP, _VP, _F, _VP, _VP, _I, _I, _LL, _VP)),
+        ("clipped_diff_scale_launch", _I, (_VP, _VP, _VP, _I, _LL, _VP)),
     ),
 }
 

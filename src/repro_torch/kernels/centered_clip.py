@@ -1,5 +1,5 @@
-"""The machinery the iterative rules share: the Weiszfeld geometric median
-here (``geometric_median.py``) and CenteredClip in a later slice.
+"""CenteredClip and the machinery the iterative rules share with the
+Weiszfeld geometric median (``geometric_median.py``).
 
 ``run_clip_then_iterative`` runs the fused clip -> (Bucketing) ->
 iterative aggregation for every such rule, the counterpart of the
@@ -17,16 +17,36 @@ goes to one of two schedules:
             ``diff_row_ssq`` and its update kernel, with the O(n) weights
             computed on the device between launches (no host sync).
 
-**Dispatch rule.**  The resident kernel keeps ``rows`` f32 rows of width d
-(rows = n for s = 1, n_p / s bucket means for s >= 2), the iterate z and
-some per-row scratch in dynamic shared memory, ``resident_smem_bytes(rows,
-d)`` bytes; it runs iff that fits the card's opt-in shared memory per
-block (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes = 227 KB
-on an H100).  On a CPU tensor the plain versions take the same decision
-against the H100's 227 KB, so a CPU run takes the schedule an H100 run
-takes.  (The reference's rule, ``(n_p + 2) * d <= 2^20`` elements of TPU
-VMEM, is not used.)  At n = 20 that admits d <= 2,750 unbucketed and
-d <= 5,266 under Bucketing(2).
+**Dispatch rule.**  A rule's resident kernel keeps ``rows`` f32 rows of
+width d (rows = n for s = 1, n_p / s bucket means for s >= 2), the
+iterate z and its per-row scratch in dynamic shared memory,
+``resident_smem_bytes(rows, d, rule)`` bytes; it runs iff that fits the
+card's opt-in shared memory per block
+(``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes = 227 KB on an
+H100).  On a CPU tensor the plain versions take the same decision against
+the H100's 227 KB, so a CPU run takes the schedule an H100 run takes.
+(The reference's rule, ``(n_p + 2) * d <= 2^20`` elements of TPU VMEM, is
+not used.)  Both rules' kernels share one layout (``csrc/resident.cuh``):
+two per-row weights (GM: m and w; CenteredClip: m and the scales s) and
+the warp sums of each row, so at n = 20 both admit d <= 2,750 unbucketed
+and d <= 5,266 under Bucketing(2).
+
+**CenteredClip** (Karimireddy et al., 2021) iterates
+
+    v <- v + sum_i s_i (x_i - v) / den,  s_i = m_i min(1, tau / sqrt(||x_i - v||^2 + 1e-30))
+
+from v0 = sum_i m_i x_i / den, den = max(sum_i m_i, 1), over the clipped
+rows x_i f_i or their bucket means (``repro.core.aggregators
+._centered_clip``):
+
+  resident  ``cclip_resident``: one launch clips, takes the bucket means,
+            forms v0 and runs all ``iters`` steps.  Replaces
+            ``_cclip_resident_kernel``.
+  tiled     ``cclip_tiled``: v0 through ``cclip_update`` with s = m from
+            z = 0, then per step one ``diff_row_ssq`` pass, the n scales on
+            the device and one ``cclip_update`` pass; under Bucketing one
+            ``bucket_means`` pass first.  ``cclip_update`` replaces
+            ``_cclip_update_kernel``.
 
 Row padding (``pad_bucket_aux``): the auxiliaries are padded to n_p, a
 multiple of s, with mask 0, factor 1 and row indices n..n_p-1; an index
@@ -35,7 +55,8 @@ matrix itself is never padded.
 
 Kernels here: ``diff_row_ssq`` (replaces ``_diff_ssq_kernel``) and
 ``bucket_means`` (replaces ``_bucket_means_kernel``), both in
-``csrc/geometric_median.cu``.  On a CUDA tensor each wrapper launches its
+``csrc/geometric_median.cu``, and ``cclip_resident`` and ``cclip_update``
+in ``csrc/centered_clip.cu``.  On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs the plain PyTorch version
 beside it.
 """
@@ -52,36 +73,49 @@ from .coordinate_median import _row_vector, check_matrix
 __all__ = ["LAUNCHES", "H100_SMEM_OPTIN", "resident_smem_bytes",
            "smem_budget", "pad_bucket_aux", "diff_row_ssq_plain",
            "diff_row_ssq", "bucket_means_plain", "bucket_means",
-           "bucket_means_tiled", "run_clip_then_iterative"]
+           "bucket_means_tiled", "run_clip_then_iterative",
+           "cclip_resident_plain", "cclip_resident", "cclip_update_plain",
+           "cclip_update", "cclip_tiled_plain", "cclip_tiled",
+           "clip_then_centered_clip_plain", "clip_then_centered_clip",
+           "centered_clip"]
 
-LAUNCHES = {"diff_row_ssq": 0, "bucket_means": 0}
+LAUNCHES = {"diff_row_ssq": 0, "bucket_means": 0, "cclip_resident": 0,
+            "cclip_update": 0}
 H100_SMEM_OPTIN = 232448  # cudaDevAttrMaxSharedMemoryPerBlockOptin, H100
-_RES_WARPS = 16  # kResWarps of csrc/geometric_median.cu
+_RES_WARPS = 16  # kResWarps of csrc/resident.cuh
+# each rule's resident kernel: (its library and opt-in entry point, the
+# f32 words of per-row scratch beside the rows and the iterate)
+_RESIDENT = {
+    "gm": ("geometric_median", "gm_smem_optin", _RES_WARPS + 2),  # m, w
+    "cclip": ("centered_clip", "cclip_smem_optin", _RES_WARPS + 2),  # m, s
+}
 
 
-def resident_smem_bytes(rows: int, d: int) -> int:
-    """Dynamic shared memory of the resident kernel (the rows, z, two
-    per-row weights and the warp sums of each row), as
-    ``gm_resident_smem_floats`` of ``csrc/geometric_median.cu`` counts it:
-    the launch takes this count and refuses one that differs."""
-    return 4 * (rows * d + d + rows * (_RES_WARPS + 2))
+def resident_smem_bytes(rows: int, d: int, rule: str = "gm") -> int:
+    """Dynamic shared memory of ``rule``'s resident kernel (the rows, z,
+    the per-row weights and the warp sums of each row), as
+    ``gm_resident_smem_floats`` (csrc/geometric_median.cu) and
+    ``cclip_resident_smem_floats`` (csrc/centered_clip.cu) count it: the
+    launch takes this count and refuses one that differs."""
+    return 4 * (rows * d + d + rows * _RESIDENT[rule][2])
 
 
-def smem_budget(device: torch.device) -> int:
-    """The opt-in shared memory per block that the resident kernel must
-    fit: the card's own, or the H100's for a CPU tensor.  The first call
-    on a card also lets the resident kernel take that much there."""
+def smem_budget(device: torch.device, rule: str = "gm") -> int:
+    """The opt-in shared memory per block that ``rule``'s resident kernel
+    must fit: the card's own, or the H100's for a CPU tensor.  The first
+    call on a card also lets that kernel take that much there."""
     if device.type != "cuda":
         return H100_SMEM_OPTIN
     index = device.index
     return _card_smem_budget(torch.cuda.current_device() if index is None
-                             else index)
+                             else index, rule)
 
 
 @functools.cache
-def _card_smem_budget(index: int) -> int:
+def _card_smem_budget(index: int, rule: str) -> int:
+    lib, optin, _ = _RESIDENT[rule]
     with torch.cuda.device(index):
-        budget = _build.load("geometric_median").gm_smem_optin()
+        budget = getattr(_build.load(lib), optin)()
     if budget <= 0:
         raise _build.KernelError(
             "cudaDevAttrMaxSharedMemoryPerBlockOptin failed")
@@ -206,9 +240,10 @@ def bucket_means_tiled(xs, mask, factors, bucket_idx, s: int):
 
 def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
                             use_clip: bool, resident_fn, tiled_fn,
-                            plain: bool = False):
+                            plain: bool = False, rule: str = "gm"):
     """The fused clip -> (Bucketing) -> iterative aggregation that the
-    iterative rules share (module docstring).
+    iterative rules share (module docstring); ``rule`` ("gm" or "cclip")
+    names the resident kernel whose shared memory decides the schedule.
 
     ``resident_fn(xs, mask, factors, bucket_idx, s)`` -> (d,) f32, the
     one-launch schedule over the (n_p,) padded auxiliaries;
@@ -236,7 +271,7 @@ def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
     mask, factors, bucket_idx = pad_bucket_aux(mask, factors, bucket_idx, n,
                                                s)
     rows = mask.shape[0] // s
-    if resident_smem_bytes(rows, d) <= smem_budget(dev):
+    if resident_smem_bytes(rows, d, rule) <= smem_budget(dev, rule):
         out = resident_fn(xs, mask, factors, bucket_idx, s)
     elif s >= 2:
         means_fn = bucket_means_plain if plain else bucket_means_tiled
@@ -245,3 +280,170 @@ def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
     else:
         out = tiled_fn(xs, mask, factors)
     return out.to(xs.dtype), norms
+
+
+# ---------------------------------------------------------------------------
+# CenteredClip
+# ---------------------------------------------------------------------------
+
+def _cclip_scale(tau: float, ssq, m):
+    """s_i = m_i min(1, tau / sqrt(ssq_i + 1e-30)), tau divided in f32."""
+    nrm = torch.sqrt(ssq + 1e-30)
+    return torch.clamp(nrm.new_tensor(tau) / nrm, max=1.0) * m
+
+
+def cclip_resident_plain(xs, mask, factors, bucket_idx, s: int, *,
+                         iters: int, tau: float) -> torch.Tensor:
+    """Plain version of the resident kernel: (d,) f32."""
+    if s >= 2:
+        x, m = bucket_means_plain(xs, mask, factors, bucket_idx, s)
+    else:
+        x, m = xs.float() * factors[:, None], mask
+    den = m.sum().clamp(min=1.0)
+    v = (x * m[:, None]).sum(dim=0) / den
+    for _ in range(iters):
+        diff = x - v[None]
+        sc = _cclip_scale(tau, (diff * diff).sum(dim=1), m)
+        v = v + (diff * sc[:, None]).sum(dim=0) / den
+    return v
+
+
+def cclip_resident(xs, mask, factors, bucket_idx, s: int, *, iters: int = 5,
+                   tau: float = 10.0) -> torch.Tensor:
+    """(n, d) rows and (n_p,) padded auxiliaries -> (d,) f32 CenteredClip
+    of the clipped rows (s = 1) or of their bucket means, in one launch.
+    Raises when it does not fit the card's shared memory."""
+    check_matrix(xs, "cclip_resident")
+    mask, factors, bucket_idx = _check_aux(xs, mask, factors, bucket_idx, s)
+    if not xs.is_cuda:
+        return cclip_resident_plain(xs, mask, factors, bucket_idx, s,
+                                    iters=iters, tau=tau)
+    n, d = xs.shape
+    smem = resident_smem_bytes(mask.shape[0] // s, d, "cclip")
+    budget = smem_budget(xs.device, "cclip")  # once per card: the opt-in
+    if smem > budget:
+        raise ValueError(f"cclip_resident needs {smem} bytes of shared "
+                         f"memory, the card allows {budget}")
+    out = torch.empty(d, dtype=torch.float32, device=xs.device)
+    lib = _build.load("centered_clip")
+    with torch.cuda.device(xs.device):
+        rc = lib.cclip_resident_launch(
+            xs.data_ptr(), factors.data_ptr(), mask.data_ptr(),
+            bucket_idx.data_ptr(), out.data_ptr(), _build.dtype_code(xs), n,
+            mask.shape[0], d, s, iters, float(tau), smem,
+            _build.stream_ptr())
+    _build.check(lib, "cclip_resident", rc)
+    LAUNCHES["cclip_resident"] += 1
+    return out
+
+
+def cclip_update_plain(x, sc, factors, z, den) -> torch.Tensor:
+    """Plain version: (d,) f32 z + sum_i (x_i f_i - z) s_i / den, z None
+    for 0."""
+    x32 = x.float()
+    if factors is not None:
+        x32 = x32 * factors[:, None]
+    if z is None:
+        z = x32.new_zeros(x32.shape[1])
+    return z + ((x32 - z[None]) * sc[:, None]).sum(dim=0) / den
+
+
+def cclip_update(x, sc, factors, z, den) -> torch.Tensor:
+    """(n, d) rows, (n,) f32 scales, (n,) f32 factors or None for 1, the
+    (d,) f32 iterate or None for 0, a 0-d f32 ``den`` on the rows' device
+    -> (d,) f32 next iterate."""
+    check_matrix(x, "cclip_update")
+    n, d = x.shape
+    dev = x.device
+    sc = _row_vector(sc, n, dev, torch.float32, "sc")
+    if factors is not None:
+        factors = _row_vector(factors, n, dev, torch.float32, "factors")
+    if z is not None:
+        z = _row_vector(z, d, dev, torch.float32, "z")
+    if den.shape != () or den.device != dev:
+        raise ValueError(f"den must be a 0-d tensor on {dev}")
+    den = den.float()
+    if not x.is_cuda:
+        return cclip_update_plain(x, sc, factors, z, den)
+    out = torch.empty(d, dtype=torch.float32, device=dev)
+    lib = _build.load("centered_clip")
+    with torch.cuda.device(dev):
+        rc = lib.cclip_update_launch(
+            x.data_ptr(), None if factors is None else factors.data_ptr(),
+            sc.data_ptr(), None if z is None else z.data_ptr(),
+            den.data_ptr(), out.data_ptr(), _build.dtype_code(x), n, d,
+            _build.stream_ptr())
+    _build.check(lib, "cclip_update", rc)
+    LAUNCHES["cclip_update"] += 1
+    return out
+
+
+def _cclip_tiled(x, mask, factors, tau, iters, ssq_fn, update_fn):
+    mask = mask.float()
+    den = mask.sum().clamp(min=1.0)
+    v = update_fn(x, mask, factors, None, den)  # v0: the masked mean
+    for _ in range(iters):
+        sc = _cclip_scale(tau, ssq_fn(x, v, factors), mask)
+        v = update_fn(x, sc, factors, v, den)
+    return v
+
+
+def cclip_tiled_plain(x, mask, factors, *, iters: int = 5,
+                      tau: float = 10.0) -> torch.Tensor:
+    """Plain version of ``cclip_tiled``, composed the same way."""
+    return _cclip_tiled(x, mask, factors, tau, iters, diff_row_ssq_plain,
+                        cclip_update_plain)
+
+
+def cclip_tiled(x, mask, factors, *, iters: int = 5,
+                tau: float = 10.0) -> torch.Tensor:
+    """The streaming schedule over (rows, d) ``x`` with (rows,) weights
+    ``mask`` and factors (None for 1): 1 + ``iters`` launches of
+    ``cclip_update`` and ``iters`` of ``diff_row_ssq``; the scales stay on
+    the device.  Returns (d,) f32."""
+    return _cclip_tiled(x, mask, factors, tau, iters, diff_row_ssq,
+                        cclip_update)
+
+
+def clip_then_centered_clip_plain(xs, radius, mask=None, bucket_idx=None, *,
+                                  tau: float = 10.0, iters: int = 5,
+                                  bucket_s: int = 1, use_clip: bool = True):
+    """Plain version of ``clip_then_centered_clip`` on any device: the
+    plain versions of its kernels, with the same dispatch and
+    composition."""
+
+    def resident(x, m, f, idx, s):
+        return cclip_resident_plain(x, m, f, idx, s, iters=iters, tau=tau)
+
+    def tiled(x, m, f):
+        return cclip_tiled_plain(x, m, f, iters=iters, tau=tau)
+
+    return run_clip_then_iterative(
+        xs, radius, mask, bucket_idx, bucket_s=bucket_s, use_clip=use_clip,
+        resident_fn=resident, tiled_fn=tiled, plain=True, rule="cclip")
+
+
+def clip_then_centered_clip(xs, radius, mask=None, bucket_idx=None, *,
+                            tau: float = 10.0, iters: int = 5,
+                            bucket_s: int = 1, use_clip: bool = True):
+    """Per-row clip at ``radius`` -> (Bucketing over ``bucket_idx`` when
+    ``bucket_s >= 2``) -> CenteredClip(tau, iters) over the rows of (n, d).
+    ``use_clip=False`` skips pass 1.  Returns ``(aggregated (d,) in
+    xs.dtype, row_norms (n,) f32 or None)``."""
+
+    def resident(x, m, f, idx, s):
+        return cclip_resident(x, m, f, idx, s, iters=iters, tau=tau)
+
+    def tiled(x, m, f):
+        return cclip_tiled(x, m, f, iters=iters, tau=tau)
+
+    return run_clip_then_iterative(
+        xs, radius, mask, bucket_idx, bucket_s=bucket_s, use_clip=use_clip,
+        resident_fn=resident, tiled_fn=tiled, rule="cclip")
+
+
+def centered_clip(xs, mask=None, *, tau: float = 10.0, iters: int = 5):
+    """(n, d) -> (d,) CenteredClip aggregate (mask-aware)."""
+    out, _ = clip_then_centered_clip(xs, 0.0, mask, tau=tau, iters=iters,
+                                     use_clip=False)
+    return out

@@ -16,6 +16,12 @@ bucket means.  Two kernels do it without writing the clipped matrix:
           them.  Replaces ``_clip_agg_kernel`` and
           ``_clip_bucket_agg_kernel``.
 
+``bucketed_coordinate_median`` is Bucketing(s) o CM with an explicit
+permutation of the n_p padded slots (the reference draws it from a key):
+the same selection template with unit factors, through its own C entry
+point and launch counter.  Replaces ``_bucket_cm_kernel``
+(``src/repro/kernels/bucketing.py``).
+
 Both read the n*d matrix once and are bound by bytes on the H100; the
 design notes are in the two sources.  ``use_clip=False`` skips pass 1
 (the full-gradient rounds).
@@ -42,10 +48,11 @@ from .coordinate_median import (
 
 __all__ = ["EPS", "LAUNCHES", "clip_factor", "row_norms_plain", "row_norms",
            "clip_bucket_select_plain", "clip_bucket_select",
-           "clip_then_aggregate"]
+           "clip_then_aggregate", "bucketed_cm_plain",
+           "bucketed_coordinate_median"]
 
 EPS = 1e-30
-LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0}
+LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0, "bucketed_cm": 0}
 # shared-memory words a block may use: 3 per row slot plus 1 per bucket
 _SMEM_WORDS = (48 * 1024 - 16) // 4
 
@@ -98,7 +105,7 @@ def clip_bucket_select_plain(xs, factors, mask, bucket_idx, s: int,
     """Plain version of pass 2: (n, d) -> (d,) f32, the kernel's
     arithmetic.  ``bucket_idx`` None means rows in order."""
     n, d = xs.shape
-    n_p, nb, _ = _slots(n, s)
+    n_p, _, _ = _slots(n, s)
     x = xs.float() * factors[:, None]
     if s == 1:  # a row is in when its mask is > 0.5
         ok = mask > 0.5
@@ -107,13 +114,26 @@ def clip_bucket_select_plain(xs, factors, mask, bucket_idx, s: int,
     dev = xs.device
     idx = (torch.arange(n, device=dev) if bucket_idx is None
            else bucket_idx.long())
-    # one zero row with mask 0 (row n) stands for every empty slot
-    idx = torch.where((idx >= 0) & (idx < n), idx, n)
     idx = torch.cat([idx, torch.full((n_p - n,), n, device=dev)])
+    return _bucket_select_plain(x, mask, idx, s, trim_ratio)
+
+
+def _bucket_select_plain(x, mask, slots, s: int, trim_ratio: float):
+    """The bucketed selection over (n, d) f32 rows ``x`` in the slot order
+    ``slots`` (n_p,), an index outside [0, n) an empty slot."""
+    n, d = x.shape
+    nb = slots.shape[0] // s
+    # one zero row with mask 0 (row n) stands for every empty slot
+    idx = torch.where((slots >= 0) & (slots < n), slots, n)
     x = torch.cat([x, x.new_zeros(1, d)])[idx].view(nb, s, d)
     m = torch.cat([mask, mask.new_zeros(1)])[idx].view(nb, s)
-    cnt_b = m.sum(dim=1)
-    means = (x * m[:, :, None]).sum(dim=1) / cnt_b.clamp(min=1.0)[:, None]
+    # slot by slot, in the kernel's order, so that the sums match any s
+    acc = x.new_zeros(nb, d)
+    cnt_b = m.new_zeros(nb)
+    for t in range(s):
+        acc = acc + x[:, t] * m[:, t, None]
+        cnt_b = cnt_b + m[:, t]
+    means = acc / cnt_b.clamp(min=1.0)[:, None]
     ok = cnt_b > 0.5
     vals = torch.where(ok[:, None], means, BIG)
     return select_plain(vals, ok.sum(), trim_ratio)
@@ -180,3 +200,42 @@ def clip_then_aggregate(xs, radius, mask=None, bucket_idx=None, *,
     out = clip_bucket_select(xs, factors, mask,
                              bucket_idx if s >= 2 else None, s, trim_ratio)
     return out.to(xs.dtype), norms
+
+
+def _check_perm(xs, perm, mask, s: int):
+    n = xs.shape[0]
+    if s < 2:
+        raise ValueError(f"Bucketing needs bucket size s >= 2, got {s}")
+    n_p = n + (-n) % s
+    dev = xs.device
+    mask = (torch.ones(n, dtype=torch.float32, device=dev) if mask is None
+            else _row_vector(mask, n, dev, torch.float32, "mask"))
+    return _row_vector(perm, n_p, dev, torch.int32, "perm"), mask, n_p
+
+
+def bucketed_cm_plain(xs, perm, mask, s: int) -> torch.Tensor:
+    """Plain version of ``bucketed_coordinate_median``: (d,) f32."""
+    return _bucket_select_plain(xs.float(), mask, perm.long(), s, -1.0)
+
+
+def bucketed_coordinate_median(xs, perm, mask=None, *, s: int = 2):
+    """(n, d) -> (d,) in ``xs.dtype``: Bucketing(s) o masked coordinate
+    median.  ``perm`` is the bucket order, a permutation of the n_p = n +
+    ((-n) mod s) padded slots (slots n..n_p-1 are empty rows of mask 0);
+    ``mask`` (n,) weighs the rows.  Empty buckets are left out of the
+    numpy-style median."""
+    check_matrix(xs, "bucketed_coordinate_median")
+    perm, mask, n_p = _check_perm(xs, perm, mask, s)
+    if not xs.is_cuda:
+        return bucketed_cm_plain(xs, perm, mask, s).to(xs.dtype)
+    n, d = xs.shape
+    _, nb, cap = _slots(n, s)
+    out = torch.empty(d, dtype=torch.float32, device=xs.device)
+    lib = _build.load("clip_aggregate")
+    with torch.cuda.device(xs.device):
+        rc = lib.bucketed_cm_launch(
+            xs.data_ptr(), mask.data_ptr(), perm.data_ptr(), out.data_ptr(),
+            _build.dtype_code(xs), n, n_p, d, s, nb, cap, _build.stream_ptr())
+    _build.check(lib, "bucketed_cm", rc)
+    LAUNCHES["bucketed_cm"] += 1
+    return out.to(xs.dtype)

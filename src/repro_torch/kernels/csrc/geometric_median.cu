@@ -24,17 +24,15 @@
 //                 value) and does a few flops per value.
 //
 // Design:
-//   gm_resident   one block of kResThreads threads.  It writes the clipped rows
+//   gm_resident   one block of kResThreads threads.  The staging it shares
+//                 with CenteredClip (resident.cuh) writes the clipped rows
 //                 (s = 1) or their bucket means (s >= 2, gathered through the
 //                 row order idx, padded slots never read) into dynamic shared
-//                 memory once, then runs z0 and every iteration there.  Each
-//                 thread owns the coordinates j = tid + k*kResThreads, so z[j]
-//                 is read and written by one thread only; the per-row squared
-//                 distances are warp-shuffle trees whose warp sums meet in
-//                 shared memory (two barriers per iteration).  The host picks
-//                 it when its count of gm_resident_smem_floats(rows, d) fits
-//                 the card's opt-in shared memory per block, and passes that
-//                 count to the launch, which checks it.
+//                 memory once and forms z0; every iteration runs there (two
+//                 barriers per iteration).  The host picks it when its count
+//                 of gm_resident_smem_floats(rows, d) fits the card's opt-in
+//                 shared memory per block, and passes that count to the
+//                 launch, which checks it.
 //   diff_row_ssq  grid of column chunks of kSsqChunk; a block keeps its chunk
 //                 of z in registers, walks all rows and writes partial[i, c]:
 //                 no atomics, so runs repeat bit for bit, and z is read once
@@ -48,12 +46,10 @@
 // order of their sums.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "resident.cuh"
 
 namespace repro {
 
-constexpr int kResThreads = 512;
-constexpr int kResWarps = kResThreads / 32;
 constexpr int kSsqThreads = 256;
 constexpr int kSsqPerThread = 8;
 constexpr int kSsqChunk = kSsqThreads * kSsqPerThread;  // columns per block
@@ -61,19 +57,10 @@ constexpr int kSsqRowBatch = 32;  // rows whose warp sums share the buffer
 constexpr int kColThreads = 256;
 
 // floats of dynamic shared memory gm_resident takes for `rows` rows of width
-// d: the rows, z, the row weights m and w, and the warp sums of each row.
+// d: the shared resident layout (resident.cuh), its w holding the Weiszfeld
+// weights.
 __host__ __device__ inline long long gm_resident_smem_floats(int rows, long long d) {
-  return static_cast<long long>(rows) * d + d + static_cast<long long>(rows) * (kResWarps + 2);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // the total in lane 0
-}
-
-__device__ __forceinline__ float factor_of(const float* __restrict__ factor, int64_t r) {
-  return factor != nullptr ? factor[r] : 1.f;
+  return resident_smem_floats(rows, d);
 }
 
 // x: (n, d); factor: (n_p,) or null for 1; mask: (n_p,); idx: (n_p,) row
@@ -86,85 +73,25 @@ gm_resident_kernel(const T* __restrict__ x, const float* __restrict__ factor,
                    float* __restrict__ out, int n, int64_t d, int s, int rows, int iters,
                    float eps) {
   extern __shared__ float smem[];
-  float* xs = smem;                                 // (rows, d)
-  float* z = xs + static_cast<int64_t>(rows) * d;   // (d,)
-  float* m = z + d;                                 // (rows,)
-  float* w = m + rows;                              // (rows,)
-  float* red = w + rows;                            // (rows, kResWarps)
+  const Resident r = resident_layout(smem, rows, d);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // row weights: the row mask, or 1 for a bucket with a sampled member
-  for (int b = tid; b < rows; b += kResThreads) {
-    if (s == 1) {
-      m[b] = mask[b];
-    } else {
-      float cnt = 0.f;
-      for (int t = 0; t < s; ++t) {
-        const int r = idx[b * s + t];
-        if (r >= 0 && r < n) cnt += mask[r];
-      }
-      m[b] = cnt > 0.5f ? 1.f : 0.f;
-    }
-  }
-  // the clipped rows or their bucket means, written once
-  for (int64_t j = tid; j < d; j += kResThreads) {
-    if (s == 1) {
-      for (int i = 0; i < rows; ++i)
-        xs[i * d + j] = to_f32(x[i * d + j]) * factor_of(factor, i);
-    } else {
-      for (int b = 0; b < rows; ++b) {
-        float acc = 0.f, cnt = 0.f;
-        for (int t = 0; t < s; ++t) {
-          const int r = idx[b * s + t];
-          if (r < 0 || r >= n) continue;  // an empty slot: never read
-          const float mr = mask[r];
-          acc += (to_f32(x[static_cast<int64_t>(r) * d + j]) * factor_of(factor, r)) * mr;
-          cnt += mr;
-        }
-        xs[b * d + j] = acc / fmaxf(cnt, 1.f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // z0: the masked mean.  z[j] belongs to the thread that owns j.
-  float msum = 0.f;
-  for (int i = 0; i < rows; ++i) msum += m[i];
-  const float den0 = fmaxf(msum, 1.f);
-  for (int64_t j = tid; j < d; j += kResThreads) {
-    float acc = 0.f;
-    for (int i = 0; i < rows; ++i) acc += xs[i * d + j] * m[i];
-    z[j] = acc / den0;
-  }
+  resident_stage(r, x, factor, mask, idx, n, s);
+  resident_masked_mean(r);
   for (int it = 0; it < iters; ++it) {
-    for (int i = 0; i < rows; ++i) {
-      float acc = 0.f;
-      for (int64_t j = tid; j < d; j += kResThreads) {
-        const float diff = xs[i * d + j] - z[j];
-        acc += diff * diff;
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) red[i * kResWarps + warp] = acc;
-    }
-    __syncthreads();  // every warp sum is in; every thread is done with w
-    for (int i = tid; i < rows; i += kResThreads) {
-      float ssq = 0.f;
-      for (int k = 0; k < kResWarps; ++k) ssq += red[i * kResWarps + k];
-      w[i] = m[i] / sqrtf(ssq + eps);
-    }
+    resident_row_partials(r);  // also: every thread is done with w
+    for (int i = tid; i < rows; i += kResThreads)
+      r.w[i] = r.m[i] / sqrtf(resident_row_ssq(r, i) + eps);
     __syncthreads();
     float wsum = 0.f;
-    for (int i = 0; i < rows; ++i) wsum += w[i];
+    for (int i = 0; i < rows; ++i) wsum += r.w[i];
     wsum = fmaxf(wsum, eps);
     for (int64_t j = tid; j < d; j += kResThreads) {
       float acc = 0.f;
-      for (int i = 0; i < rows; ++i) acc += xs[i * d + j] * w[i];
-      z[j] = acc / wsum;
+      for (int i = 0; i < rows; ++i) acc += r.xs[i * d + j] * r.w[i];
+      r.z[j] = acc / wsum;
     }
   }
-  for (int64_t j = tid; j < d; j += kResThreads) out[j] = z[j];
+  for (int64_t j = tid; j < d; j += kResThreads) out[j] = r.z[j];
 }
 
 // partial[i, c] = sum over the columns j of chunk c of (x[i, j] f[i] - z[j])^2.

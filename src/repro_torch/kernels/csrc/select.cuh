@@ -107,16 +107,18 @@ __device__ __forceinline__ float select_sorted(const int (&v)[NB], int cnt,
 }
 
 // out[c] = Select_{b < nb}( sum_{j < s} (x[row(b*s+j), c] * f) * m / max(cnt_b, 1) ).
-// Slot j < n reads row idx[j] (row j when idx is null); slots n..n_p-1
-// and indices outside [0, n) are empty (mask 0, never read).  A null
+// Slot j < idx_slots reads row idx[j] (row j when idx is null); slots
+// idx_slots..n_p-1 and indices outside [0, n) are empty (mask 0, never
+// read).  Pass 2 gives idx_slots = n (an (n,) row order, padding after
+// it); bucketed CM gives n_p (a permutation of all n_p slots).  A null
 // factor means 1.  S is s when it is 1 or 2, else 0 and s is read at run
 // time.  Dynamic shared memory: 3*n_p + nb words.
 template <typename T, int NB, int S>
 __global__ void __launch_bounds__(kSelectThreads)
 clip_bucket_select_kernel(const T* __restrict__ x, const float* __restrict__ factor,
                           const float* __restrict__ mask, const int* __restrict__ idx,
-                          float* __restrict__ out, int n, int n_p, int64_t d, int s_rt,
-                          int nb, float trim_ratio) {
+                          float* __restrict__ out, int n, int n_p, int idx_slots,
+                          int64_t d, int s_rt, int nb, float trim_ratio) {
   const int s = S > 0 ? S : s_rt;
   extern __shared__ float smem[];
   int* s_row = reinterpret_cast<int*>(smem);
@@ -126,7 +128,7 @@ clip_bucket_select_kernel(const T* __restrict__ x, const float* __restrict__ fac
   __shared__ int s_nok;
 
   for (int j = threadIdx.x; j < n_p; j += blockDim.x) {
-    int r = j < n ? (idx != nullptr ? idx[j] : j) : -1;
+    int r = j < idx_slots ? (idx != nullptr ? idx[j] : j) : -1;
     if (r >= n) r = -1;
     s_row[j] = r;
     s_f[j] = (r >= 0 && factor != nullptr) ? factor[r] : 1.f;
@@ -171,53 +173,61 @@ clip_bucket_select_kernel(const T* __restrict__ x, const float* __restrict__ fac
 
 template <typename T, int NB, int S>
 cudaError_t launch_select_s(const void* x, const void* factor, const void* mask,
-                            const void* idx, void* out, int n, int n_p, int64_t d, int s,
-                            int nb, float trim_ratio, cudaStream_t stream) {
+                            const void* idx, void* out, int n, int n_p, int idx_slots,
+                            int64_t d, int s, int nb, float trim_ratio, cudaStream_t stream) {
   const size_t shmem = (3 * static_cast<size_t>(n_p) + nb) * sizeof(float);
   const int64_t blocks = (d + kSelectThreads - 1) / kSelectThreads;
   clip_bucket_select_kernel<T, NB, S>
       <<<static_cast<unsigned>(blocks), kSelectThreads, shmem, stream>>>(
           static_cast<const T*>(x), static_cast<const float*>(factor),
           static_cast<const float*>(mask), static_cast<const int*>(idx),
-          static_cast<float*>(out), n, n_p, d, s, nb, trim_ratio);
+          static_cast<float*>(out), n, n_p, idx_slots, d, s, nb, trim_ratio);
   return cudaGetLastError();
 }
 
 template <typename T, int NB>
 cudaError_t launch_select_nb(const void* x, const void* factor, const void* mask,
-                             const void* idx, void* out, int n, int n_p, int64_t d, int s,
-                             int nb, float trim_ratio, cudaStream_t stream) {
+                             const void* idx, void* out, int n, int n_p, int idx_slots,
+                             int64_t d, int s, int nb, float trim_ratio, cudaStream_t stream) {
   if (s == 1)
-    return launch_select_s<T, NB, 1>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
+    return launch_select_s<T, NB, 1>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb,
+                                     trim_ratio, stream);
   if (s == 2)
-    return launch_select_s<T, NB, 2>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
-  return launch_select_s<T, NB, 0>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
+    return launch_select_s<T, NB, 2>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb,
+                                     trim_ratio, stream);
+  return launch_select_s<T, NB, 0>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb,
+                                   trim_ratio, stream);
 }
 
 // dtype 0 = f32, 1 = bf16; nb_cap is one of 16/32/64/128 and >= nb.
 template <typename T>
 cudaError_t launch_select_dtype(const void* x, const void* factor, const void* mask,
-                                const void* idx, void* out, int n, int n_p, int64_t d,
-                                int s, int nb, float trim_ratio, int nb_cap,
+                                const void* idx, void* out, int n, int n_p, int idx_slots,
+                                int64_t d, int s, int nb, float trim_ratio, int nb_cap,
                                 cudaStream_t stream) {
   switch (nb_cap) {
-    case 16: return launch_select_nb<T, 16>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
-    case 32: return launch_select_nb<T, 32>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
-    case 64: return launch_select_nb<T, 64>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
-    case 128: return launch_select_nb<T, 128>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, stream);
+    case 16: return launch_select_nb<T, 16>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb, trim_ratio, stream);
+    case 32: return launch_select_nb<T, 32>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb, trim_ratio, stream);
+    case 64: return launch_select_nb<T, 64>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb, trim_ratio, stream);
+    case 128: return launch_select_nb<T, 128>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb, trim_ratio, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// idx_slots: how many leading slots read idx (n for pass 2's row order, n_p
+// for a permutation of every slot).
 inline cudaError_t launch_select(const void* x, const void* factor, const void* mask,
                                  const void* idx, void* out, int dtype, int n, int n_p,
-                                 int64_t d, int s, int nb, float trim_ratio, int nb_cap,
-                                 cudaStream_t stream) {
-  if (d <= 0 || n <= 0 || nb <= 0 || nb > nb_cap) return cudaErrorInvalidValue;
+                                 int idx_slots, int64_t d, int s, int nb, float trim_ratio,
+                                 int nb_cap, cudaStream_t stream) {
+  if (d <= 0 || n <= 0 || nb <= 0 || nb > nb_cap || idx_slots < 0 || idx_slots > n_p)
+    return cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_select_dtype<float>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, nb_cap, stream);
+    return launch_select_dtype<float>(x, factor, mask, idx, out, n, n_p, idx_slots, d, s, nb,
+                                      trim_ratio, nb_cap, stream);
   if (dtype == 1)
-    return launch_select_dtype<__nv_bfloat16>(x, factor, mask, idx, out, n, n_p, d, s, nb, trim_ratio, nb_cap, stream);
+    return launch_select_dtype<__nv_bfloat16>(x, factor, mask, idx, out, n, n_p, idx_slots, d,
+                                              s, nb, trim_ratio, nb_cap, stream);
   return cudaErrorInvalidValue;
 }
 

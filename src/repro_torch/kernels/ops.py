@@ -19,11 +19,22 @@ from __future__ import annotations
 
 from . import centered_clip as _cc
 from . import clip_aggregate as _ca
+from . import clipped_diff as _cd
 from . import coordinate_median as _cm
 from . import geometric_median as _gm
 from . import krum as _kr
-from .centered_clip import bucket_means_tiled, diff_row_ssq  # noqa: F401
-from .clip_aggregate import clip_then_aggregate, row_norms  # noqa: F401
+from .centered_clip import (  # noqa: F401
+    bucket_means_tiled,
+    centered_clip,
+    clip_then_centered_clip,
+    diff_row_ssq,
+)
+from .clip_aggregate import (  # noqa: F401
+    bucketed_coordinate_median,
+    clip_then_aggregate,
+    row_norms,
+)
+from .clipped_diff import clipped_diff  # noqa: F401
 from .geometric_median import (  # noqa: F401
     clip_then_geometric_median,
     geometric_median,
@@ -41,7 +52,9 @@ from .krum import (  # noqa: F401
 
 __all__ = ["coordinate_median", "trimmed_mean", "clip_then_aggregate",
            "row_norms", "clip_then_geometric_median", "geometric_median",
-           "diff_row_ssq", "bucket_means_tiled", "clip_then_krum", "krum",
+           "diff_row_ssq", "bucket_means_tiled", "clip_then_centered_clip",
+           "centered_clip", "clipped_diff", "bucketed_coordinate_median",
+           "clip_then_krum", "krum",
            "multi_krum", "krum_gram", "krum_cross_gram",
            "krum_select_from_gram", "krum_apply", "select_row",
            "weighted_row_sum", "selection_is_onehot", "RowSelection",
@@ -49,7 +62,7 @@ __all__ = ["coordinate_median", "trimmed_mean", "clip_then_aggregate",
            "launch_counts", "reset_launch_counts"]
 
 _COUNTERS = (_ca.LAUNCHES, _cm.LAUNCHES, _cc.LAUNCHES, _gm.LAUNCHES,
-             _kr.LAUNCHES)
+             _kr.LAUNCHES, _cd.LAUNCHES)
 
 
 def coordinate_median(xs, mask=None):

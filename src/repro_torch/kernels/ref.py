@@ -1,6 +1,7 @@
 """Plain PyTorch oracles of the kernels, written from the definitions
-(sort, gather, pad, the Weiszfeld fixed point, explicit pairwise
-distances for Krum) and independent of the kernels' own plain versions.
+(sort, gather, pad, the Weiszfeld and CenteredClip fixed points, explicit
+pairwise distances for Krum) and independent of the kernels' own plain
+versions.
 The tests sweep both against these and against ``repro.kernels.ref``."""
 from __future__ import annotations
 
@@ -41,6 +42,31 @@ def trimmed_mean_ref(xs, mask=None, trim_ratio=0.1):
     keep = (idx >= t) & (idx < cnt - t)
     denom = torch.clamp(cnt - 2 * t, min=1).to(F32)
     return (torch.where(keep, s, 0.0).sum(dim=0) / denom).to(xs.dtype)
+
+
+def clipped_diff_ref(g_new, g_old, radius, keep_mask, scale):
+    """Fused gradient difference -> RandK mask -> clip:
+    d = (g_new - g_old) * keep_mask * scale, out = min(1, radius/||d||) d.
+    Returns (clipped in g_new's dtype, norm)."""
+    d = (g_new.to(F32) - g_old.to(F32)) * keep_mask.to(F32) * scale
+    norm = torch.sqrt((d * d).sum())
+    factor = torch.clamp(radius / torch.clamp(norm, min=1e-30), max=1.0)
+    return (d * factor).to(g_new.dtype), norm
+
+
+def centered_clip_ref(xs, tau, iters, mask=None):
+    """CenteredClip fixed point: v <- v + mean_i clip_tau(x_i - v) over the
+    masked rows, from the masked mean."""
+    m = _mask_or_all(xs, mask).to(F32)
+    x32 = xs.to(F32)
+    denom = torch.clamp(m.sum(), min=1.0)
+    v = (x32 * m[:, None]).sum(dim=0) / denom
+    for _ in range(iters):
+        diff = x32 - v[None]
+        nrm = torch.sqrt((diff * diff).sum(dim=1) + 1e-30)
+        scale = torch.clamp(tau / nrm, max=1.0)
+        v = v + (diff * (scale * m)[:, None]).sum(dim=0) / denom
+    return v.to(xs.dtype)
 
 
 def _clip_rows_ref(xs, radius, mask):
@@ -169,3 +195,29 @@ def clip_then_krum_ref(xs, radius, mask=None, bucket_idx=None, *,
 
     return _clip_bucket_then_ref(inner, xs, radius, mask, bucket_idx,
                                  bucket_s)
+
+
+def clip_then_centered_clip_ref(xs, radius, mask=None, bucket_idx=None, *,
+                                tau=10.0, iters=5, bucket_s=1):
+    """Oracle of the fused clip -> (Bucketing) -> CenteredClip kernels.
+    Returns (aggregated (d,), row_norms (n,))."""
+    return _clip_bucket_then_ref(
+        lambda vals, m: centered_clip_ref(vals, tau, iters, mask=m),
+        xs, radius, mask, bucket_idx, bucket_s)
+
+
+def bucketed_cm_ref(xs, perm, mask=None, s=2):
+    """Bucketing(s) o CM with an explicit permutation of the padded rows:
+    mask-weighted bucket means, empty buckets left out of the median."""
+    n = xs.shape[0]
+    m = (torch.ones(n, dtype=F32, device=xs.device) if mask is None
+         else mask.to(F32))
+    pad = (-n) % s
+    xp = F.pad(xs.to(F32), (0, 0, 0, pad))[perm.long()]
+    mp = F.pad(m, (0, pad))[perm.long()]
+    nb = xp.shape[0] // s
+    xb = xp.view(nb, s, -1)
+    mb = mp.view(nb, s, 1)
+    cnt = mb.sum(dim=1)
+    means = (xb * mb).sum(dim=1) / torch.clamp(cnt, min=1.0)
+    return coordinate_median_ref(means.to(xs.dtype), cnt[:, 0] > 0.5)

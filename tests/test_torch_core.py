@@ -23,7 +23,7 @@ from repro_torch.scenarios import stage as tstage
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 RULES = [("cm", {}), ("trimmed_mean", {"trim_ratio": 0.2}), ("mean", {}),
-         ("rfa", {"iters": 5})]
+         ("rfa", {"iters": 5}), ("centered_clip", {"tau": 1.5, "iters": 4})]
 
 
 def _case(n, d, seed):
@@ -67,9 +67,10 @@ def test_kernel_composition_matches_reference_pallas(rule, kw, bucket_s):
     xs, mask = _case(n, d, 11 + bucket_s)
     key = jax.random.PRNGKey(3)
     ref = ragg.make_aggregator(rule, bucket_s, backend="pallas", **kw)
-    if rule == "rfa":
-        aggregate, fused = tagg._kernel_fns(ops.clip_then_geometric_median,
-                                            bucket_s, **kw)
+    if rule in ("rfa", "centered_clip"):
+        kernel = (ops.clip_then_geometric_median if rule == "rfa"
+                  else ops.clip_then_centered_clip)
+        aggregate, fused = tagg._kernel_fns(kernel, bucket_s, **kw)
     else:
         trim = {"cm": -1.0, "mean": 0.0}.get(rule, kw.get("trim_ratio"))
         aggregate, fused = tagg._cm_kernel_fns(trim, bucket_s)
@@ -121,8 +122,8 @@ def test_backends_dispatch_by_device():
         tagg.make_aggregator("cm", backend="xla")
     with pytest.raises(ValueError, match="unknown aggregator"):
         tagg.make_aggregator("median")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        tagg.make_aggregator("cclip")
+    # the whole registry is ported: the legacy spelling builds CenteredClip
+    assert tagg.make_aggregator("cclip", backend="auto").name == "cclip"
     for rule in ("krum", "multi_krum"):  # ported with the serve slice
         assert tagg.make_aggregator(rule, backend="auto").supports_two_phase
     for rule in ("rfa", "gm", "geometric_median"):  # ported with Fig. 2
@@ -172,14 +173,26 @@ def test_clipping_matches_reference():
 
 
 def test_identity_compressor_and_unported_kinds():
+    """The identity passes its input through; every other kind builds with
+    the reference's constants and, on the reference's uniforms, its
+    output."""
     c, r = tcomp.make_compressor("identity"), rcomp.make_compressor("identity")
     x = torch.randn(7)
     assert c(None, x) is x
     assert (c.omega(7), c.zeta(7), c.dq(7)) == (r.omega(7), r.zeta(7),
                                                 r.dq(7))
-    for kind in ("rand_k", "rand_fraction", "l2_quantization"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            tcomp.make_compressor(kind)
+    xs = np.random.RandomState(2).randn(40).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (40,))))
+    for kind, kw in (("rand_k", {"k": 4}), ("rand_fraction", {"frac": 0.2}),
+                     ("l2_quantization", {})):
+        c, r = tcomp.make_compressor(kind, **kw), rcomp.make_compressor(kind,
+                                                                        **kw)
+        assert (c.omega(40), c.zeta(40), c.dq(40)) == (r.omega(40),
+                                                       r.zeta(40), r.dq(40))
+        np.testing.assert_allclose(c(u, torch.from_numpy(xs)).numpy(),
+                                   np.asarray(r(key, jnp.asarray(xs))),
+                                   rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="unknown compressor"):
         tcomp.make_compressor("top_k")
 

@@ -26,7 +26,9 @@ SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 NO_LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0, "coordinate_median": 0,
                "diff_row_ssq": 0, "bucket_means": 0, "gm_resident": 0,
                "gm_update": 0, "gram_matrix": 0, "cross_gram": 0,
-               "weighted_row_sum": 0, "select_row": 0}
+               "weighted_row_sum": 0, "select_row": 0, "bucketed_cm": 0,
+               "cclip_resident": 0, "cclip_update": 0,
+               "clipped_diff_ssq": 0, "clipped_diff_scale": 0}
 
 
 @pytest.fixture
@@ -404,7 +406,8 @@ def test_cuda_bucketed_selection_equals_the_cpu(card, s, multi, tf32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rule,bucket_s", [("krum", 0), ("multi_krum", 0),
                                            ("krum", 2), ("multi_krum", 2),
-                                           ("cm", 0)])
+                                           ("cm", 0), ("centered_clip", 0),
+                                           ("centered_clip", 2)])
 @pytest.mark.parametrize("radius", [None, 5.0], ids=["noclip", "clip"])
 def test_cuda_serve_close_bitwise_equals_one_shot(card, rule, bucket_s,
                                                   radius):
@@ -443,6 +446,12 @@ def test_cuda_serve_close_bitwise_equals_one_shot(card, rule, bucket_s,
                                   clip_bucket_select=2)
         elif rule == "cm":
             assert counts == dict(NO_LAUNCHES, coordinate_median=2)
+        elif rule == "centered_clip" and bucket_s:  # 8 bucket means: resident
+            assert counts == dict(NO_LAUNCHES, row_norms=2 * bool(radius),
+                                  cclip_resident=2)
+        elif rule == "centered_clip":  # 16 rows of 4,096 exceed 227 KB
+            assert counts == dict(NO_LAUNCHES, row_norms=2 * bool(radius),
+                                  diff_row_ssq=10, cclip_update=12)
         else:
             chunks = sum(-(-min(4, k - lo) // 3) for lo in range(0, k, 4))
             apply = "select_row" if rule == "krum" and not bucket_s \
@@ -451,3 +460,127 @@ def test_cuda_serve_close_bitwise_equals_one_shot(card, rule, bucket_s,
                                   gram_matrix=1, **{apply: 2})
         torch.testing.assert_close(got.cpu(), on_cpu.close(
             round_key(3, trial)), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# CenteredClip (csrc/centered_clip.cu), clipped_diff (csrc/clipped_diff.cu)
+# and the bucketed median (csrc/clip_aggregate.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 21])
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_cclip_kernels_match_plain(card, n, s, dtype):
+    cc, _ = _gm_mods()
+    xs, mask, idx, m, f, i = _gm_case(card, n, 698, s, dtype, n * 7 + s)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(
+        cc.cclip_resident(xs, m, f, i, s, iters=5, tau=1.0),
+        cc.cclip_resident_plain(xs, m, f, i, s, iters=5, tau=1.0), **SUM_TOL)
+    z = torch.randn(698, device=card)
+    sc = torch.rand(n, device=card) * m[:n]
+    den = m[:n].sum().clamp(min=1.0)
+    for zz in (z, None):
+        torch.testing.assert_close(
+            cc.cclip_update(xs, sc, f[:n], zz, den),
+            cc.cclip_update_plain(xs, sc, f[:n], zz, den), **SUM_TOL)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, cclip_resident=1,
+                                       cclip_update=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2])
+def test_cuda_cclip_dispatch_both_sides_of_the_threshold(card, s):
+    """The largest d CenteredClip's own resident count admits at n = 20
+    runs cclip_resident; one coordinate more runs the tiled kernels (v0 and
+    5 steps: 6 updates, 5 distance passes); both agree with the plain
+    versions composed the same way."""
+    cc, _ = _gm_mods()
+    budget = cc.smem_budget(card, "cclip")
+    rows = 20 // s
+    d_max = (budget // 4 - rows * 18) // (rows + 1)
+    assert cc.resident_smem_bytes(rows, d_max, "cclip") <= budget \
+        < cc.resident_smem_bytes(rows, d_max + 1, "cclip")
+    for d, resident in ((d_max, True), (d_max + 1, False)):
+        xs, mask, idx, _, _, _ = _gm_case(card, 20, d, s, torch.float32, d)
+        bidx = idx if s >= 2 else None
+        ops.reset_launch_counts()
+        got, norms = ops.clip_then_centered_clip(xs, 1.5, mask, bidx,
+                                                 bucket_s=s, tau=0.5)
+        counts = ops.launch_counts()
+        assert counts == dict(
+            NO_LAUNCHES, row_norms=1, cclip_resident=int(resident),
+            cclip_update=0 if resident else 6,
+            diff_row_ssq=0 if resident else 5,
+            bucket_means=int(not resident and s >= 2))
+        want, wnorms = cc.clip_then_centered_clip_plain(
+            xs, 1.5, mask, bidx, bucket_s=s, tau=0.5)
+        torch.testing.assert_close(got, want, **SUM_TOL)
+        torch.testing.assert_close(norms, wnorms, **SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 1000, 262145, 3 * 2 ** 20 + 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("keep_dtype", [torch.bool, torch.float32],
+                         ids=["bool", "num"])
+def test_cuda_clipped_diff_matches_plain(card, length, dtype, keep_dtype):
+    """The norm to rtol 1e-6; the output bit for bit given the same
+    factor: the plain version rescaled by the kernel's own norm."""
+    cdk = importlib.import_module("repro_torch.kernels.clipped_diff")
+    g = torch.Generator(device=card).manual_seed(length)
+    shape = (length,) if length % 2 else (2, length // 2)
+    gn = torch.randn(shape, device=card, generator=g).to(dtype)
+    go = torch.randn(shape, device=card, generator=g).to(dtype)
+    keep = (torch.rand(shape, device=card, generator=g) < 0.3).to(keep_dtype)
+    radius = 0.25 * float(length) ** 0.5
+    ops.reset_launch_counts()
+    got, norm = ops.clipped_diff(gn, go, radius, keep, 10.0 / 3.0)
+    _, want_norm = cdk.clipped_diff_plain(gn, go, radius, keep, 10.0 / 3.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, clipped_diff_ssq=1,
+                                       clipped_diff_scale=1)
+    assert got.shape == shape and got.dtype == dtype
+    torch.testing.assert_close(norm, want_norm, rtol=1e-6, atol=0)
+    d = ((gn.float() - go.float()) * keep.to(dtype).float()
+         * torch.tensor(10.0 / 3.0, device=card)).to(dtype).float()
+    factor = ca.clip_factor(norm, torch.tensor(radius, device=card))
+    assert torch.equal(got, (d * factor).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(20, 2), (21, 2), (21, 3), (16, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_bucketed_cm_matches_plain(card, n, s, dtype):
+    g = torch.Generator(device=card).manual_seed(n * s)
+    xs = torch.randn(n, 4133, device=card, generator=g).to(dtype)
+    mask = (torch.rand(n, device=card, generator=g) > 0.3).float()
+    n_p = n + (-n) % s
+    perm = torch.randperm(n_p, device=card, generator=g)
+    ops.reset_launch_counts()
+    got = ops.bucketed_coordinate_median(xs, perm, mask, s=s)
+    want = ca.bucketed_cm_plain(xs, perm.int(), mask, s).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.launch_counts() == dict(NO_LAUNCHES, bucketed_cm=1)
+
+
+@pytest.mark.cuda
+def test_cuda_new_kernels_repeat_bit_for_bit(card):
+    cc, _ = _gm_mods()
+    xs, _, _, m, f, i = _gm_case(card, 21, 70000, 3, torch.float32, 9)
+    sc = torch.rand(21, device=card)
+    z = torch.randn(70000, device=card)
+    keep = torch.rand(21, 70000, device=card) < 0.5
+    runs = [lambda: cc.cclip_update(xs, sc, f[:21], z, sc.sum()),
+            lambda: cc.cclip_resident(xs[:, :698].contiguous(), m, f, i, 3),
+            lambda: ops.clipped_diff(xs, xs.flip(0), 3.0, keep, 2.0)[1],
+            lambda: ops.bucketed_coordinate_median(
+                xs, torch.arange(21, device=card), s=3)]
+    for run in runs:
+        assert torch.equal(run(), run())

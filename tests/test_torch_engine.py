@@ -4,8 +4,14 @@ The reference draws all its randomness from ``jax.random``; the port from
 ``torch.Generator``s.  For trajectory parity the test records a tape of
 the reference's draws by replaying its key schedule here (``split(key,
 6)`` per step, the Bernoulli coin, the cohort permutation, the per-client
-minibatch ``randint`` and Bucketing's sampled-first order), carries the
-problem across as numpy arrays, and runs both engines on the same draws.
+minibatch ``randint``, the per-client compressor uniforms and Bucketing's
+sampled-first order), carries the problem across as numpy arrays, and
+runs both engines on the same draws.
+
+The reference compresses client i's difference with ``split(k_q, n)[i]``,
+the very key its minibatch indices came from (``marina_pp.py:218``,
+``problems.py:69-73``): the tape records the uniforms that key gives, so
+the port replays that schedule; its own generator path draws them apart.
 """
 import os
 import subprocess
@@ -17,8 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+import repro.api as R
+import repro_torch.api as T
 from repro.configs.paper import fig1_marina_pp as ref_fig1
 from repro.configs.paper import fig1_problem_kwargs as ref_problem_kwargs
+from repro.configs.paper import paper_plan as ref_paper_plan
 from repro.core import ByzVRMarinaPP as RefEngine
 from repro.core import logistic_problem as ref_logistic_problem
 from repro_torch import quickstart
@@ -36,11 +47,12 @@ STEPS = 300
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
-def _record_tape(cfg, n, m, steps):
+def _record_tape(cfg, n, m, steps, d=40):
     """The reference's draws, replayed from its key schedule
     (repro/core/marina_pp.py ``init``/``step``/``_sample_cohort``,
-    repro/core/problems.py ``all_minibatch_diffs`` and
-    repro/core/aggregators.py ``_bucket_order``)."""
+    repro/core/problems.py ``all_minibatch_diffs``, the compressor's
+    ``jax.random.uniform(qkey, (d,))`` and repro/core/aggregators.py
+    ``_bucket_order``)."""
 
     def one(key, _):
         key, k_bern, k_cohort, k_q, _k_att, k_agg = jax.random.split(key, 6)
@@ -50,20 +62,24 @@ def _record_tape(cfg, n, m, steps):
         rank = jnp.zeros((n,), jnp.int32).at[perm].set(
             jnp.arange(n, dtype=jnp.int32))
         sampled = rank < size
+        qkeys = jax.random.split(k_q, n)
         idx = jax.vmap(lambda k: jax.random.randint(k, (cfg.batch,), 0, m))(
-            jax.random.split(k_q, n))
+            qkeys)
+        # the compressor's draws come from the same per-client keys
+        qdraws = jax.vmap(lambda k: jax.random.uniform(k, (d,)))(qkeys)
         bperm = jax.random.permutation(k_agg, n)
         order = bperm[jnp.argsort(jnp.where(sampled[bperm], 0, 1),
                                   stable=True)]
-        return key, (c, sampled, idx, order)
+        return key, (c, sampled, idx, qdraws, order)
 
-    _, (c, sampled, idx, order) = jax.lax.scan(
+    _, (c, sampled, idx, qdraws, order) = jax.lax.scan(
         one, jax.random.PRNGKey(cfg.seed + 1), None, length=steps)
     # g^0 aggregates all rows (mask None), so its order is the permutation
     g0_order = jax.random.permutation(jax.random.PRNGKey(cfg.seed), n)
     return MarinaPPTape(c=np.asarray(c), sampled=np.asarray(sampled),
                         batch_idx=np.asarray(idx), order=np.asarray(order),
-                        g0_order=np.asarray(g0_order))
+                        g0_order=np.asarray(g0_order),
+                        q_draws=np.asarray(qdraws))
 
 
 @pytest.fixture(scope="module")
@@ -84,6 +100,62 @@ def fig1_pair():
         tape = _record_tape(cfg, ref_prob.n_clients, ref_prob.m, STEPS)
         runs[clip] = (np.asarray(met["loss"]), np.asarray(state.x), tape)
     return prob, runs
+
+
+# the compressed and the CenteredClip Fig. 1 runs: name -> (reference plan,
+# its reference engine config)
+_VARIANTS = {
+    "randk10": dataclasses.replace(
+        ref_paper_plan("cm", 1.0), compress=R.CompressSpec("rand_k", k=10)),
+    "cclip-bucket2": ref_paper_plan("centered_clip", 1.0),
+    "l2quant": dataclasses.replace(
+        ref_paper_plan("cm", 1.0), compress=R.CompressSpec("l2_quantization")),
+}
+
+
+@pytest.fixture(scope="module")
+def fig1_variants(fig1_pair):
+    """The reference's runs of the Fig. 1 problem under each plan of
+    _VARIANTS, with the tape of their (shared) draws."""
+    prob, runs = fig1_pair
+    tape = runs[True][2]
+    ref_prob = ref_logistic_problem(jax.random.PRNGKey(0),
+                                    **ref_problem_kwargs())
+    out = {}
+    for name, plan in _VARIANTS.items():
+        cfg = dataclasses.replace(ref_fig1(True), plan=plan)
+        algo = RefEngine(ref_prob, cfg)
+        state, met = jax.jit(lambda s: algo.run(STEPS, s))(algo.init())
+        out[name] = (cfg, np.asarray(met["loss"]), np.asarray(state.x))
+    return prob, tape, out
+
+
+@pytest.mark.parametrize("name", list(_VARIANTS))
+def test_fig1_variant_trajectory_matches_reference(fig1_variants, name):
+    """RandK (k = 10), l2 quantization and CenteredClip over Bucketing(2)
+    on the reference's draws: the per-step losses agree to 1e-5 abs over
+    300 steps.  The compressed runs pin the per-row compression: the
+    compressor of the flattened (n, d) matrix would keep k of n*d
+    coordinates and scale them by n*d/k."""
+    prob, tape, out = fig1_variants
+    cfg, ref_loss, ref_x = out[name]
+    port_cfg = dataclasses.replace(
+        fig1_marina_pp(True), plan=T.ServerPlan.from_json(cfg.plan.to_json()))
+    algo = ByzVRMarinaPP(prob, port_cfg, device="cpu")
+    state, met = algo.run(STEPS, tape=tape)
+    np.testing.assert_allclose(met["loss"].numpy(), ref_loss, atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(state.x.numpy(), ref_x, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(met["full_round"].numpy(), tape.c)
+
+
+def test_compressed_run_needs_the_tapes_draws(fig1_pair):
+    prob, runs = fig1_pair
+    tape = dataclasses.replace(runs[True][2], q_draws=None)
+    cfg = dataclasses.replace(fig1_marina_pp(True), plan=T.ServerPlan.from_json(
+        _VARIANTS["randk10"].to_json()))
+    with pytest.raises(ValueError, match="q_draws"):
+        ByzVRMarinaPP(prob, cfg, device="cpu").run(STEPS, tape=tape)
 
 
 def test_problem_carried_across_matches_reference(fig1_pair):

@@ -311,12 +311,19 @@ def test_launch_counts_move_only_on_launch():
     ops.clip_then_krum(xs, 1.0, bucket_s=2, multi=True)
     ops.krum(xs)
     ops.krum_cross_gram(xs, xs)
+    ops.clip_then_centered_clip(xs, 1.0, bucket_s=2)
+    ops.centered_clip(xs)
+    ops.clipped_diff(xs, xs.flip(0), 1.0, xs > 0, 2.0)
+    ops.bucketed_coordinate_median(xs, torch.arange(6))
     assert ops.launch_counts() == {"row_norms": 0, "clip_bucket_select": 0,
                                    "coordinate_median": 0, "diff_row_ssq": 0,
                                    "bucket_means": 0, "gm_resident": 0,
                                    "gm_update": 0, "gram_matrix": 0,
                                    "cross_gram": 0, "weighted_row_sum": 0,
-                                   "select_row": 0}
+                                   "select_row": 0, "bucketed_cm": 0,
+                                   "cclip_resident": 0, "cclip_update": 0,
+                                   "clipped_diff_ssq": 0,
+                                   "clipped_diff_scale": 0}
 
 
 def test_failed_launch_and_build_raise_kernel_error(monkeypatch, tmp_path):
@@ -349,6 +356,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert set(_build.SOURCES) == {"row_norms", "clip_aggregate",
-                                   "geometric_median", "krum"}
+                                   "geometric_median", "krum",
+                                   "centered_clip", "clipped_diff"}
     # each library is named by a hash of its sources and flags
     assert _build._lib_path("row_norms") != _build._lib_path("clip_aggregate")

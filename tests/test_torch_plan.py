@@ -105,14 +105,44 @@ def test_sharded_and_mesh_builds_name_their_roadmap_item():
 
 
 def test_unported_rules_and_compressors_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        T.ServerPlan(aggregate="centered_clip").build()
+    """Every rule and compressor kind of the reference now builds: the
+    centered_clip plan gives the reference's aggregate, the rand_k plan
+    the reference's compressed vector on the same draws."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(12)
+    xs = rng.randn(9, 30).astype(np.float32)
+    mask = rng.rand(9) > 0.3
+    for bucket in (None, 2):
+        doc = R.ServerPlan(
+            aggregate=R.AggregatorSpec("centered_clip", tau=1.5, iters=3),
+            clip=R.ClipSpec(radius=2.0),
+            bucket=R.BucketSpec(s=bucket) if bucket else None,
+            schedule=R.ScheduleSpec(placement="naive", backend="jnp"))
+        ref = doc.build()
+        step = T.ServerPlan.from_json(doc.to_json()).build()
+        key = jax.random.PRNGKey(4)
+        perm = torch.tensor(np.asarray(jax.random.permutation(key, 9)))
+        got = step(torch.from_numpy(xs), mask=torch.from_numpy(mask),
+                   key=perm)
+        want = ref(jnp.asarray(xs), mask=jnp.asarray(mask), key=key)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
     for rule in ("krum", "multi_krum"):  # ported with the serve slice
         assert T.ServerPlan(aggregate=rule).build().aggregator \
             .supports_two_phase
     plan = T.ServerPlan(aggregate="cm", compress=T.CompressSpec("rand_k", k=2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        plan.build()
+    rplan = R.ServerPlan(aggregate="cm", compress=R.CompressSpec("rand_k", k=2))
+    comp, rcomp = plan.build().compressor, rplan.build_compressor()
+    x = rng.randn(30).astype(np.float32)
+    key = jax.random.PRNGKey(8)
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (30,))))
+    np.testing.assert_allclose(comp(u, torch.from_numpy(x)).numpy(),
+                               np.asarray(rcomp(key, jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-7)
 
 
 def test_server_step_radius_and_static_clip():

@@ -73,7 +73,7 @@ def _random_partition(rng, items):
 
 _REGISTRY = (("mean", 0), ("cm", 0), ("tm", 0), ("rfa", 0), ("krum", 0),
              ("multi_krum", 0), ("cm", 2), ("krum", 2), ("multi_krum", 2),
-             ("krum", 3))
+             ("krum", 3), ("centered_clip", 0), ("centered_clip", 2))
 
 
 @pytest.mark.parametrize("backend", ["torch", "auto"])
@@ -551,7 +551,9 @@ def test_any_interleaving_of_retried_wire_batches_closes_like_in_order(seed):
 
 @pytest.mark.parametrize("rule,radius", [("krum", 5.0), ("multi_krum", 5.0),
                                          ("krum", None), ("cm", None),
-                                         ("mean", 5.0)])
+                                         ("mean", 5.0),
+                                         ("centered_clip", 5.0),
+                                         ("centered_clip", None)])
 @pytest.mark.parametrize("backend", ["torch", "auto"])
 def test_port_server_matches_reference_server_on_one_stream(rule, radius,
                                                             backend):

@@ -62,9 +62,11 @@ def _time_ms(torch, fn, reps):
 
 
 def _build_variants(build, csrc: Path, out_dir: Path) -> ctypes.CDLL:
+    # a template with idx_slots takes pass 2's (n of the row order slots)
+    slots = "n, " if "idx_slots" in (csrc / "select.cuh").read_text() else ""
     cases = "\n".join(
         f"    case {i}: return static_cast<int>(repro::launch_select_s<float, "
-        f"{nb}, {S}>(x, f, m, idx, out, n, n_p, d, s, nb, trim, st));"
+        f"{nb}, {S}>(x, f, m, idx, out, n, n_p, {slots}d, s, nb, trim, st));"
         for i, (_, S, nb, _) in enumerate(VARIANTS))
     src = _SOURCE.format(header=csrc / "select.cuh", cases=cases)
     h = hashlib.sha256(src.encode())
