@@ -22,9 +22,9 @@ Phases (any failure raises, prints no result and exits non-zero):
    (n=20, d=698, s = 1 and 2), odd n (n=21, s = 2 and 3), the largest d
    the resident rule admits at n=20 and one past it (both sides of the
    dispatch), and the wide shape (s = 1 and 2, clipped); random masks and
-   an all-masked case (result 0).  At the wide shape: each kernel's median
-   time (CUDA events), its bound, the plain version's time and one library
-   call's time (bucket_means: B @ x with B the (n/2, n) bucket-mean
+   an all-masked case (result 0).  At the wide shape: each kernel's time,
+   its bound, the plain version's time and one library call's time
+   (bucket_means: B @ x with B the (n/2, n) bucket-mean
    weights; gm_update: (w / wsum) @ x; diff_row_ssq: torch.cdist);
    gm_resident is timed at the Fig. 2 shape, the largest it takes on the
    path.
@@ -44,7 +44,14 @@ Phases (any failure raises, prints no result and exits non-zero):
    limit must reject two stand-ins, the float64 Gram of the operands
    rounded to TF32 and to bf16, or the check fails as too loose.  At the wide
    shape each is timed beside its bound, its plain version and one library
-   call (x @ x.T, a @ b.T, w @ x, x[winner] * scale; TF32 off).
+   call (x @ x.T, a @ b.T, w @ x, x[r] * scale with r a Python int; TF32
+   off); select_row at an aligned winner (r = 8) and a misaligned one
+   (r = 10), in f32 and bf16, with an int32 winner as the engine's.  Then
+   select_row and clipped_diff_scale at every alignment, exactly:
+   select_row at the wide shape at winners whose rows start at every
+   residue mod 4 (f32) and 8 (bf16) and at n = 20 with d in STREAM_DS
+   (every winner, int32 and int64), clipped_diff_scale at the lengths of
+   SCALE_LENS starting 0-7 values past an aligned start, f32 and bf16.
    CenteredClip's two kernels (cclip_resident, cclip_update) and the whole
    clip_then_centered_clip (tau = 10, 5 steps) against their plain versions
    at rtol 1e-5, atol 1e-6: at the Fig. 1 shape (n=20, d=40, s = 2 and 1),
@@ -61,8 +68,17 @@ Phases (any failure raises, prints no result and exits non-zero):
    factor; bucketed_coordinate_median (an explicit permutation of the
    padded slots) bit for bit at the wide shape, in bf16 and with padded
    slots; then the entry-points run (one call of each, counted from 0)
-   and their times (library: d * factor for the scale pass; none for the
-   others).
+   and their times (library: d * factor for the scale pass, in f32 and
+   bf16; none for the others).
+   Times: a kernel's and a library call's ``ms`` is its device time
+   (``_device_ms``: after a warm-up, N back-to-back calls between one
+   event pair, over N, the median of 5 windows of about 3 ms, the card
+   held by a spin kernel while the host queues each window), and
+   ``call_ms`` the median of single calls each between its own event
+   pair (``_time_ms``, which counts the wrapper's host time while the card
+   waits); plain versions keep the single-call timer.  select_row and
+   clipped_diff_scale also give each wrapper's host enqueue time,
+   ``enqueue_us``: a host clock over 300 calls with no synchronise.
 3. Fig. 1: the paper's configuration (20 clients, 15 good, m=300, d=40,
    CM over Bucketing(2), shift-back, C=4, C_hat=20, p=0.2, gamma=0.5) on
    "cuda" with backend "auto", clipped and unclipped, 300 steps each, plus
@@ -112,6 +128,7 @@ Phases (any failure raises, prints no result and exits non-zero):
    which no engine calls); ``launches_by_path`` has its counts in every
    run.
 """
+import functools
 import json
 import math
 import re
@@ -141,6 +158,9 @@ CLIPPED_BELOW, UNCLIPPED_ABOVE = 2.0, 20.0
 SWEEP_GAP_BELOW = 1e-3
 MAJORITY = dict(n_clients=10, n_good=7, m=128, in_dim=32, hidden=16,
                 heterogeneous=True)
+# phase 2's device-time yardstick: windows of back-to-back calls
+WINDOW_MS, DEVICE_WINDOWS, MAX_WINDOW_CALLS = 3.0, 5, 1000
+ENQUEUE_CALLS = 300  # calls over which a wrapper's host enqueue time is taken
 
 
 def _fail(msg):
@@ -164,6 +184,99 @@ def _time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@functools.cache
+def _spin_cycles_per_ms():
+    """Clock cycles of the card's spin kernel (``torch.cuda._sleep``) in one
+    ms, measured once."""
+    import torch
+
+    cycles = 10 ** 7
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def _device_ms(fn):
+    """Device time of one call: after a warm-up, N calls back to back
+    between one event pair with no synchronise between them, the window
+    over N; the median of DEVICE_WINDOWS windows, N chosen so that a window
+    lasts about WINDOW_MS.  Before each window a spin kernel holds the card
+    for 1.5 times as long as the host takes to queue the window's calls,
+    so the host's cost per call stays out of the window."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(3):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    end.synchronize()
+    calls = max(1, min(MAX_WINDOW_CALLS,
+                       round(WINDOW_MS / max(start.elapsed_time(end) / 3,
+                                             1e-3))))
+    spin = int(min(1.5 * calls * host_ms + 0.2, 100.0)
+               * _spin_cycles_per_ms())
+    times = []
+    for _ in range(DEVICE_WINDOWS):
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _enqueue_us(fn, calls=ENQUEUE_CALLS):
+    """Host time to enqueue one call, in us: a host clock over ``calls``
+    calls with no synchronise between them, and one at the end."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
+
+
+def _row(kernel, plain, library=None, reps=10, plain_reps=3):
+    """One kernel's times: the kernel's and the library call's device time
+    (``ms``, ``library_ms``: ``_device_ms``) and single-call time
+    (``call_ms``, ``library_call_ms``: ``_time_ms``), and the plain
+    version's single-call time (no yardstick, so the old timer)."""
+    t = {"ms": _device_ms(kernel), "call_ms": _time_ms(kernel, reps),
+         "plain_ms": _time_ms(plain, plain_reps),
+         "library_ms": None, "library_call_ms": None}
+    if library is not None:
+        t["library_ms"] = _device_ms(library)
+        t["library_call_ms"] = _time_ms(library, reps)
+    return t
+
+
+def _print_rows(out, digits=4):
+    for name, v in out.items():
+        lib = "none" if v["library_ms"] is None else (
+            f"{v['library_ms']:.4f} (one call {v['library_call_ms']:.4f})")
+        print(f"  {name:18s} kernel {v['ms']:.4f} ms (one call "
+              f"{v['call_ms']:.4f})  bound {v['bound_ms']:.{digits}f} ms "
+              f"({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
+              f"library {lib} ms")
 
 
 class Checks:
@@ -281,21 +394,17 @@ def time_wide(x, mask, idx, factors):
     chunks = -(-d // 8192)
     out = {}
 
-    t = {"ms": _time_ms(lambda: ops.row_norms(x), 10),
-         "plain_ms": _time_ms(lambda: ca.row_norms_plain(x), 3),
-         "library_ms": _time_ms(
-             lambda: torch.linalg.vector_norm(x, dim=1), 10)}
+    t = _row(lambda: ops.row_norms(x), lambda: ca.row_norms_plain(x),
+             lambda: torch.linalg.vector_norm(x, dim=1))
     t["bound_ms"], t["bound_by"] = _bound(4 * n * d + 4 * n * chunks,
                                           2 * n * d)
     out["row_norms"] = t
 
     # pass 2 alone (bucketed s=2, CM, given factors): no single PyTorch
     # call clips, buckets and selects, so there is no library time
-    t = {"ms": _time_ms(lambda: ca.clip_bucket_select(
-            x, factors, maskf, idx, 2, -1.0), 10),
-         "plain_ms": _time_ms(lambda: ca.clip_bucket_select_plain(
-             x, factors, maskf, idx, 2, -1.0), 3),
-         "library_ms": None}
+    t = _row(lambda: ca.clip_bucket_select(x, factors, maskf, idx, 2, -1.0),
+             lambda: ca.clip_bucket_select_plain(x, factors, maskf, idx, 2,
+                                                 -1.0))
     t["bound_ms"], t["bound_by"] = _bound(
         4 * n * d + 4 * d + 12 * n, (3 * n + nb + _bitonic_ops(nb)) * d)
     out["clip_bucket_select"] = t
@@ -303,24 +412,20 @@ def time_wide(x, mask, idx, factors):
     # masked CM; the library call is the midpoint median of the rows with
     # NaN at the masked ones, made before the timing
     vals = torch.where(mask[:, None], x, float("nan"))
-    t = {"ms": _time_ms(lambda: ops.coordinate_median(x, mask), 10),
-         "plain_ms": _time_ms(
-             lambda: cmk.coordinate_median_plain(x, mask, -1.0), 3)}
+    t = _row(lambda: ops.coordinate_median(x, mask),
+             lambda: cmk.coordinate_median_plain(x, mask, -1.0))
     try:
-        t["library_ms"] = _time_ms(lambda: torch.nanquantile(
-            vals, 0.5, dim=0, interpolation="midpoint"), 5)
+        quantile = lambda: torch.nanquantile(  # noqa: E731
+            vals, 0.5, dim=0, interpolation="midpoint")
+        t["library_ms"] = _device_ms(quantile)
+        t["library_call_ms"] = _time_ms(quantile, 5)
     except RuntimeError as e:  # the yardstick only; the port never calls it
         print(f"  torch.nanquantile refused the wide shape: {e}")
-        t["library_ms"] = None
     del vals
     t["bound_ms"], t["bound_by"] = _bound(4 * n * d + 4 * d + 4 * n,
                                           _bitonic_ops(n) * d)
     out["coordinate_median"] = t
-    for name, v in out.items():
-        lib = "n/a" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
-        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.4f}"
-              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
-              f"library {lib} ms")
+    _print_rows(out)
     return out
 
 
@@ -440,10 +545,9 @@ def time_gm(x, mask, idx, checks):
         check_gm(checks, x, mask, idx, s, f"n={n} d={d}", expect="tiled")
     out = {}
     z = torch.randn(d, device="cuda")
-    t = {"ms": _time_ms(lambda: cc.diff_row_ssq(x, z), 10),
-         "plain_ms": _time_ms(lambda: cc.diff_row_ssq_plain(x, z), 3),
-         "library_ms": _time_ms(
-             lambda: torch.cdist(x, z[None]) ** 2, 10)}
+    t = _row(lambda: cc.diff_row_ssq(x, z),
+             lambda: cc.diff_row_ssq_plain(x, z),
+             lambda: torch.cdist(x, z[None]) ** 2)
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d + n), 3 * n * d)
     out["diff_row_ssq"] = t
 
@@ -457,20 +561,16 @@ def time_gm(x, mask, idx, checks):
         1, slots, (fp * m)[slots] / cnt[:, None])[:, :n].contiguous()
     checks.compare("B @ x (library)", f"n={n} d={d} s=2 vs bucket_means",
                    bmat @ x, cc.bucket_means(x, m, fp, ip, 2), exact=False)
-    t = {"ms": _time_ms(lambda: cc.bucket_means(x, m, fp, ip, 2), 10),
-         "plain_ms": _time_ms(lambda: cc.bucket_means_plain(x, m, fp, ip, 2),
-                              3),
-         "library_ms": _time_ms(lambda: bmat @ x, 10)}
+    t = _row(lambda: cc.bucket_means(x, m, fp, ip, 2),
+             lambda: cc.bucket_means_plain(x, m, fp, ip, 2), lambda: bmat @ x)
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + nb * d), 4 * n * d)
     out["bucket_means"] = t
 
     w = torch.rand(n, device="cuda")
     wsum = w.sum()
     wn = w / wsum
-    t = {"ms": _time_ms(lambda: gmk.gm_update(x, w, None, wsum), 10),
-         "plain_ms": _time_ms(lambda: gmk.gm_update_plain(x, w, None, wsum),
-                              3),
-         "library_ms": _time_ms(lambda: wn @ x, 10)}
+    t = _row(lambda: gmk.gm_update(x, w, None, wsum),
+             lambda: gmk.gm_update_plain(x, w, None, wsum), lambda: wn @ x)
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d), 2 * n * d)
     out["gm_update"] = t
 
@@ -480,21 +580,15 @@ def time_gm(x, mask, idx, checks):
     mr = (torch.rand(20, device="cuda", generator=g) > 0.3).float()
     fr = torch.rand(20, device="cuda", generator=g)
     ir = torch.randperm(20, device="cuda", generator=g).int()
-    t = {"ms": _time_ms(lambda: gmk.gm_resident(xr, mr, fr, ir, 2,
-                                                iters=GM_ITERS), 20),
-         "plain_ms": _time_ms(lambda: gmk.gm_resident_plain(
-             xr, mr, fr, ir, 2, iters=GM_ITERS, eps=1e-8), 10),
-         "library_ms": None}
+    t = _row(lambda: gmk.gm_resident(xr, mr, fr, ir, 2, iters=GM_ITERS),
+             lambda: gmk.gm_resident_plain(xr, mr, fr, ir, 2, iters=GM_ITERS,
+                                           eps=1e-8), reps=20, plain_reps=10)
     rows, dr = 10, 698
     t["bound_ms"], t["bound_by"] = _bound(
         4 * (20 * dr + dr + 3 * 20),
         3 * 20 * dr + 2 * rows * dr + GM_ITERS * 5 * rows * dr)
     out["gm_resident"] = t
-    for name, v in out.items():
-        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
-        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.6f}"
-              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
-              f"library {lib} ms")
+    _print_rows(out, digits=6)
 
     # the whole call, clipped, per schedule: the bytes its kernels move
     # (pass 1, bucket means, z0 and two streams per step) against the
@@ -637,6 +731,54 @@ def krum_edges(checks):
     check_krum(checks, xb, yb, "n=17 d=4097 bf16")
 
 
+STREAM_DS = (1, 3, 4, 5, 7, 8, 9, 4095, 4097, 2 ** 20 + 3)
+SCALE_LENS = (*range(1, 10), 4095, 4096, 4097, 3 * 2 ** 20 + 7)
+
+
+def stream_edges(checks, x):
+    """select_row and clipped_diff_scale at every alignment, exactly:
+    select_row at the wide shape at winners 0-3 in f32 (d = 1 mod 4, so
+    their rows start at every residue mod 4) and 0-7 in bf16 (every residue
+    mod 8), and at n = 20 with d in STREAM_DS for every winner (the
+    outputs of the 20 winners stacked into one comparison), in f32 and
+    bf16, with an int64 winner; clipped_diff_scale at the lengths of
+    SCALE_LENS starting 0-7 values past an aligned start, in f32 and bf16
+    (the 8 outputs concatenated into one comparison)."""
+    import torch
+
+    kr, cd = _krum_mod(), _cd_mod()
+    sc = torch.tensor(0.75, device="cuda")
+    n, d = x.shape
+    for tag, xs, residues in (("f32", x, 4), ("bf16", x.bfloat16(), 8)):
+        for r in range(residues):
+            win = torch.tensor(r, dtype=torch.int32, device="cuda")
+            checks.compare("select_row", f"n={n} d={d} {tag} row {r}",
+                           kr.select_row(xs, win, sc),
+                           kr.select_row_plain(xs, win, sc), exact=True)
+        del xs
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for dd in STREAM_DS:
+        x32 = torch.randn(20, dd, device="cuda", generator=g)
+        for tag, xs in (("f32", x32), ("bf16", x32.bfloat16())):
+            wins = [torch.tensor(r, dtype=torch.int64 if r % 2 else torch.int32,
+                                 device="cuda") for r in range(20)]
+            checks.compare(
+                "select_row", f"n=20 d={dd} {tag} every row",
+                torch.stack([kr.select_row(xs, w, sc) for w in wins]),
+                torch.stack([kr.select_row_plain(xs, w, sc) for w in wins]),
+                exact=True)
+    factor = torch.tensor(0.6180339887, device="cuda")
+    for length in SCALE_LENS:
+        base = torch.randn(length + 8, device="cuda", generator=g)
+        for tag, src in (("f32", base), ("bf16", base.bfloat16())):
+            parts = [src[o:o + length] for o in range(8)]
+            checks.compare(
+                "clipped_diff_scale", f"len={length} {tag} offsets 0-7",
+                torch.cat([cd.clipped_diff_scale(p, factor) for p in parts]),
+                torch.cat([cd.clipped_diff_scale_plain(p, factor)
+                           for p in parts]), exact=True)
+
+
 def time_krum(x, y):
     """Krum's kernels at the wide shape: kernel, plain and library times
     (TF32 is off for the library products)."""
@@ -646,36 +788,77 @@ def time_krum(x, y):
     n, d = x.shape
     nt = -(-n // 4)  # the kernels' 4 x 4 tiles per side
     w = torch.rand(n, device="cuda") + 0.5  # every row read
-    win = torch.tensor(n // 2, device="cuda")
-    sc = torch.tensor(0.5, device="cuda")
     out = {}
-    t = {"ms": _time_ms(lambda: kr.gram_matrix(x), 10),
-         "plain_ms": _time_ms(lambda: kr.gram_matrix_plain(x), 2),
-         "library_ms": _time_ms(lambda: x @ x.T, 10)}
+    t = _row(lambda: kr.gram_matrix(x), lambda: kr.gram_matrix_plain(x),
+             lambda: x @ x.T, plain_reps=2)
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + n * n),
                                           2 * 16 * nt * (nt + 1) // 2 * d)
     out["gram_matrix"] = t
-    t = {"ms": _time_ms(lambda: kr.cross_gram(x, y), 10),
-         "plain_ms": _time_ms(lambda: kr.cross_gram_plain(x, y), 2),
-         "library_ms": _time_ms(lambda: x @ y.T, 10)}
+    t = _row(lambda: kr.cross_gram(x, y), lambda: kr.cross_gram_plain(x, y),
+             lambda: x @ y.T, plain_reps=2)
     t["bound_ms"], t["bound_by"] = _bound(4 * (2 * n * d + n * n),
                                           2 * 16 * nt * nt * d)
     out["cross_gram"] = t
-    t = {"ms": _time_ms(lambda: kr.weighted_row_sum(x, w), 10),
-         "plain_ms": _time_ms(lambda: kr.weighted_row_sum_plain(x, w), 3),
-         "library_ms": _time_ms(lambda: w @ x, 10)}
+    t = _row(lambda: kr.weighted_row_sum(x, w),
+             lambda: kr.weighted_row_sum_plain(x, w), lambda: w @ x)
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d + n), 2 * n * d)
     out["weighted_row_sum"] = t
-    t = {"ms": _time_ms(lambda: kr.select_row(x, win, sc), 20),
-         "plain_ms": _time_ms(lambda: kr.select_row_plain(x, win, sc), 10),
-         "library_ms": _time_ms(lambda: x[win] * sc, 20)}
-    t["bound_ms"], t["bound_by"] = _bound(4 * 2 * d, d)
-    out["select_row"] = t
-    for name, v in out.items():
-        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.4f}"
-              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
-              f"library {v['library_ms']:.4f} ms")
+    _print_rows(out)
+    out["select_row"] = time_select_row(x)
     return out
+
+
+def _variant(kernel, plain, library, bound):
+    """A streaming kernel's row at one input (``_row``), with its bound and
+    the host enqueue us a call of the kernel and of its library call."""
+    t = _row(kernel, plain, library, reps=20, plain_reps=5)
+    t["bound_ms"], t["bound_by"] = bound
+    t["enqueue_us"] = _enqueue_us(kernel)
+    t["library_enqueue_us"] = _enqueue_us(library)
+    return t
+
+
+def _print_variants(name, variants):
+    for tag, v in variants.items():
+        print(f"  {name:18s} {tag:22s} kernel {v['ms']:.4f} ms (one call "
+              f"{v['call_ms']:.4f}, {100 * v['bound_ms'] / v['ms']:.0f}% of "
+              f"bound {v['bound_ms']:.4f})  library {v['library_ms']:.4f} ms "
+              f"(one call {v['library_call_ms']:.4f})  plain "
+              f"{v['plain_ms']:.4f} ms  enqueue {v['enqueue_us']:.1f} us, "
+              f"library {v['library_enqueue_us']:.1f} us")
+
+
+def time_select_row(x):
+    """select_row at the wide shape with an int32 winner (the engine's),
+    at an aligned winner (r = 8: its row starts 8 d values in, a multiple
+    of 4 and 8) and a misaligned one (r = n // 2 = 10: 8 bytes past a
+    16-byte boundary in f32, 4 in bf16), in f32 and bf16.  The library
+    call is x[r] * s with r a Python int: a view, then one multiply (in
+    bf16 x[r] * s.view(1), which promotes to f32 as select_row does),
+    held equal to the kernel first.  The row of the kernels line is f32 at
+    r = 10; every input is in ``variants``."""
+    import torch
+
+    kr = _krum_mod()
+    n, d = x.shape
+    sc = torch.tensor(0.5, device="cuda")
+    variants = {}
+    for tag, xs, lib_sc in (("f32", x, sc), ("bf16", x.bfloat16(), sc.view(1))):
+        for r in (8, n // 2):
+            win = torch.tensor(r, dtype=torch.int32, device="cuda")
+            got, want = kr.select_row(xs, win, sc), xs[r] * lib_sc
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"select_row {tag} r={r}: x[r] * s "
+                                     "(library) differs from the kernel")
+            del got, want
+            variants[f"{tag} r={r}"] = _variant(
+                lambda: kr.select_row(xs, win, sc),
+                lambda: kr.select_row_plain(xs, win, sc),
+                lambda: xs[r] * lib_sc,
+                _bound((xs.element_size() + 4) * d, d))
+    _print_variants("select_row", variants)
+    return dict(variants[f"f32 r={n // 2}"], variants=variants)
 
 
 def _cc_mod():
@@ -814,11 +997,9 @@ def time_cclip(x, mask, idx, checks, largest):
                    torch.addmv(z, x.T, w, beta=beta),
                    cc.cclip_update(x, sc, f, z, den), exact=False,
                    scale=z.abs() + w.abs() @ x.abs())
-    t = {"ms": _time_ms(lambda: cc.cclip_update(x, sc, f, z, den), 10),
-         "plain_ms": _time_ms(lambda: cc.cclip_update_plain(x, sc, f, z, den),
-                              3),
-         "library_ms": _time_ms(lambda: torch.addmv(z, x.T, w, beta=beta),
-                                10)}
+    t = _row(lambda: cc.cclip_update(x, sc, f, z, den),
+             lambda: cc.cclip_update_plain(x, sc, f, z, den),
+             lambda: torch.addmv(z, x.T, w, beta=beta))
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + 2 * d + 2 * n),
                                           4 * n * d + 2 * d)
     out["cclip_update"] = t
@@ -831,11 +1012,11 @@ def time_cclip(x, mask, idx, checks, largest):
         fr = torch.rand(n_r, device="cuda", generator=gr)
         ir = torch.randperm(n_r, device="cuda", generator=gr).int()
         rows = n_r // s
-        t = {"ms": _time_ms(lambda: cc.cclip_resident(
-                xr, mr, fr, ir, s, iters=CCLIP_ITERS, tau=1.0), 20),
-             "plain_ms": _time_ms(lambda: cc.cclip_resident_plain(
-                 xr, mr, fr, ir, s, iters=CCLIP_ITERS, tau=1.0), 10),
-             "library_ms": None}
+        t = _row(lambda: cc.cclip_resident(xr, mr, fr, ir, s,
+                                           iters=CCLIP_ITERS, tau=1.0),
+                 lambda: cc.cclip_resident_plain(xr, mr, fr, ir, s,
+                                                 iters=CCLIP_ITERS, tau=1.0),
+                 reps=20, plain_reps=10)
         t["bound_ms"], t["bound_by"] = _bound(
             4 * (n_r * d_r + d_r + 3 * n_r),
             3 * n_r * d_r + 2 * rows * d_r + CCLIP_ITERS * 6 * rows * d_r)
@@ -843,14 +1024,11 @@ def time_cclip(x, mask, idx, checks, largest):
 
     out["cclip_resident"] = resident(20, 40, 2)
     big = resident(20, largest[2], 2)
-    for name, v in out.items():
-        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
-        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.6f}"
-              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
-              f"library {lib} ms")
+    _print_rows(out, digits=6)
     print(f"  {'cclip_resident':18s} at n=20 d={largest[2]} s=2 (the largest "
-          f"it takes): kernel {big['ms']:.4f} ms  bound {big['bound_ms']:.6f}"
-          f" ms ({big['bound_by']})  plain {big['plain_ms']:.4f} ms")
+          f"it takes): kernel {big['ms']:.4f} ms (one call "
+          f"{big['call_ms']:.4f})  bound {big['bound_ms']:.6f} ms "
+          f"({big['bound_by']})  plain {big['plain_ms']:.4f} ms")
 
     # the whole call, clipped, per schedule, with its launches
     for s in (1, 2):
@@ -908,6 +1086,35 @@ def check_clipped_diff(checks, gn, go, keep, tag):
     return radius, scale
 
 
+def time_scale(kd, factor):
+    """clipped_diff_scale on 2^24+37 values in f32 and bf16 (d aligned, as
+    the entry point makes it), beside its library call: d * f in f32; in
+    bf16 torch.mul(d, f.view(1), out=bf16), which multiplies in f32 and
+    rounds once, as the kernel does; each held equal to the kernel first.
+    The row of the kernels line is f32."""
+    import torch
+
+    cd = _cd_mod()
+    variants = {}
+    kb = kd.bfloat16()
+    buf = torch.empty_like(kb)
+    for tag, dv, library in (
+            ("f32", kd, lambda: kd * factor),
+            ("bf16", kb, lambda: torch.mul(kb, factor.view(1), out=buf))):
+        got = cd.clipped_diff_scale(dv, factor)
+        want = library()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"clipped_diff_scale {tag}: the library call "
+                                 "differs from the kernel")
+        variants[tag] = _variant(
+            lambda: cd.clipped_diff_scale(dv, factor),
+            lambda: cd.clipped_diff_scale_plain(dv, factor), library,
+            _bound(2 * dv.element_size() * dv.numel() + 4, dv.numel()))
+    _print_variants("clipped_diff_scale", variants)
+    return dict(variants["f32"], variants=variants)
+
+
 def time_entry_points(checks, x, mask):
     """The worker-side clipped_diff (sites 13-14) on one vector of
     2^24+37 values and the bucketed coordinate median (site 15) at the
@@ -963,33 +1170,20 @@ def time_entry_points(checks, x, mask):
     kd, _ = cd.clipped_diff_ssq(gn, go, keep, scale)
     factor = torch.tensor(0.5, device="cuda")
     # bool keep: g_new, g_old (4 bytes), keep (1), d written (4), partials
-    t = {"ms": _time_ms(lambda: cd.clipped_diff_ssq(gn, go, keep, scale), 20),
-         "plain_ms": _time_ms(
-             lambda: cd.clipped_diff_ssq_plain(gn, go, keep, scale), 5),
-         "library_ms": None}
+    t = _row(lambda: cd.clipped_diff_ssq(gn, go, keep, scale),
+             lambda: cd.clipped_diff_ssq_plain(gn, go, keep, scale), reps=20,
+             plain_reps=5)
     t["bound_ms"], t["bound_by"] = _bound(13 * WIDE_D + 4 * 1024, 5 * WIDE_D)
     out["clipped_diff_ssq"] = t
-    t_f = _time_ms(lambda: cd.clipped_diff_ssq(gn, go, keep_f, scale), 20)
-    t = {"ms": _time_ms(lambda: cd.clipped_diff_scale(kd, factor), 20),
-         "plain_ms": _time_ms(lambda: cd.clipped_diff_scale_plain(kd, factor),
-                              5),
-         "library_ms": _time_ms(lambda: kd * factor, 20)}
-    t["bound_ms"], t["bound_by"] = _bound(8 * WIDE_D + 4, WIDE_D)
-    out["clipped_diff_scale"] = t
+    t_f = _device_ms(lambda: cd.clipped_diff_ssq(gn, go, keep_f, scale))
+    out["clipped_diff_scale"] = time_scale(kd, factor)
     nb = n_p // 2
-    t = {"ms": _time_ms(lambda: ops.bucketed_coordinate_median(
-            x, perm, mask.float()), 10),
-         "plain_ms": _time_ms(lambda: ca.bucketed_cm_plain(
-             x, perm, mask.float(), 2), 3),
-         "library_ms": None}
+    t = _row(lambda: ops.bucketed_coordinate_median(x, perm, mask.float()),
+             lambda: ca.bucketed_cm_plain(x, perm, mask.float(), 2))
     t["bound_ms"], t["bound_by"] = _bound(
         4 * n * d + 4 * d + 4 * (n + n_p), (3 * n_p + nb + _bitonic_ops(nb)) * d)
     out["bucketed_cm"] = t
-    for name, v in out.items():
-        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
-        print(f"  {name:18s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.4f}"
-              f" ms ({v['bound_by']})  plain {v['plain_ms']:.4f} ms  "
-              f"library {lib} ms")
+    _print_rows({k: v for k, v in out.items() if k != "clipped_diff_scale"})
     f32_bound, _ = _bound(16 * WIDE_D + 4 * 1024, 5 * WIDE_D)
     print(f"  {'clipped_diff_ssq':18s} with an f32 keep mask: kernel {t_f:.4f}"
           f" ms  bound {f32_bound:.4f} ms (bytes)")
@@ -1527,6 +1721,8 @@ def main():
     krum_edges(checks)
     wide_y = torch.randn_like(wide[0])
     check_krum(checks, wide[0], wide_y, f"n=20 d={WIDE_D}")
+    print("streaming kernels at every alignment")
+    stream_edges(checks, wide[0])
     times.update(time_krum(wide[0], wide_y))
     del wide_y
     largest = cclip_shapes(checks)

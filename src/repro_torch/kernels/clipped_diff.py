@@ -94,14 +94,20 @@ def clipped_diff_scale_plain(d, factor):
 
 
 def clipped_diff_scale(d, factor):
-    """Pass 2 over a flat (len,) ``d``: d * factor, ``factor`` a 0-d f32
-    tensor on d's device (read there)."""
+    """Pass 2 over a contiguous ``d``: d * factor, ``factor`` a 0-d f32
+    tensor on d's device (read there).  The result lies as far past a
+    16-byte boundary as ``d`` (a view into a slightly longer buffer when
+    ``d`` is not on one)."""
     if factor.shape != () or factor.device != d.device:
         raise ValueError(f"factor must be a 0-d tensor on {d.device}")
     factor = factor.float()
     if not d.is_cuda:
         return clipped_diff_scale_plain(d, factor)
-    out = torch.empty_like(d)
+    # out lies as far past a 16-byte boundary as d, so that the kernel's
+    # loads and stores are whole 16-byte words alike
+    past = d.data_ptr() % 16 // d.element_size()
+    out = torch.empty_like(d) if past == 0 else torch.empty(
+        d.numel() + past, dtype=d.dtype, device=d.device)[past:].view(d.shape)
     lib = _build.load("clipped_diff")
     with torch.cuda.device(d.device):
         rc = lib.clipped_diff_scale_launch(

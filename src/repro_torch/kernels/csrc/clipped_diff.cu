@@ -14,18 +14,33 @@
 // out.  In bf16 d is rounded to g's dtype before the clip, as the reference
 // stores it; the norm is taken from the f32 d before that rounding.
 //
-// Design: grid-stride loops over the flattened vector, a fixed grid of at
-// most kMaxBlocks blocks of kThreads threads, neighbouring threads on
-// neighbouring values.  Each block writes one partial sum (a warp-shuffle
-// tree, then the warp sums in order): no atomics, so a run repeats bit for
-// bit.  The wrapper sums the partials, takes the norm and the factor on the
-// device (no host sync), and the second pass reads the factor there.  The
-// keep mask is bytes (a bool tensor) or g's dtype, as the reference casts it.
+// Design of clipped_diff_ssq: grid-stride loops over the flattened vector, a
+// fixed grid of at most kMaxBlocks blocks of kThreads threads, neighbouring
+// threads on neighbouring values.  Each block writes one partial sum (a
+// warp-shuffle tree, then the warp sums in order): no atomics, so a run
+// repeats bit for bit.  The wrapper sums the partials, takes the norm and the
+// factor on the device (no host sync), and the second pass reads the factor
+// there.  The keep mask is bytes (a bool tensor) or g's dtype, as the
+// reference casts it.
+//
+// Design of clipped_diff_scale: the streaming loads of stream.cuh.  Its first
+// design (a grid-stride loop with one 4-byte load a thread per step over at
+// most 1,024 blocks: about 8 KB of loads in flight a SM against the ~18 KB
+// the card's latency needs) reached 73% of its bound by device time; now a
+// short block a span of 16-byte words, each thread's four loads issued
+// before it waits on one (64-128 KB in flight a SM), and the factor read
+// once a block, by thread 0, behind the block's loads.  The entry point's d
+// is a fresh allocation, so it starts on a 16-byte boundary.  A d that does
+// not (a direct call on a view) gets an output that lies as far past one
+// (the wrapper allocates it so), so that after a scalar head of the values
+// before the boundary, loads and stores are whole words alike.
+//
 // Built with --fmad=false, so d and out are bit for bit the plain PyTorch
 // version's, given the same factor.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace repro {
 
@@ -33,17 +48,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
 
 __device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 inline unsigned grid_of(long long len) {
   const long long blocks = (len + kThreads - 1) / kThreads;
@@ -78,16 +82,53 @@ clipped_diff_ssq_kernel(const T* __restrict__ gn, const T* __restrict__ go,
   }
 }
 
-// out[i] = d[i] * factor in T, the factor a device scalar.
+// out[i] = T(f32(d[i]) * f), d and out `head` values short of a 16-byte
+// boundary: the head and the last values past the whole words are scalar.
+// Thread 0 reads f = *factor once a block, after the block's loads are
+// issued, so that its latency hides behind theirs.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kStreamThreads)
 clipped_diff_scale_kernel(const T* __restrict__ d, const float* __restrict__ factor,
-                          T* __restrict__ out, int64_t len) {
-  const float f = *factor;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < len;
-       i += stride)
-    out[i] = from_f32<T>(to_f32(d[i]) * f);
+                          T* __restrict__ out, int head, int64_t len) {
+  constexpr int kN = Word<T>::kN;
+  __shared__ float s_factor;
+  const int64_t full = (len - head) / kN;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kStreamSpan + threadIdx.x;
+  uint4 w[kStreamUnroll];
+  issue_words(reinterpret_cast<const uint4*>(d + head), k0, full, w);
+  if (threadIdx.x == 0) s_factor = *factor;
+  __syncthreads();
+  const float f = s_factor;
+  T* body = out + head;
+#pragma unroll
+  for (int u = 0; u < kStreamUnroll; ++u) {
+    const int64_t k = k0 + u * kStreamThreads;
+    if (k < full) {
+      float v[kN];
+      unpack(w[u], v);
+#pragma unroll
+      for (int i = 0; i < kN; ++i) v[i] *= f;
+      store_word(body + k * kN, v);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < head)
+    out[threadIdx.x] = from_f32<T>(to_f32(d[threadIdx.x]) * f);
+  const int64_t tail = head + full * kN;  // the last (len - head) % kN values
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < len - tail)
+    out[tail + threadIdx.x] = from_f32<T>(to_f32(d[tail + threadIdx.x]) * f);
+}
+
+template <typename T>
+cudaError_t launch_scale(const void* d, const void* factor, void* out, long long len,
+                         cudaStream_t st) {
+  const uintptr_t pd = reinterpret_cast<uintptr_t>(d), po = reinterpret_cast<uintptr_t>(out);
+  if (pd % sizeof(T) != 0 || (pd & 15u) != (po & 15u)) return cudaErrorInvalidValue;
+  const int boundary = to_boundary<T>(d);
+  const int head = boundary < len ? boundary : static_cast<int>(len);
+  clipped_diff_scale_kernel<T><<<stream_blocks<T>(len - head), kStreamThreads, 0, st>>>(
+      static_cast<const T*>(d), static_cast<const float*>(factor), static_cast<T*>(out), head,
+      len);
+  return cudaGetLastError();
 }
 
 template <typename T, typename K>
@@ -127,21 +168,14 @@ extern "C" int clipped_diff_ssq_launch(const void* gn, const void* go, const voi
   return static_cast<int>(rc);
 }
 
-// d, out: len values of dtype 0 = f32, 1 = bf16; factor: a device f32 scalar.
+// d, out: len values of dtype 0 = f32, 1 = bf16, out as far past a 16-byte
+// boundary as d; factor: a device f32 scalar.
 extern "C" int clipped_diff_scale_launch(const void* d, const void* factor, void* out, int dtype,
                                          long long len, void* stream) {
   if (len <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const float*>(factor);
-  const unsigned grid = repro::grid_of(len);
-  if (dtype == 0) {
-    repro::clipped_diff_scale_kernel<float><<<grid, repro::kThreads, 0, st>>>(
-        static_cast<const float*>(d), f, static_cast<float*>(out), len);
-  } else if (dtype == 1) {
-    repro::clipped_diff_scale_kernel<__nv_bfloat16><<<grid, repro::kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(d), f, static_cast<__nv_bfloat16*>(out), len);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return static_cast<int>(repro::launch_scale<float>(d, factor, out, len, st));
+  if (dtype == 1)
+    return static_cast<int>(repro::launch_scale<__nv_bfloat16>(d, factor, out, len, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -584,3 +584,134 @@ def test_cuda_new_kernels_repeat_bit_for_bit(card):
                 xs, torch.arange(21, device=card), s=3)]
     for run in runs:
         assert torch.equal(run(), run())
+
+
+# ---------------------------------------------------------------------------
+# the streaming kernels at every alignment: select_row, clipped_diff_scale
+# ---------------------------------------------------------------------------
+
+STREAM_DS = [1, 3, 4, 5, 7, 8, 9, 4095, 4097, 2 ** 20 + 3]
+
+
+def _cd_mod():
+    return importlib.import_module("repro_torch.kernels.clipped_diff")
+
+
+def _offset_rows(card, n, d, dtype, offset, seed):
+    """An (n, d) contiguous matrix whose storage starts ``offset`` values
+    past an allocation, so that row r starts at offset + r d values."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    buf = torch.randn(offset + n * d, device=card, generator=g).to(dtype)
+    return buf[offset:].view(n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", STREAM_DS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_select_row_at_every_alignment(card, d, dtype):
+    """Every winner of n = 20 rows, with the matrix starting 0-7 values
+    into its allocation: the row starts at every residue modulo 4 (f32)
+    and 8 (bf16).  Bit for bit the plain version, one launch a call."""
+    kr = _krum_mod()
+    n = 20
+    sc = torch.tensor(0.75, device=card)
+    for offset in range(8):
+        xs = _offset_rows(card, n, d, dtype, offset, d + offset)
+        for r in range(n):
+            win = torch.tensor(r, dtype=torch.int32, device=card)
+            ops.reset_launch_counts()
+            got = kr.select_row(xs, win, sc)
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == dict(NO_LAUNCHES, select_row=1)
+            assert torch.equal(got, kr.select_row_plain(xs, win, sc))
+            assert torch.equal(got, xs[r].float() * 0.75)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_select_row_index_types_clamp_and_non_finite(card, index_dtype,
+                                                          dtype):
+    """int32 and int64 winners, out-of-range winners (clamped), scale 0 on an inf row (zeros, no NaN), and inf and NaN
+    values with a scale that is not 0 (propagated as in the plain
+    version)."""
+    kr = _krum_mod()
+    n, d = 7, 4097
+    xs = _offset_rows(card, n, d, dtype, 3, 11)
+    xs[2] = float("inf")
+    xs[4, ::3] = float("nan")
+    xs[4, 1::3] = float("-inf")
+    cases = [(2, 0.0), (2, 1.5), (4, -2.0), (4, 0.0), (-5, 1.25), (99, 1.25),
+             (6, float("nan"))]
+    for win, s in cases:
+        w = torch.tensor(win, dtype=index_dtype, device=card)
+        sc = torch.tensor(s, device=card)
+        got = kr.select_row(xs, w, sc)
+        want = kr.select_row_plain(xs, w, sc)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        if s == 0.0:
+            assert torch.equal(got, torch.zeros(d, device=card))
+
+
+@pytest.mark.cuda
+def test_cuda_select_row_launches_no_cast_for_an_int32_winner(card):
+    """One kernel a call and no other operation: an int32 winner (the
+    engine's) and an f32 scale reach the kernel as they are."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    kr = _krum_mod()
+    xs = torch.randn(20, 4099, device=card)
+    sc = torch.tensor(0.5, device=card)
+    win = torch.tensor(10, dtype=torch.int32, device=card)
+    kr.select_row(xs, win, sc)  # built and loaded before the count
+    ops.reset_launch_counts()
+    with Ops() as seen:
+        kr.select_row(xs, win, sc)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, select_row=1)
+    assert seen.seen == ["aten.empty.memory_format"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [*range(1, 10), 4095, 4096, 4097,
+                                    3 * 2 ** 20 + 7], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_clipped_diff_scale_at_every_alignment(card, length, dtype):
+    """The scale pass on a d that starts 0-7 values past an aligned start:
+    bit for bit the plain version, one launch a call; and the whole
+    clipped_diff on a 2-D d of the same length."""
+    cdk = _cd_mod()
+    g = torch.Generator(device=card).manual_seed(length)
+    base = torch.randn(length + 8, device=card, generator=g).to(dtype)
+    factor = torch.tensor(0.6180339887, device=card)
+    for offset in range(8):
+        d = base[offset:offset + length]
+        ops.reset_launch_counts()
+        got = cdk.clipped_diff_scale(d, factor)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(NO_LAUNCHES, clipped_diff_scale=1)
+        assert got.dtype == dtype
+        assert torch.equal(got, cdk.clipped_diff_scale_plain(d, factor))
+    shape = (1, length) if length % 2 else (2, length // 2)
+    gn = torch.randn(shape, device=card, generator=g).to(dtype)
+    go = torch.randn(shape, device=card, generator=g).to(dtype)
+    keep = torch.rand(shape, device=card, generator=g) < 0.5
+    got, norm = ops.clipped_diff(gn, go, 0.5, keep, 2.0)
+    d, _ = cdk.clipped_diff_ssq_plain(gn.view(-1), go.view(-1),
+                                      keep.view(-1), 2.0)
+    factor = ca.clip_factor(norm, torch.tensor(0.5, device=card))
+    assert got.shape == shape
+    assert torch.equal(got.view(-1), cdk.clipped_diff_scale_plain(d, factor))

@@ -174,6 +174,35 @@ def test_select_row_scale_zero_gives_zero_on_an_inf_row():
         tk.select_row(_t(xs), torch.tensor(1), torch.tensor(0.5)).numpy())
 
 
+@pytest.mark.parametrize("index_dtype", [torch.int8, torch.uint8, torch.int16,
+                                         torch.int32, torch.int64], ids=str)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_select_row_index_types_and_storage_offsets(index_dtype, offset):
+    """Every integer winner type gives the reference's row; an int32
+    winner (the engine's) and an f32 scale reach the kernel as they are
+    (no cast), others as int32; a matrix that starts ``offset`` values into
+    its storage (so its rows start off a 16-byte boundary) gives the
+    same."""
+    n, d = 9, 4097
+    xs, _ = _rows(n, d, 77 + offset)
+    view = torch.cat([torch.zeros(offset), _t(xs).view(-1)])[offset:]
+    view = view.view(n, d)
+    assert view.storage_offset() == offset
+    for win in (0, 5, n - 1, 99):
+        w = torch.tensor(win).to(index_dtype)
+        sc = torch.tensor(0.75)
+        got_w, got_sc = tk._row_scalars(view, w, sc)
+        assert got_sc is sc
+        if index_dtype == torch.int32:
+            assert got_w is w
+        else:
+            assert got_w.dtype == torch.int32 and int(got_w) == int(w)
+        want = np.asarray(rk.select_row(jnp.asarray(xs), jnp.int32(int(w)),
+                                        jnp.float32(0.75), interpret=True))
+        np.testing.assert_array_equal(tk.select_row(view, w, sc).numpy(),
+                                      want)
+
+
 def test_wrappers_validate_their_inputs():
     x = torch.randn(4, 10)
     with pytest.raises(ValueError, match="at most 128 rows"):
