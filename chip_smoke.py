@@ -35,7 +35,11 @@ Phases (any failure raises, prints no result and exits non-zero):
    scale 0, winner indices out of range and bf16: the Gram and cross-Gram
    to rtol 1e-5 of each entry's scale sqrt(G_ii G_jj), the row-sum to
    rtol 1e-5, select_row exactly; and bit for bit G == G^T and
-   cross_gram(x, x) == gram_matrix(x) at all three shapes.  The Gram's f32
+   cross_gram(x, x) == gram_matrix(x) at all three shapes, and at the
+   shapes of GRAM_EDGES: rows 1-3 values off a 16-byte boundary (d = 1, 2,
+   3 mod 4 in f32, odd d in bf16), tiny d (1-33), n in {1, 4, 5, 20, 128},
+   many steps of misaligned rows (d = 2^20+3) and matrices whose last row
+   ends at the end of their allocation.  The Gram's f32
    arithmetic is held against a float64 Gram of the same inputs, each
    entry within GRAM_F32_K * 2^-24 * sqrt(D) * (sqrt(sum_k a_ik^2 b_jk^2)
    + |G_ij|), D the most roundings a product passes through in the
@@ -45,7 +49,8 @@ Phases (any failure raises, prints no result and exits non-zero):
    rounded to TF32 and to bf16, or the check fails as too loose.  At the wide
    shape each is timed beside its bound, its plain version and one library
    call (x @ x.T, a @ b.T, w @ x, x[r] * scale with r a Python int; TF32
-   off); select_row at an aligned winner (r = 8) and a misaligned one
+   off), the Gram kernels also at the serve shape (their rows' ``serve``);
+   select_row at an aligned winner (r = 8) and a misaligned one
    (r = 10), in f32 and bf16, with an int32 winner as the engine's.  Then
    select_row and clipped_diff_scale at every alignment, exactly:
    select_row at the wide shape at winners whose rows start at every
@@ -731,6 +736,45 @@ def krum_edges(checks):
     check_krum(checks, xb, yb, "n=17 d=4097 bf16")
 
 
+# (n, d, dtype, where): rows 0-3 values past an allocation's start, or the
+# last row ending at the allocation's end ("end")
+GRAM_EDGES = (
+    (20, 4097, "f32", 1), (20, 4098, "f32", 2), (20, 4099, "f32", 3),
+    (17, 4097, "bf16", 1), (20, 4099, "bf16", 0), (1, 1, "f32", 0),
+    (5, 1, "f32", 1), (4, 2, "f32", 0), (20, 3, "f32", 2), (4, 5, "bf16", 1),
+    (1, 33, "f32", 3), (5, 31, "f32", 0), (20, 17, "bf16", 0),
+    (128, 9, "f32", 1), (128, 33, "bf16", 1), (20, 2 ** 20 + 3, "f32", 1),
+    (20, 4097, "f32", "end"), (17, 4099, "bf16", "end"), (5, 3, "f32", "end"))
+
+
+def _placed(n, d, dtype, where, g):
+    """Random (n, d) rows ``where`` values past an allocation's start, or
+    ending at its end (an allocation of whole 512-byte blocks)."""
+    import torch
+
+    per = 512 // dtype.itemsize
+    size = -(-n * d // per) * per if where == "end" else where + n * d
+    buf = torch.randn(size, device="cuda", generator=g).to(dtype)
+    start = size - n * d if where == "end" else where
+    return buf[start:].view(n, d)
+
+
+def gram_edges(checks):
+    """Krum's kernels (check_krum: the Gram's bitwise properties and its
+    float64 limit included) at GRAM_EDGES: rows off a 16-byte boundary
+    (d = 1, 2, 3 mod 4 in f32, odd d in bf16), tiny d, n in {1, 4, 5, 20,
+    128}, many steps of misaligned rows, and a last row ending at the end
+    of its allocation."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for n, d, name, where in GRAM_EDGES:
+        dtype = torch.float32 if name == "f32" else torch.bfloat16
+        check_krum(checks, _placed(n, d, dtype, where, g),
+                   _placed(n, d, dtype, where, g),
+                   f"n={n} d={d} {name} at {where}")
+
+
 STREAM_DS = (1, 3, 4, 5, 7, 8, 9, 4095, 4097, 2 ** 20 + 3)
 SCALE_LENS = (*range(1, 10), 4095, 4096, 4097, 3 * 2 ** 20 + 7)
 
@@ -779,31 +823,46 @@ def stream_edges(checks, x):
                            for p in parts]), exact=True)
 
 
+def _gram_rows(x, y, plain_reps):
+    """gram_matrix and cross_gram on (n, d) rows x and y: kernel, plain and
+    library times (x @ x.T, x @ y.T; TF32 is off) and bounds."""
+    kr = _krum_mod()
+    n, d = x.shape
+    nt = -(-n // 4)  # the kernels' 4 x 4 tiles per side
+    t = _row(lambda: kr.gram_matrix(x), lambda: kr.gram_matrix_plain(x),
+             lambda: x @ x.T, plain_reps=plain_reps)
+    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + n * n),
+                                          2 * 16 * nt * (nt + 1) // 2 * d)
+    c = _row(lambda: kr.cross_gram(x, y), lambda: kr.cross_gram_plain(x, y),
+             lambda: x @ y.T, plain_reps=plain_reps)
+    c["bound_ms"], c["bound_by"] = _bound(4 * (2 * n * d + n * n),
+                                          2 * 16 * nt * nt * d)
+    return {"gram_matrix": t, "cross_gram": c}
+
+
 def time_krum(x, y):
     """Krum's kernels at the wide shape: kernel, plain and library times
-    (TF32 is off for the library products)."""
+    (TF32 is off for the library products); the Gram kernels also at the
+    serve shape (n = 16, d = 4,096), under ``serve`` in their rows."""
     import torch
 
     kr = _krum_mod()
     n, d = x.shape
-    nt = -(-n // 4)  # the kernels' 4 x 4 tiles per side
     w = torch.rand(n, device="cuda") + 0.5  # every row read
-    out = {}
-    t = _row(lambda: kr.gram_matrix(x), lambda: kr.gram_matrix_plain(x),
-             lambda: x @ x.T, plain_reps=2)
-    t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + n * n),
-                                          2 * 16 * nt * (nt + 1) // 2 * d)
-    out["gram_matrix"] = t
-    t = _row(lambda: kr.cross_gram(x, y), lambda: kr.cross_gram_plain(x, y),
-             lambda: x @ y.T, plain_reps=2)
-    t["bound_ms"], t["bound_by"] = _bound(4 * (2 * n * d + n * n),
-                                          2 * 16 * nt * nt * d)
-    out["cross_gram"] = t
+    out = _gram_rows(x, y, plain_reps=2)
     t = _row(lambda: kr.weighted_row_sum(x, w),
              lambda: kr.weighted_row_sum_plain(x, w), lambda: w @ x)
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d + n), 2 * n * d)
     out["weighted_row_sum"] = t
     _print_rows(out)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    serve = _gram_rows(torch.randn(16, 4096, device="cuda", generator=g),
+                       torch.randn(16, 4096, device="cuda", generator=g),
+                       plain_reps=5)
+    print("  at the serve shape n=16 d=4096:")
+    _print_rows(serve, digits=6)
+    for name, v in serve.items():
+        out[name]["serve"] = v
     out["select_row"] = time_select_row(x)
     return out
 
@@ -1719,6 +1778,8 @@ def main():
                    torch.randn(n, d, device="cuda", generator=g),
                    f"n={n} d={d}")
     krum_edges(checks)
+    print("gram kernels at misaligned, tiny and end-of-allocation shapes")
+    gram_edges(checks)
     wide_y = torch.randn_like(wide[0])
     check_krum(checks, wide[0], wide_y, f"n=20 d={WIDE_D}")
     print("streaming kernels at every alignment")

@@ -94,15 +94,21 @@ def clipped_diff_scale_plain(d, factor):
 
 
 def clipped_diff_scale(d, factor):
-    """Pass 2 over a contiguous ``d``: d * factor, ``factor`` a 0-d f32
-    tensor on d's device (read there).  The result lies as far past a
-    16-byte boundary as ``d`` (a view into a slightly longer buffer when
-    ``d`` is not on one)."""
+    """Pass 2 over an f32/bf16 ``d``, contiguous on a card: d * factor,
+    ``factor`` a 0-d f32 tensor on d's device (read there).  The result
+    lies as far past a 16-byte boundary as ``d`` (a view into a slightly
+    longer buffer when ``d`` is not on one)."""
+    if d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"clipped_diff_scale: need float32 or bfloat16, got "
+                        f"{d.dtype}")
     if factor.shape != () or factor.device != d.device:
         raise ValueError(f"factor must be a 0-d tensor on {d.device}")
     factor = factor.float()
     if not d.is_cuda:
         return clipped_diff_scale_plain(d, factor)
+    if not d.is_contiguous():
+        raise ValueError("clipped_diff_scale: the CUDA kernel needs a "
+                         "contiguous d")
     # out lies as far past a 16-byte boundary as d, so that the kernel's
     # loads and stores are whole 16-byte words alike
     past = d.data_ptr() % 16 // d.element_size()

@@ -67,24 +67,33 @@ __all__ = ["LAUNCHES", "GRAM_MAX_N", "RowSelection", "gram_sub_coords",
 F32 = torch.float32
 _BIG = 3.4e37
 GRAM_MAX_N = 128
+# the Gram kernels' cut (krum.cu): runs of 16 coordinates, about 1024
+# sub-slices of a small d
+GRAM_RUN, GRAM_TARGET_SLICES = 16, 1024
 LAUNCHES = {"gram_matrix": 0, "cross_gram": 0, "weighted_row_sum": 0,
             "select_row": 0}
 # the plain Gram sums (n, n, chunk) products of at most this many floats
 _PLAIN_FLOATS = 1 << 20
 
 
-def gram_sub_coords(n: int) -> int:
-    """Coordinates of one sub-slice of the Gram kernels at n rows (the
-    kernel's ``gram_sub_coords``; its launch refuses another count)."""
-    return 32 * (-(-n // 8) * 8)
+def gram_sub_coords(n: int, d: int) -> int:
+    """Coordinates of one sub-slice of the Gram kernels at (n, d), runs of
+    ``GRAM_RUN`` dealt round-robin (the kernel's ``gram_sub_coords``; its
+    launch refuses another count): a whole number of runs, at least one, at
+    most 32 * ceil8(n) (the partial sums stay within 1/32 of the input),
+    and fewer when d is small, so that about ``GRAM_TARGET_SLICES``
+    sub-slices spread over the card."""
+    cap = 32 * (-(-n // 8) * 8)
+    want = GRAM_RUN * -(-d // (GRAM_RUN * GRAM_TARGET_SLICES))
+    return min(cap, want)
 
 
 def gram_rounding_depth(n: int, d: int) -> int:
     """The most roundings one product of a Gram entry passes through in
-    the kernels' sum at (n, d): the sub-slice's fused multiply-adds, the
-    strided adds of the second pass (256 threads), its five warp shuffles
-    and its eight warps added in order."""
-    sub = gram_sub_coords(n)
+    the kernels' sum at (n, d): the sub-slice's fused multiply-adds, one a
+    coordinate in order, the strided adds of the second pass (256
+    threads), its five warp shuffles and its eight warps added in order."""
+    sub = gram_sub_coords(n, d)
     slices = -(-d // sub)
     return sub + -(-slices // 256) + 5 + 8
 
@@ -124,7 +133,7 @@ def gram_matrix_plain(xs: torch.Tensor) -> torch.Tensor:
 
 def _launch_gram(a, b, sym: bool, what: str) -> torch.Tensor:
     n, d = a.shape
-    slices = -(-d // gram_sub_coords(n))
+    slices = -(-d // gram_sub_coords(n, d))
     partial = torch.empty(n * n * slices, dtype=F32, device=a.device)
     out = torch.empty(n, n, dtype=F32, device=a.device)
     lib = _build.load("krum")

@@ -310,3 +310,13 @@ def test_clipped_diff_checks_its_inputs():
     with pytest.raises(ValueError, match="empty"):
         ops.clipped_diff(torch.zeros(0), torch.zeros(0), 1.0,
                          torch.zeros(0), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64],
+                         ids=["f16", "f64"])
+def test_clipped_diff_scale_refuses_other_dtypes(dtype):
+    """The scale pass takes f32 and bf16 only, with the TypeError of the
+    other wrappers, on the CPU as on a card."""
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cdk.clipped_diff_scale(torch.ones(7, dtype=dtype), torch.tensor(0.5))
+    assert sum(ops.launch_counts().values()) == 0

@@ -309,13 +309,44 @@ def test_cuda_krum_kernels_match_plain(card, n, d, dtype):
                                        select_row=1)
 
 
+# The Gram kernels' shapes: the four of before (f32, a fresh allocation,
+# keeping their ids), then rows that start off a 16-byte boundary (d = 1, 2, 3
+# mod 4 in f32 and odd d in bf16, the matrix 0-3 values past an allocation),
+# tiny d, n in {1, 4, 5, 20, 128}, a d of many steps and misaligned rows, and
+# matrices whose last row ends at the end of their allocation ("end").
+F32, BF16 = torch.float32, torch.bfloat16
+GRAM_CASES = [pytest.param(n, d, F32, 0, id=f"{n}-{d}") for n, d in (
+    (16, 4096), (17, 4097), (20, 1 << 20), (128, 3000))] + [
+    pytest.param(n, d, dt, where,
+                 id=f"{'f32' if dt == F32 else 'bf16'}-{n}-{d}-{where}")
+    for n, d, dt, where in (
+        (20, 4097, F32, 1), (20, 4098, F32, 2), (20, 4099, F32, 3),
+        (17, 4097, BF16, 1), (20, 4099, BF16, 0), (5, 33, BF16, 3),
+        (1, 1, F32, 0), (5, 1, F32, 1), (4, 2, F32, 0), (20, 3, F32, 2),
+        (4, 5, BF16, 1), (1, 33, F32, 3), (5, 31, F32, 0), (20, 17, BF16, 0),
+        (128, 9, F32, 1), (128, 33, BF16, 1), (20, (1 << 20) + 3, F32, 1),
+        (20, 4097, F32, "end"), (17, 4099, BF16, "end"), (5, 3, F32, "end"))]
+
+
+def _gram_rows(card, n, d, dtype, where, seed):
+    """(n, d) rows ``where`` values past an allocation's start (0-3), or
+    ending at the allocation's end ("end"; the allocation a whole number of
+    the allocator's 512-byte blocks)."""
+    if where != "end":
+        return _offset_rows(card, n, d, dtype, where, seed)
+    per = 512 // torch.tensor([], dtype=dtype).element_size()
+    size = -(-n * d // per) * per
+    g = torch.Generator(device=card).manual_seed(seed)
+    buf = torch.randn(size, device=card, generator=g).to(dtype)
+    return buf[size - n * d:].view(n, d)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(16, 4096), (17, 4097), (20, 1 << 20),
-                                 (128, 3000)], ids=str)
-def test_cuda_gram_is_symmetric_and_cross_equals_gram_bitwise(card, n, d):
+@pytest.mark.parametrize("n,d,dtype,where", GRAM_CASES)
+def test_cuda_gram_is_symmetric_and_cross_equals_gram_bitwise(card, n, d,
+                                                              dtype, where):
     kr = _krum_mod()
-    g = torch.Generator(device=card).manual_seed(d)
-    xs = torch.randn(n, d, device=card, generator=g)
+    xs = _gram_rows(card, n, d, dtype, where, d)
     gram = kr.gram_matrix(xs)
     assert torch.equal(gram, gram.T)
     assert torch.equal(kr.cross_gram(xs, xs), gram)
@@ -329,25 +360,26 @@ def test_cuda_gram_is_symmetric_and_cross_equals_gram_bitwise(card, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(16, 4096), (17, 4097), (20, 1 << 20),
-                                 (128, 3000)], ids=str)
-def test_cuda_gram_within_f32_summation_limit_of_float64(card, n, d):
+@pytest.mark.parametrize("n,d,dtype,where", GRAM_CASES)
+def test_cuda_gram_within_f32_summation_limit_of_float64(card, n, d, dtype,
+                                                         where):
     """Every Gram and cross-Gram entry lies within 8 f32 rounding units
     of the float64 product: 2^-24 sqrt(D) (sqrt(sum_k a_ik^2 b_jk^2) +
-    |G_ij|), D the kernel's rounding depth.  The same limit rejects the
-    operands rounded to TF32."""
+    |G_ij|), D the kernel's rounding depth.  On f32 inputs the same limit
+    rejects the operands rounded to TF32."""
     kr = _krum_mod()
-    g = torch.Generator(device=card).manual_seed(n * d)
-    xs = torch.randn(n, d, device=card, generator=g)
-    ys = torch.randn(n, d, device=card, generator=g)
+    xs = _gram_rows(card, n, d, dtype, where, n * d)
+    ys = _gram_rows(card, n, d, dtype, where, n * d + 1)
     unit = 2.0 ** -24 * kr.gram_rounding_depth(n, d) ** 0.5
-    tf32 = ((xs.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
     for got, a, b in ((kr.gram_matrix(xs), xs, xs),
                       (kr.cross_gram(xs, ys), xs, ys)):
         a64, b64 = a.double(), b.double()
         g64 = a64 @ b64.T
         limit = 8 * unit * (((a64 * a64) @ (b64 * b64).T).sqrt() + g64.abs())
         assert bool(((got.double() - g64).abs() <= limit).all())
+    if dtype != F32:
+        return
+    tf32 = ((xs.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
     g64 = xs.double() @ xs.double().T
     limit = 8 * unit * (((xs.double() ** 2) @ (xs.double() ** 2).T).sqrt()
                         + g64.abs())
@@ -715,3 +747,22 @@ def test_cuda_clipped_diff_scale_at_every_alignment(card, length, dtype):
     factor = ca.clip_factor(norm, torch.tensor(0.5, device=card))
     assert got.shape == shape
     assert torch.equal(got.view(-1), cdk.clipped_diff_scale_plain(d, factor))
+
+
+@pytest.mark.cuda
+def test_cuda_clipped_diff_scale_refuses_a_strided_d(card):
+    """A CUDA view that is not dense (every other value, a column) raises
+    instead of reading d.numel() consecutive values; the contiguous copy
+    of the same values goes through the kernel."""
+    cdk = _cd_mod()
+    v = torch.randn(64, device=card)
+    x = torch.randn(8, 5, device=card)
+    factor = torch.tensor(0.5, device=card)
+    for d in (v[::2], x[:, 2]):
+        ops.reset_launch_counts()
+        with pytest.raises(ValueError, match="contiguous"):
+            cdk.clipped_diff_scale(d, factor)
+        assert ops.launch_counts() == NO_LAUNCHES
+        got = cdk.clipped_diff_scale(d.contiguous(), factor)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cdk.clipped_diff_scale_plain(d, factor))

@@ -114,6 +114,38 @@ def test_plain_gram_is_exactly_symmetric_and_cross_equals_gram(shape, dtype):
     assert torch.equal(blk.T[:, rows], g[:, rows])
 
 
+# the kernels' cut of the coordinate axis, mirrored in Python: the launch
+# refuses any slice count but ceil(d / gram_sub_coords(n, d))
+CUT_SHAPES = [(1, 1), (5, 1), (4, 33), (16, 4096), (17, 4097), (20, 1 << 16),
+              (16, 1 << 20), (20, 2 ** 24 + 37), (128, 3000), (128, 1 << 24)]
+
+
+@pytest.mark.parametrize("n,d", CUT_SHAPES, ids=str)
+def test_gram_cut_covers_d_in_whole_runs(n, d):
+    sub = tk.gram_sub_coords(n, d)
+    slices = -(-d // sub)
+    assert sub % tk.GRAM_RUN == 0
+    assert tk.GRAM_RUN <= sub <= 32 * (-(-n // 8) * 8)
+    assert slices * sub >= d > (slices - 1) * sub
+    assert tk.gram_rounding_depth(n, d) == sub + -(-slices // 256) + 13
+
+
+def test_gram_cut_at_the_wide_and_the_serve_shape():
+    """At the server-step shape the chain stays at 768 multiply-adds and
+    the depth at 867; at the serve shape the cut of (n, d) gives 256
+    sub-slices of one run, many blocks' worth, where the cut of n alone
+    gave 8, one block's."""
+    wide = 2 ** 24 + 37
+    assert tk.gram_sub_coords(20, wide) == 768
+    assert -(-wide // 768) == 21846
+    assert tk.gram_rounding_depth(20, wide) == 867
+    assert tk.gram_sub_coords(16, 4096) == 16
+    # a block runs at most 16 sub-slices (krum.cu's kMaxGroup)
+    assert -(-4096 // 16) == 256 > 8 * 16
+    assert tk.gram_rounding_depth(16, 4096) == 30
+    assert tk.gram_sub_coords(16, 1 << 20) == 512  # as the cut of n gave
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_weighted_row_sum_plain_matches_reference_kernel(shape, dtype):
