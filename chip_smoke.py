@@ -14,8 +14,15 @@ Phases (any failure raises, prints no result and exits non-zero):
    and unbucketed, CM and TM(0.1), clip on and off) and the standalone
    masked CM/TM, at the Fig. 1 shape (n=20, d=40), an odd-n bucket-padding
    shape (n=21) and a ragged wide server-step shape (n=20, d=2^24+37,
-   1.3 GB in f32).  Tolerances: the coordinate median exactly when kernel
-   and plain version get the same clip factors; sums f32 rtol 1e-5.
+   1.3 GB in f32), the medians also with every row kept and with 4 rows
+   kept (``select_masks``).  Tolerances: the coordinate median exactly
+   when kernel and plain version get the same clip factors; sums f32 rtol
+   1e-5.  The standalone CM is timed under the three masks, each against
+   the bytes of the rows its mask keeps (``bound_all_rows_ms`` beside it:
+   every row), and pass 2 at s = 1 under the 4-row mask;
+   pass 2 at s = 2 and the bucketed median keep bounds over every row,
+   since a masked row in a bucket with a kept row is read.  An operations
+   term counts the comparisons any selection needs (``_select_ops``).
    Fig. 2's Weiszfeld geometric-median kernels (gm_resident, diff_row_ssq,
    bucket_means, gm_update) and the whole clip_then_geometric_median,
    each against its plain version at rtol 1e-5: at the Fig. 2 shape
@@ -366,17 +373,39 @@ def check_shape(checks, n, d, seed):
         checks.compare("coordinate_median", "cm" if trim < 0 else "tm0.1",
                        kern, cmk.coordinate_median_plain(x, mask, trim),
                        exact=trim < 0)
+    for tag, m in select_masks(mask).items():  # the masks time_wide times
+        if m is mask:
+            continue
+        checks.compare("coordinate_median", f"cm {tag}",
+                       ops.coordinate_median(x, m),
+                       cmk.coordinate_median_plain(x, m, -1.0), exact=True)
+        checks.compare(
+            "clip_bucket_select", f"s=1 cm {tag} same factors",
+            ca.clip_bucket_select(x, factors, m.float(), None, 1, -1.0),
+            ca.clip_bucket_select_plain(x, factors, m.float(), None, 1, -1.0),
+            exact=True)
     return x, mask, idx, factors
 
 
-def _bitonic_ops(nb):
-    """f32 min/max operations of the kernels' bitonic network over the
-    least power-of-two width (>= 16) that holds nb values."""
-    width = 16
-    while width < nb:
-        width *= 2
-    lg = int(math.log2(width))
-    return 2 * (width // 4) * lg * (lg + 1)
+def _select_ops(values):
+    """Comparisons a coordinate needs to select an order statistic of
+    ``values`` values: every value but one has to be compared at least once,
+    whatever network or algorithm does it."""
+    return max(values - 1, 0)
+
+
+def select_masks(mask):
+    """The row masks the selection kernels are held and timed under: every
+    row kept (the full rounds of the cm-unbucketed path), the random mask of
+    ``check_shape`` (``random``), and 4 rows kept (the paper's
+    difference-round cohort, C = 4 of 20, ``configs/paper.py``)."""
+    import torch
+
+    n = mask.shape[0]
+    g = torch.Generator(device=mask.device).manual_seed(17)
+    four = torch.zeros_like(mask)
+    four[torch.randperm(n, device=mask.device, generator=g)[:4]] = True
+    return {"all": torch.ones_like(mask), "random": mask, f"4-of-{n}": four}
 
 
 def _bound(nbytes, nops):
@@ -406,31 +435,63 @@ def time_wide(x, mask, idx, factors):
     out["row_norms"] = t
 
     # pass 2 alone (bucketed s=2, CM, given factors): no single PyTorch
-    # call clips, buckets and selects, so there is no library time
+    # call clips, buckets and selects, so there is no library time.  Its
+    # bound reads every row: a masked row in a bucket with a kept row is
+    # read, since its inf or NaN makes the bucket's mean NaN
     t = _row(lambda: ca.clip_bucket_select(x, factors, maskf, idx, 2, -1.0),
              lambda: ca.clip_bucket_select_plain(x, factors, maskf, idx, 2,
                                                  -1.0))
     t["bound_ms"], t["bound_by"] = _bound(
-        4 * n * d + 4 * d + 12 * n, (3 * n + nb + _bitonic_ops(nb)) * d)
+        4 * n * d + 4 * d + 12 * n, (3 * n + nb + _select_ops(nb)) * d)
+    # pass 2 at s = 1 (the cm-unbucketed path's difference rounds) under the
+    # paper's cohort: only the kept rows need reading
+    masks = select_masks(mask)
+    tag = f"4-of-{n}"
+    four = masks[tag].float()
+    v = _row(lambda: ca.clip_bucket_select(x, factors, four, None, 1, -1.0),
+             lambda: ca.clip_bucket_select_plain(x, factors, four, None, 1,
+                                                 -1.0))
+    kept = int(masks[tag].sum())
+    v["bound_ms"], v["bound_by"] = _bound(
+        4 * kept * d + 4 * d + 12 * n, (2 * kept + _select_ops(kept)) * d)
+    t["variants"] = {f"s=1 {tag}": v}
     out["clip_bucket_select"] = t
 
-    # masked CM; the library call is the midpoint median of the rows with
-    # NaN at the masked ones, made before the timing
-    vals = torch.where(mask[:, None], x, float("nan"))
-    t = _row(lambda: ops.coordinate_median(x, mask),
-             lambda: cmk.coordinate_median_plain(x, mask, -1.0))
-    try:
-        quantile = lambda: torch.nanquantile(  # noqa: E731
-            vals, 0.5, dim=0, interpolation="midpoint")
-        t["library_ms"] = _device_ms(quantile)
-        t["library_call_ms"] = _time_ms(quantile, 5)
-    except RuntimeError as e:  # the yardstick only; the port never calls it
-        print(f"  torch.nanquantile refused the wide shape: {e}")
-    del vals
-    t["bound_ms"], t["bound_by"] = _bound(4 * n * d + 4 * d + 4 * n,
-                                          _bitonic_ops(n) * d)
-    out["coordinate_median"] = t
+    # masked CM under each mask of select_masks; its bound reads the kept
+    # rows (a masked row never counts at s = 1), the old one every row.  The
+    # library call is the midpoint median of the rows with NaN at the
+    # masked ones, made before the timing
+    variants = {}
+    for tag, m in masks.items():
+        kept = int(m.sum())
+        vals = torch.where(m[:, None], x, float("nan"))
+        t = _row(lambda: ops.coordinate_median(x, m),
+                 lambda: cmk.coordinate_median_plain(x, m, -1.0))
+        try:
+            quantile = lambda: torch.nanquantile(  # noqa: E731
+                vals, 0.5, dim=0, interpolation="midpoint")
+            t["library_ms"] = _device_ms(quantile)
+            t["library_call_ms"] = _time_ms(quantile, 5)
+        except RuntimeError as e:  # the yardstick only; never called
+            print(f"  torch.nanquantile refused the wide shape: {e}")
+        del vals
+        t["kept_rows"] = kept
+        t["bound_ms"], t["bound_by"] = _bound(4 * kept * d + 4 * d + 4 * n,
+                                              _select_ops(kept) * d)
+        t["bound_all_rows_ms"], _ = _bound(4 * n * d + 4 * d + 4 * n,
+                                           _select_ops(n) * d)
+        variants[tag] = t
+    out["coordinate_median"] = dict(variants["random"], variants=variants)
     _print_rows(out)
+    for name in ("clip_bucket_select", "coordinate_median"):
+        for tag, v in out[name]["variants"].items():
+            old = v.get("bound_all_rows_ms")
+            print(f"  {name:18s} {tag:12s} kernel {v['ms']:.4f} ms, "
+                  f"{100 * v['bound_ms'] / v['ms']:.0f}% of bound "
+                  f"{v['bound_ms']:.4f} ({v['bound_by']}, kept rows)"
+                  + ("" if old is None else
+                     f", {100 * old / v['ms']:.0f}% of the all-rows bound "
+                     f"{old:.4f}"))
     return out
 
 
@@ -1237,10 +1298,12 @@ def time_entry_points(checks, x, mask):
     t_f = _device_ms(lambda: cd.clipped_diff_ssq(gn, go, keep_f, scale))
     out["clipped_diff_scale"] = time_scale(kd, factor)
     nb = n_p // 2
+    # bound over every row, as pass 2's at s = 2: a masked row in a bucket
+    # with a kept row is read
     t = _row(lambda: ops.bucketed_coordinate_median(x, perm, mask.float()),
              lambda: ca.bucketed_cm_plain(x, perm, mask.float(), 2))
     t["bound_ms"], t["bound_by"] = _bound(
-        4 * n * d + 4 * d + 4 * (n + n_p), (3 * n_p + nb + _bitonic_ops(nb)) * d)
+        4 * n * d + 4 * d + 4 * (n + n_p), (3 * n_p + nb + _select_ops(nb)) * d)
     out["bucketed_cm"] = t
     _print_rows({k: v for k, v in out.items() if k != "clipped_diff_scale"})
     f32_bound, _ = _bound(16 * WIDE_D + 4 * 1024, 5 * WIDE_D)

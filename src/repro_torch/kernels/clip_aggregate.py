@@ -53,8 +53,9 @@ __all__ = ["EPS", "LAUNCHES", "clip_factor", "row_norms_plain", "row_norms",
 
 EPS = 1e-30
 LAUNCHES = {"row_norms": 0, "clip_bucket_select": 0, "bucketed_cm": 0}
-# shared-memory words a block may use: 3 per row slot plus 1 per bucket
-_SMEM_WORDS = (48 * 1024 - 16) // 4
+# shared-memory words a block may use for its slot table (48 KiB less the
+# kernel's static words): 4 per row slot plus 2 per bucket
+_SMEM_WORDS = (48 * 1024 - 64) // 4
 
 
 def clip_factor(norm, radius):
@@ -92,10 +93,11 @@ def _slots(n: int, s: int) -> tuple:
     n_p = n + (-n) % s
     nb = n_p // s
     cap = nb_cap(nb)
-    if 3 * n_p + nb > _SMEM_WORDS:
+    if 4 * n_p + 2 * nb > _SMEM_WORDS:
         raise ValueError(
-            f"clip_bucket_select keeps 3 words per row slot in 48 KiB of "
-            f"shared memory: at most {(_SMEM_WORDS - nb) // 3} slots, got {n_p}"
+            f"clip_bucket_select keeps 4 words per row slot in 48 KiB of "
+            f"shared memory: at most {(_SMEM_WORDS - 2 * nb) // 4} slots, "
+            f"got {n_p}"
         )
     return n_p, nb, cap
 

@@ -10,10 +10,14 @@ pass 2 of the fused server step uses too; it replaces ``_cm_kernel`` /
 its launches apart from pass 2's.  On a CPU tensor it runs the plain
 PyTorch version beside it, which repeats the kernel's arithmetic.
 
-The kernel is bound by bytes: it reads n*d*4 bytes once.  Each thread
-owns one coordinate, holds the n masked values in registers and sorts
-them with a bitonic network of compile-time width NB (16, 32, 64 or 128,
-the least that holds n); more than ``MAX_SLOTS`` rows raise ValueError.
+The kernel is bound by bytes: it reads the kept rows once (4 bytes a
+value in f32).  Each thread owns one coordinate and holds its values in
+registers as sort keys.  At the widths of ``networks.EXACT`` (n = 20 and
+16) the median sorts only the kept values, with a network made for their
+count that reaches just the two middle positions, and the trimmed mean
+sorts all n slots with a network of exactly n wires; other n take a
+bitonic network over the least of ``NB_CAPS`` (16, 32, 64 or 128) that
+holds them.  More than ``MAX_SLOTS`` rows raise ValueError.
 
 Masked rows are pushed to +3.4e37 and sort last; a NaN sorts after
 them, as ``torch.sort`` orders it.  The median of cnt

@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.paper import fig1_marina_pp, fig1_problem_kwargs
 from repro_torch.core import ByzVRMarinaPP, logistic_problem
 from repro_torch.kernels import clip_aggregate as ca
-from repro_torch.kernels import ops
+from repro_torch.kernels import networks, ops
 
 cmk = importlib.import_module("repro_torch.kernels.coordinate_median")
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -133,6 +133,147 @@ def test_cuda_engine_goes_through_the_kernels(card):
     cpu = logistic_problem(0, device="cpu", **fig1_problem_kwargs())
     _, ref = ByzVRMarinaPP(cpu, fig1_marina_pp(True), device="cpu").run(40)
     torch.testing.assert_close(met["loss"], ref["loss"], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the selection template's networks (csrc/select.cuh, select_networks.cuh)
+# ---------------------------------------------------------------------------
+
+def _bucket_mask(card, g, w, s, kind):
+    """(w * s,) row mask: every bucket kept ("all"), about 70% of them
+    ("random") or 4 of them ("four"); a kept bucket keeps its first row
+    and each other row with probability 1/2."""
+    if kind == "all":
+        keep = torch.ones(w, dtype=torch.bool, device=card)
+    elif kind == "random":
+        keep = torch.rand(w, device=card, generator=g) > 0.3
+    else:
+        keep = torch.zeros(w, dtype=torch.bool, device=card)
+        keep[torch.randperm(w, device=card, generator=g)[:4]] = True
+    rows = torch.rand(w, s, device=card, generator=g) > 0.5
+    rows[:, 0] = True
+    return (rows & keep[:, None]).reshape(-1).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,s", networks.EXACT, ids=str)
+@pytest.mark.parametrize("kind", ["all", "random", "four"])
+@pytest.mark.parametrize("trim", [-1.0, 0.1])
+def test_cuda_exact_networks_by_the_0_1_principle(card, w, s, kind, trim):
+    """Column c of the input holds the w bits of c (each bucket's s rows
+    alike, so a kept bucket's mean is its bit): every 0-1 input of the
+    exact width's network, under three masks.  The median equals the plain
+    version's exactly, the trimmed mean within SUM_TOL."""
+    g = torch.Generator(device=card).manual_seed(w * 10 + s)
+    cols = torch.arange(2 ** w, device=card)
+    bits = ((cols[None, :] >> torch.arange(w, device=card)[:, None]) & 1)
+    xs = bits.float().repeat_interleave(s, dim=0).contiguous()
+    mask = _bucket_mask(card, g, w, s, kind)
+    ones = torch.ones(w * s, device=card)
+    exact = dict(rtol=0, atol=0) if trim < 0 else SUM_TOL
+    ops.reset_launch_counts()
+    got = ca.clip_bucket_select(xs, ones, mask, None, s, trim)
+    torch.testing.assert_close(
+        got, ca.clip_bucket_select_plain(xs, ones, mask, None, s, trim),
+        **exact)
+    launches = dict(NO_LAUNCHES, clip_bucket_select=1)
+    if s == 1:
+        cm = ops.coordinate_median(xs, mask) if trim < 0 \
+            else ops.trimmed_mean(xs, mask, trim)
+        torch.testing.assert_close(
+            cm, cmk.coordinate_median_plain(xs, mask, trim), **exact)
+        launches["coordinate_median"] = 1
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 16])
+def test_cuda_median_at_every_kept_count(card, n):
+    """The s = 1 median takes its own network for each count of kept rows
+    (0..n).  The columns hold every 0-1 input of the n rows, then random
+    values with +inf, NaN, 1e38 and 3.4e37 among them (kept keys above
+    the empty slots' 3.4e37, the path that sorts all n slots): the median
+    equals the plain version's at every count."""
+    g = torch.Generator(device=card).manual_seed(n)
+    cols = torch.arange(2 ** n, device=card)
+    bits = ((cols[None, :] >> torch.arange(n, device=card)[:, None]) & 1)
+    odd = torch.randn(n, 4099, device=card, generator=g)
+    for value, every in ((float("inf"), 5), (float("nan"), 7), (1e38, 3),
+                         (3.4e37, 11)):
+        hit = torch.rand(n, 4099, device=card, generator=g) < 0.3
+        hit[:, ::every] = False
+        odd[hit] = value
+    xs = torch.cat([bits.float(), odd], dim=1).contiguous()
+    for count in range(n + 1):
+        mask = torch.zeros(n, dtype=torch.bool, device=card)
+        mask[torch.randperm(n, device=card, generator=g)[:count]] = True
+        ops.reset_launch_counts()
+        torch.testing.assert_close(
+            ops.coordinate_median(xs, mask),
+            cmk.coordinate_median_plain(xs, mask, -1.0),
+            equal_nan=True, rtol=0, atol=0)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(NO_LAUNCHES, coordinate_median=1)
+
+
+# every exact (nb, s) and one generic nb per NB_CAPS class (16/32/64/128)
+# at s = 1, 2 and 3
+SELECT_WIDTHS = [(20, 1), (16, 1), (20, 2), (16, 2), (18, 3), (16, 3),
+                 (11, 1), (21, 1), (40, 1), (100, 1), (22, 2), (42, 2),
+                 (100, 2), (200, 2), (21, 3), (64, 3), (250, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", SELECT_WIDTHS, ids=str)
+@pytest.mark.parametrize("weights", [False, True], ids=["0-1", "weights"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_selection_random_values_at_every_width(card, n, s, weights,
+                                                     dtype):
+    """Random rows, clip factors, Bucketing order and a mask of 0/1 (the
+    divide left out where it is exact) or of fractional weights (the IEEE
+    divide), at the exact widths and a generic one of each NB_CAPS class:
+    the median exactly, the trimmed mean within SUM_TOL."""
+    g = torch.Generator(device=card).manual_seed(n * 10 + s)
+    xs = torch.randn(n, 1000, device=card, generator=g).to(dtype)
+    keep = torch.rand(n, device=card, generator=g) > 0.3
+    mask = keep.float()
+    if weights and s > 1:
+        mask = mask * (torch.rand(n, device=card, generator=g) + 0.25)
+    factors = torch.rand(n, device=card, generator=g)
+    idx = torch.randperm(n, device=card, generator=g).int() if s > 1 \
+        else None
+    for trim in (-1.0, 0.1):
+        exact = dict(rtol=0, atol=0) if trim < 0 else SUM_TOL
+        torch.testing.assert_close(
+            ca.clip_bucket_select(xs, factors, mask, idx, s, trim),
+            ca.clip_bucket_select_plain(xs, factors, mask, idx, s, trim),
+            **exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 16, 21])
+def test_cuda_masked_inf_in_a_half_kept_bucket_makes_it_nan(card, n):
+    """At s = 2 a masked row is still read when its bucket keeps the
+    other row: its inf times mask 0 is NaN, so the bucket's mean is NaN,
+    in the kernel as in the plain version and the reference."""
+    g = torch.Generator(device=card).manual_seed(n)
+    xs = torch.randn(n, 777, device=card, generator=g)
+    mask = torch.ones(n, device=card)
+    mask[1::4] = 0.0  # one masked row in every other bucket
+    xs[1::4, ::3] = float("inf")
+    xs[1::4, 1::3] = float("nan")
+    idx = torch.arange(n, device=card, dtype=torch.int32)
+    ones = torch.ones(n, device=card)
+    plain = ca.clip_bucket_select_plain(xs, ones, mask, idx, 2, 0.0)
+    assert bool(plain.isnan().any())
+    for trim in (-1.0, 0.0):
+        exact = dict(rtol=0, atol=0) if trim < 0 else SUM_TOL
+        torch.testing.assert_close(
+            ca.clip_bucket_select(xs, ones, mask, idx, 2, trim),
+            ca.clip_bucket_select_plain(xs, ones, mask, idx, 2, trim),
+            equal_nan=True, **exact)
 
 
 # ---------------------------------------------------------------------------

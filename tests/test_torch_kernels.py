@@ -22,7 +22,7 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, networks, ops
 from repro_torch.kernels import clip_aggregate as ca
 from repro_torch.kernels import ref as tref
 
@@ -299,6 +299,88 @@ def test_bucket_padding_and_out_of_range_indices_are_empty_slots():
     # bucket {4} is empty in c: the median of the first two bucket means
     np.testing.assert_array_equal(c.numpy(), (0.5 * (means[0] + means[1]))
                                   .numpy())
+
+
+def test_slot_table_limit_raises_value_error():
+    """The kernel keeps 4 shared-memory words a row slot and 2 a bucket in
+    48 KiB: 3,000 slots in 100 buckets fit, 3,060 in 102 raise."""
+    ok = torch.zeros(3000, 2)
+    ca.clip_bucket_select(ok, torch.ones(3000), torch.ones(3000), None, 30,
+                          -1.0)
+    big = torch.zeros(3060, 2)
+    with pytest.raises(ValueError, match="4 words per row slot"):
+        ca.clip_bucket_select(big, torch.ones(3060), torch.ones(3060), None,
+                              30, -1.0)
+
+
+# ---------------------------------------------------------------------------
+# networks.py: the selection template's comparator networks
+# ---------------------------------------------------------------------------
+
+def _zero_one_inputs(width):
+    """(width, 2^width) int8: column c holds the bits of c."""
+    cols = np.arange(2 ** width, dtype=np.int64)
+    return ((cols[None, :] >> np.arange(width)[:, None]) & 1).astype(np.int8)
+
+
+@pytest.mark.parametrize("width", range(1, 21))
+@pytest.mark.parametrize("median", [False, True], ids=["sort", "median"])
+def test_network_sorts_its_live_wires_by_the_0_1_principle(width, median):
+    """Every network the generator makes for W <= 20, on all 2^W inputs of
+    0s and 1s: its live wires hold the sorted values (a comparator network
+    that sorts every 0-1 input sorts every input)."""
+    v = list(_zero_one_inputs(width))
+    for i, j, kind in networks.network(width, median):
+        lo, hi = np.minimum(v[i], v[j]), np.maximum(v[i], v[j])
+        if kind in ("cx", "min"):
+            v[i] = lo
+        if kind in ("cx", "max"):
+            v[j] = hi
+    want = np.sort(_zero_one_inputs(width), axis=0)
+    for k in networks.live_wires(width, median):
+        np.testing.assert_array_equal(v[k], want[k])
+
+
+@pytest.mark.parametrize("count", networks.MEDIAN_COUNTS)
+def test_median_network_sorts_its_two_wires_by_the_0_1_principle(count):
+    """The median network of each kept-row count, on all 2^count 0-1
+    inputs: wires (count-1)//2 and count//2 hold the sorted values."""
+    v = list(_zero_one_inputs(count))
+    for i, j, kind in networks.median_network(count):
+        assert 0 <= i < j < count
+        lo, hi = np.minimum(v[i], v[j]), np.maximum(v[i], v[j])
+        if kind in ("cx", "min"):
+            v[i] = lo
+        if kind in ("cx", "max"):
+            v[j] = hi
+    want = np.sort(_zero_one_inputs(count), axis=0)
+    for k in networks.median_wires(count):
+        np.testing.assert_array_equal(v[k], want[k])
+
+
+def test_networks_are_ascending_and_pruned_to_width():
+    """Every comparator puts the smaller key on the lower wire and touches
+    only wires < W; the counts at the widths of Fig. 1 and Fig. 2."""
+    for width, _ in networks.EXACT:
+        for median in (False, True):
+            for i, j, kind in networks.network(width, median):
+                assert 0 <= i < j < width and kind in ("cx", "min", "max")
+    assert len(networks.network(20, False)) == 103
+    assert len(networks.network(20, True)) == 92
+    assert len(networks.network(10, False)) == 32
+    assert len(networks.median_network(20)) == 84
+    assert len(networks.median_network(13)) == 39
+    assert len(networks.batcher(32)) == 191
+
+
+def test_network_header_is_generated_from_the_package():
+    """csrc/select_networks.cuh is header() as committed, and lists the
+    exact widths the wrappers' nb and s can take."""
+    assert networks.HEADER.read_text() == networks.header()
+    assert networks.main(["--check"]) == 0
+    for width, s in networks.EXACT:
+        assert f"X({width}, {s})" in networks.header()
+        assert cmk.nb_cap(width) >= width
 
 
 def test_launch_counts_move_only_on_launch():
