@@ -34,7 +34,10 @@ Phases (any failure raises, prints no result and exits non-zero):
    (bucket_means: B @ x with B the (n/2, n) bucket-mean
    weights; gm_update: (w / wsum) @ x; diff_row_ssq: torch.cdist);
    gm_resident is timed at the Fig. 2 shape, the largest it takes on the
-   path.
+   path, and at the largest its rule admits (n=20, s = 2), each also with
+   no step (``iters0_ms``: the launch, staging, z0 and write-out), beside
+   the launch floor (``floor_ms``: back-to-back one-cycle spin kernels),
+   which the bytes bound of a one-block iterative kernel cannot show.
    Krum's four kernels (gram_matrix, cross_gram, weighted_row_sum,
    select_row) against their plain versions at the serve shape (n=16,
    d=4,096), an odd shape (n=17, d=4,097) and the wide shape (n=20,
@@ -73,7 +76,8 @@ Phases (any failure raises, prints no result and exits non-zero):
    is timed at the wide shape beside its library call (torch.addmv with
    the weights s_i f_i / den and beta = 1 - sum s_i / den, checked against
    the kernel first), cclip_resident at the Fig. 1 shape and at the
-   largest it takes, and the whole tiled call (s = 1, 2) with its
+   largest it takes (with no step and the launch floor, as gm_resident),
+   and the whole tiled call (s = 1, 2) with its
    launches.  The entry points: clipped_diff on one vector of 2^24+37
    values (f32 with a bool and a numeric keep mask, bf16, a 2-D shape):
    its norm to rtol 1e-6 and d and the output bit for bit given the same
@@ -279,6 +283,49 @@ def _row(kernel, plain, library=None, reps=10, plain_reps=3):
         t["library_ms"] = _device_ms(library)
         t["library_call_ms"] = _time_ms(library, reps)
     return t
+
+
+@functools.cache
+def _launch_floor_ms():
+    """Device time of one back-to-back spin kernel of one cycle
+    (``torch.cuda._sleep(1)``) under ``_device_ms``: what a launch costs on
+    this card, the floor of a one-block resident kernel."""
+    import torch
+
+    return _device_ms(lambda: torch.cuda._sleep(1))
+
+
+def _time_resident(fn, plain_fn, d, s, steps, step_ops, seed):
+    """A resident kernel's times at n = 20, width d, bucket size s, on data
+    made from ``seed``: ``fn(x, m, f, i, iters)`` and its plain version as
+    ``_row`` times them, the bound (the input read once; the clip, the
+    bucket means, z0 and ``step_ops`` operations a value a step), and
+    ``iters0_ms``: the launch, the staging, z0 and the write-out alone."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(20, d, device="cuda", generator=g)
+    m = (torch.rand(20, device="cuda", generator=g) > 0.3).float()
+    f = torch.rand(20, device="cuda", generator=g)
+    i = torch.randperm(20, device="cuda", generator=g).int()
+    rows = 20 // s
+    t = _row(lambda: fn(x, m, f, i, steps), lambda: plain_fn(x, m, f, i, steps),
+             reps=20, plain_reps=10)
+    t["bound_ms"], t["bound_by"] = _bound(
+        4 * (20 * d + d + 3 * 20),
+        3 * 20 * d + 2 * rows * d + steps * step_ops * rows * d)
+    t["iters0_ms"] = _device_ms(lambda: fn(x, m, f, i, 0))
+    return t
+
+
+def _print_resident(name, t):
+    big = t["largest"]
+    print(f"  {name:18s} no step (iters = 0) {t['iters0_ms']:.4f} ms  launch "
+          f"floor {t['floor_ms']:.4f} ms; at n=20 d={big['shape'][1]} "
+          f"s={big['shape'][2]} (the largest it takes): kernel "
+          f"{big['ms']:.4f} ms (one call {big['call_ms']:.4f})  no step "
+          f"{big['iters0_ms']:.4f} ms  bound {big['bound_ms']:.6f} ms "
+          f"({big['bound_by']})  plain {big['plain_ms']:.4f} ms")
 
 
 def _print_rows(out, digits=4):
@@ -567,7 +614,8 @@ def check_gm(checks, x, mask, idx, s, tag, expect=None):
 
 
 def gm_shapes(checks):
-    """Phase 2's GM checks at the Fig. 2, odd-n and threshold shapes."""
+    """Phase 2's GM checks at the Fig. 2, odd-n and threshold shapes;
+    returns the largest resident d at n = 20 for s = 1 and 2."""
     import torch
 
     cc, _ = _gm_mods()
@@ -587,19 +635,23 @@ def gm_shapes(checks):
     for s in (2, 3):
         check_gm(checks, *data(21, 700, 20 + s), s, "n=21 d=700",
                  expect="resident")
+    largest = {}
     for s in (1, 2):
         rows = 20 // s
         d_max = 1
         while cc.resident_smem_bytes(rows, d_max + 1) <= budget:
             d_max += 1
+        largest[s] = d_max
         for d, expect in ((d_max, "resident"), (d_max + 1, "tiled")):
             check_gm(checks, *data(20, d, 30 + d), s, f"n=20 d={d}",
                      expect=expect)
+    return largest
 
 
-def time_gm(x, mask, idx, checks):
+def time_gm(x, mask, idx, checks, largest):
     """GM checks at the wide shape, then kernel, plain and library times:
-    the tiled kernels at the wide shape, gm_resident at the Fig. 2 shape."""
+    the tiled kernels at the wide shape, gm_resident at the Fig. 2 shape
+    and at the largest shape its rule admits (``largest[2]``, s = 2)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -640,21 +692,21 @@ def time_gm(x, mask, idx, checks):
     t["bound_ms"], t["bound_by"] = _bound(4 * (n * d + d), 2 * n * d)
     out["gm_update"] = t
 
-    # gm_resident at the largest shape the Fig. 2 path gives it
-    g = torch.Generator(device="cuda").manual_seed(5)
-    xr = torch.randn(20, 698, device="cuda", generator=g)
-    mr = (torch.rand(20, device="cuda", generator=g) > 0.3).float()
-    fr = torch.rand(20, device="cuda", generator=g)
-    ir = torch.randperm(20, device="cuda", generator=g).int()
-    t = _row(lambda: gmk.gm_resident(xr, mr, fr, ir, 2, iters=GM_ITERS),
-             lambda: gmk.gm_resident_plain(xr, mr, fr, ir, 2, iters=GM_ITERS,
-                                           eps=1e-8), reps=20, plain_reps=10)
-    rows, dr = 10, 698
-    t["bound_ms"], t["bound_by"] = _bound(
-        4 * (20 * dr + dr + 3 * 20),
-        3 * 20 * dr + 2 * rows * dr + GM_ITERS * 5 * rows * dr)
+    # gm_resident at the shape the Fig. 2 path gives it, and the largest
+    def gm(xr, mr, fr, ir, iters, s=2):
+        return gmk.gm_resident(xr, mr, fr, ir, s, iters=iters)
+
+    def gm_plain(xr, mr, fr, ir, iters, s=2):
+        return gmk.gm_resident_plain(xr, mr, fr, ir, s, iters=iters, eps=1e-8)
+
+    t = _time_resident(gm, gm_plain, 698, 2, GM_ITERS, 5, seed=5)
+    t["floor_ms"] = _launch_floor_ms()
+    t["largest"] = dict(_time_resident(gm, gm_plain, largest[2], 2, GM_ITERS,
+                                       5, seed=largest[2]),
+                        shape=[20, largest[2], 2])
     out["gm_resident"] = t
     _print_rows(out, digits=6)
+    _print_resident("gm_resident", t)
 
     # the whole call, clipped, per schedule: the bytes its kernels move
     # (pass 1, bucket means, z0 and two streams per step) against the
@@ -1125,30 +1177,22 @@ def time_cclip(x, mask, idx, checks, largest):
     out["cclip_update"] = t
 
     # cclip_resident at the Fig. 1 shape (its path's) and the largest
-    def resident(n_r, d_r, s):
-        gr = torch.Generator(device="cuda").manual_seed(d_r)
-        xr = torch.randn(n_r, d_r, device="cuda", generator=gr)
-        mr = (torch.rand(n_r, device="cuda", generator=gr) > 0.3).float()
-        fr = torch.rand(n_r, device="cuda", generator=gr)
-        ir = torch.randperm(n_r, device="cuda", generator=gr).int()
-        rows = n_r // s
-        t = _row(lambda: cc.cclip_resident(xr, mr, fr, ir, s,
-                                           iters=CCLIP_ITERS, tau=1.0),
-                 lambda: cc.cclip_resident_plain(xr, mr, fr, ir, s,
-                                                 iters=CCLIP_ITERS, tau=1.0),
-                 reps=20, plain_reps=10)
-        t["bound_ms"], t["bound_by"] = _bound(
-            4 * (n_r * d_r + d_r + 3 * n_r),
-            3 * n_r * d_r + 2 * rows * d_r + CCLIP_ITERS * 6 * rows * d_r)
-        return t
+    def resident(xr, mr, fr, ir, iters, s=2):
+        return cc.cclip_resident(xr, mr, fr, ir, s, iters=iters, tau=1.0)
 
-    out["cclip_resident"] = resident(20, 40, 2)
-    big = resident(20, largest[2], 2)
+    def resident_plain(xr, mr, fr, ir, iters, s=2):
+        return cc.cclip_resident_plain(xr, mr, fr, ir, s, iters=iters,
+                                       tau=1.0)
+
+    t = _time_resident(resident, resident_plain, 40, 2, CCLIP_ITERS, 6,
+                       seed=40)
+    t["floor_ms"] = _launch_floor_ms()
+    t["largest"] = dict(_time_resident(resident, resident_plain, largest[2],
+                                       2, CCLIP_ITERS, 6, seed=largest[2]),
+                        shape=[20, largest[2], 2])
+    out["cclip_resident"] = t
     _print_rows(out, digits=6)
-    print(f"  {'cclip_resident':18s} at n=20 d={largest[2]} s=2 (the largest "
-          f"it takes): kernel {big['ms']:.4f} ms (one call "
-          f"{big['call_ms']:.4f})  bound {big['bound_ms']:.6f} ms "
-          f"({big['bound_by']})  plain {big['plain_ms']:.4f} ms")
+    _print_resident("cclip_resident", t)
 
     # the whole call, clipped, per schedule, with its launches
     for s in (1, 2):
@@ -1832,8 +1876,8 @@ def main():
     check_shape(checks, 21, 40, 2)
     wide = check_shape(checks, 20, WIDE_D, 3)
     times = time_wide(*wide)
-    gm_shapes(checks)
-    times.update(time_gm(*wide[:3], checks))
+    gm_largest = gm_shapes(checks)
+    times.update(time_gm(*wide[:3], checks, gm_largest))
     print("krum shapes")
     for n, d, seed in ((16, 4096, 4), (17, 4097, 5)):
         g = torch.Generator(device="cuda").manual_seed(seed)

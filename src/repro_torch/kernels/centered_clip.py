@@ -82,21 +82,20 @@ __all__ = ["LAUNCHES", "H100_SMEM_OPTIN", "resident_smem_bytes",
 LAUNCHES = {"diff_row_ssq": 0, "bucket_means": 0, "cclip_resident": 0,
             "cclip_update": 0}
 H100_SMEM_OPTIN = 232448  # cudaDevAttrMaxSharedMemoryPerBlockOptin, H100
-_RES_WARPS = 16  # kResWarps of csrc/resident.cuh
+_RES_WARPS = 16  # kResRedWords of csrc/resident.cuh: warp sums a row
 # each rule's resident kernel: (its library and opt-in entry point, the
 # f32 words of per-row scratch beside the rows and the iterate)
 _RESIDENT = {
-    "gm": ("geometric_median", "gm_smem_optin", _RES_WARPS + 2),  # m, w
-    "cclip": ("centered_clip", "cclip_smem_optin", _RES_WARPS + 2),  # m, s
+    "gm": ("geometric_median", "gm_smem_optin", _RES_WARPS + 2),  # m, spare
+    "cclip": ("centered_clip", "cclip_smem_optin", _RES_WARPS + 2),
 }
 
 
 def resident_smem_bytes(rows: int, d: int, rule: str = "gm") -> int:
     """Dynamic shared memory of ``rule``'s resident kernel (the rows, z,
     the per-row weights and the warp sums of each row), as
-    ``gm_resident_smem_floats`` (csrc/geometric_median.cu) and
-    ``cclip_resident_smem_floats`` (csrc/centered_clip.cu) count it: the
-    launch takes this count and refuses one that differs."""
+    ``resident_smem_floats`` (csrc/resident.cuh) counts it for both rules:
+    the launch takes this count and refuses one that differs."""
     return 4 * (rows * d + d + rows * _RESIDENT[rule][2])
 
 

@@ -15,24 +15,25 @@
 //   gm_update     _gm_update_kernel, launched by _gm_tiled (geometric_median.py)
 //
 // What bounds them on the H100:
-//   gm_resident   at the widths it takes (the rows fit in one block's shared
-//                 memory, <= 227 KB) it reads at most a few hundred KB and is
-//                 bound by latency: one block walks all iterations.  Its bound
-//                 is bytes (the input read once) and is a few microseconds.
+//   gm_resident   latency: at the widths it takes (the rows fit in one block's
+//                 shared memory, <= 227 KB) it reads at most a few hundred KB
+//                 and one block walks all iterations (resident.cuh).
 //   diff_row_ssq, bucket_means, gm_update
 //                 bytes: each reads its (rows, d) input once (4 or 2 bytes a
 //                 value) and does a few flops per value.
 //
 // Design:
-//   gm_resident   one block of kResThreads threads.  The staging it shares
-//                 with CenteredClip (resident.cuh) writes the clipped rows
+//   gm_resident   the one-block resident driver it shares with CenteredClip
+//                 (resident.cuh): a block sized to d stages the clipped rows
 //                 (s = 1) or their bucket means (s >= 2, gathered through the
-//                 row order idx, padded slots never read) into dynamic shared
-//                 memory once and forms z0; every iteration runs there (two
-//                 barriers per iteration).  The host picks it when its count
-//                 of gm_resident_smem_floats(rows, d) fits the card's opt-in
-//                 shared memory per block, and passes that count to the
-//                 launch, which checks it.
+//                 row order idx, padded slots never read) with every load in
+//                 flight, into registers (rows <= 10 and d <= 768) or
+//                 dynamic shared memory, forms z0 and runs every step with one
+//                 barrier a step.  This file gives only the step body,
+//                 GmStep.  The host picks it when its count of
+//                 resident_smem_floats(rows, d) fits the card's opt-in shared
+//                 memory per block, and passes that count to the launch, which
+//                 checks it.
 //   diff_row_ssq  grid of column chunks of kSsqChunk; a block keeps its chunk
 //                 of z in registers, walks all rows and writes partial[i, c]:
 //                 no atomics, so runs repeat bit for bit, and z is read once
@@ -56,43 +57,16 @@ constexpr int kSsqChunk = kSsqThreads * kSsqPerThread;  // columns per block
 constexpr int kSsqRowBatch = 32;  // rows whose warp sums share the buffer
 constexpr int kColThreads = 256;
 
-// floats of dynamic shared memory gm_resident takes for `rows` rows of width
-// d: the shared resident layout (resident.cuh), its w holding the Weiszfeld
-// weights.
-__host__ __device__ inline long long gm_resident_smem_floats(int rows, long long d) {
-  return resident_smem_floats(rows, d);
-}
-
-// x: (n, d); factor: (n_p,) or null for 1; mask: (n_p,); idx: (n_p,) row
-// order (slots holding an index outside [0, n) are empty); out: (d,) f32.
-// rows = n when s = 1 (idx unused), else n_p / s buckets.
-template <typename T>
-__global__ void __launch_bounds__(kResThreads)
-gm_resident_kernel(const T* __restrict__ x, const float* __restrict__ factor,
-                   const float* __restrict__ mask, const int* __restrict__ idx,
-                   float* __restrict__ out, int n, int64_t d, int s, int rows, int iters,
-                   float eps) {
-  extern __shared__ float smem[];
-  const Resident r = resident_layout(smem, rows, d);
-  const int tid = threadIdx.x;
-  resident_stage(r, x, factor, mask, idx, n, s);
-  resident_masked_mean(r);
-  for (int it = 0; it < iters; ++it) {
-    resident_row_partials(r);  // also: every thread is done with w
-    for (int i = tid; i < rows; i += kResThreads)
-      r.w[i] = r.m[i] / sqrtf(resident_row_ssq(r, i) + eps);
-    __syncthreads();
-    float wsum = 0.f;
-    for (int i = 0; i < rows; ++i) wsum += r.w[i];
-    wsum = fmaxf(wsum, eps);
-    for (int64_t j = tid; j < d; j += kResThreads) {
-      float acc = 0.f;
-      for (int i = 0; i < rows; ++i) acc += r.xs[i * d + j] * r.w[i];
-      r.z[j] = acc / wsum;
-    }
-  }
-  for (int64_t j = tid; j < d; j += kResThreads) out[j] = r.z[j];
-}
+// The Weiszfeld step: w_i = m_i / sqrt(||x_i - z||^2 + eps),
+// z <- sum_i x_i w_i / max(sum_i w_i, eps).
+struct GmStep {
+  float eps;
+  static constexpr bool kWeightSum = true;
+  __device__ float weight(float ssq, float m) const { return m / sqrtf(ssq + eps); }
+  __device__ float divisor(float wsum, float) const { return fmaxf(wsum, eps); }
+  __device__ float term(float x, float, float w) const { return x * w; }
+  __device__ float next(float, float acc, float div) const { return acc / div; }
+};
 
 // partial[i, c] = sum over the columns j of chunk c of (x[i, j] f[i] - z[j])^2.
 template <typename T>
@@ -180,64 +154,25 @@ inline unsigned col_blocks(long long d) {
   return static_cast<unsigned>((d + kColThreads - 1) / kColThreads);
 }
 
-template <typename T>
-cudaError_t launch_resident(const void* x, const float* factor, const float* mask,
-                            const int* idx, float* out, int n, long long d, int s, int rows,
-                            int iters, float eps, long long smem_bytes, cudaStream_t st) {
-  // the host's count of the layout must be this kernel's: the host decides
-  // the dispatch with it, so a drift between the two copies fails here
-  if (smem_bytes != 4 * gm_resident_smem_floats(rows, d)) return cudaErrorInvalidValue;
-  gm_resident_kernel<T><<<1, kResThreads, static_cast<size_t>(smem_bytes), st>>>(
-      static_cast<const T*>(x), factor, mask, idx, out, n, d, s, rows, iters, eps);
-  return cudaGetLastError();
-}
-
 }  // namespace repro
 
 // The opt-in shared memory per block of the current device, in bytes (0 on
-// error): the budget gm_resident must fit.  It also lets both gm_resident
-// instantiations take that much dynamic shared memory on this device, so the
-// host calls it once per device before the first gm_resident launch there.
-extern "C" int gm_smem_optin() {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-      cudaSuccess)
-    return 0;
-  if (cudaFuncSetAttribute(repro::gm_resident_kernel<float>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin) != cudaSuccess ||
-      cudaFuncSetAttribute(repro::gm_resident_kernel<__nv_bfloat16>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin) != cudaSuccess)
-    return 0;
-  return optin;
-}
+// error): the budget gm_resident must fit.  It also lets gm_resident's
+// shared-memory instantiations take that much dynamic shared memory on this
+// device, so the host calls it once per device before the first gm_resident
+// launch there.
+extern "C" int gm_smem_optin() { return repro::resident_optin<repro::GmStep>(); }
 
 // x: (n, d) row-major, dtype 0 = f32, 1 = bf16; factor: (n_p,) f32 or null;
 // mask: (n_p,) f32; idx: (n_p,) int32 (unused when s = 1); out: (d,) f32;
 // smem_bytes: the host's count of the dynamic shared memory, which must equal
-// gm_resident_smem_floats(n_p / s, d) * 4 and fit what gm_smem_optin allowed.
+// resident_smem_floats(n_p / s, d) * 4 and fit what gm_smem_optin allowed.
 extern "C" int gm_resident_launch(const void* x, const void* factor, const void* mask,
                                   const void* idx, void* out, int dtype, int n, int n_p,
                                   long long d, int s, int iters, float eps,
                                   long long smem_bytes, void* stream) {
-  if (n <= 0 || d <= 0 || s < 1 || iters < 0 || n_p < n || n_p % s != 0 ||
-      (s == 1 && n_p != n) || (s > 1 && idx == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = n_p / s;
-  const auto* f = static_cast<const float*>(factor);
-  const auto* m = static_cast<const float*>(mask);
-  const auto* ix = static_cast<const int*>(idx);
-  auto* o = static_cast<float*>(out);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(
-        repro::launch_resident<float>(x, f, m, ix, o, n, d, s, rows, iters, eps,
-                                      smem_bytes, st));
-  if (dtype == 1)
-    return static_cast<int>(
-        repro::launch_resident<__nv_bfloat16>(x, f, m, ix, o, n, d, s, rows, iters,
-                                              eps, smem_bytes, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return repro::resident_entry(x, factor, mask, idx, out, dtype, n, n_p, d, s, iters,
+                               repro::GmStep{eps}, smem_bytes, stream);
 }
 
 extern "C" int diff_row_ssq_chunk() { return repro::kSsqChunk; }

@@ -131,6 +131,24 @@ def test_clip_cclip_matches_pallas_interpret(n, d, s, schedule, dtype):
         _assert_close(own.numpy(), oracle, "f32")
 
 
+@pytest.mark.parametrize("d", [1, 31, 33, 40])
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("iters", [0, ITERS])
+def test_cclip_resident_block_tiers_match_pallas_interpret(d, s, iters):
+    """The widths where the card's resident kernel changes its block (one
+    coordinate; one warp's 32 coordinates and one past them; Fig. 1's 40)
+    and ``iters = 0`` (v0 alone), at n = 21: the plain twin that the card
+    tests hold ``cclip_resident`` against is itself pinned to the
+    reference's resident kernel there."""
+    xs, mask, idx, radius = _case(21, d, s, 7 * d + s + iters)
+    xt, mt, it, xj, mj, ij = _inputs(xs, mask, idx, "f32")
+    want, _ = rops.clip_then_centered_clip(xj, radius, mj, ij, bucket_s=s,
+                                           tau=TAU, iters=iters)
+    got, _ = ops.clip_then_centered_clip(xt, radius, mt, it, bucket_s=s,
+                                         tau=TAU, iters=iters)
+    _assert_close(got.numpy(), want, "f32")
+
+
 @pytest.mark.parametrize("s", [1, 2, 3])
 @pytest.mark.parametrize("schedule", ["resident", "tiled"])
 def test_cclip_all_masked_gives_zero_as_in_reference(s, schedule):

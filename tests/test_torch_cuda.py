@@ -387,6 +387,82 @@ def test_cuda_gm_kernels_repeat_bit_for_bit(card):
         assert torch.equal(run(), run())
 
 
+# The resident kernels (csrc/resident.cuh) at every block size and code path
+# their launcher can pick: one warp (d <= 96) with one to three coordinates
+# a thread, up to 8 warps, the rows in registers (rows <= 10, d <= 768,
+# two or three coordinates a thread) or in shared memory (more rows, wider
+# rows, the largest width the layout admits, "max"); rows above the 16-row
+# tile and above a warp's 32 (n = 40, 70 at s = 1); masks with every row
+# off and with one row kept; rows that start 4 bytes past a 16-byte
+# boundary ("offset").
+RESIDENT_CASES = (
+    [(n, d, s, dtype, iters, "random")
+     for n in (20, 21) for s in (1, 2, 3)
+     for d in (1, 31, 32, 33, 40, 64, 65, 96, 97, 698, 1000, 1200, 1536,
+               2047, "max")
+     for dtype in (torch.float32, torch.bfloat16) for iters in (0, 1, "path")]
+    + [(n, d, s, torch.float32, "path", mask)
+       for n, d, s in ((40, 10, 1), (40, 33, 1), (70, 300, 1), (20, 40, 2),
+                       (20, 698, 2), (20, 2047, 1))
+       for mask in ("random", "none", "one")]
+    + [(n, d, s, dtype, "path", "offset")
+       for n, d, s, dtype in ((20, 2047, 1, torch.float32),
+                              (20, "max", 1, torch.float32),
+                              (21, 700, 1, torch.float32),
+                              (10, 698, 1, torch.float32),
+                              (20, 2047, 1, torch.bfloat16))])
+
+
+def _resident_case(card, n, d, s, dtype, mask_kind):
+    """Rows, padded auxiliaries (random clip factors and row order) and
+    the width ("max": the largest the layout admits at this n and s)."""
+    cc, _ = _gm_mods()
+    rows = -(-n // s)
+    if d == "max":
+        d = (cc.smem_budget(card) // 4 - rows * 18) // (rows + 1)
+    g = torch.Generator(device=card).manual_seed(n * 10007 + d * 7 + s)
+    xs = torch.randn(n, d, device=card, generator=g).to(dtype)
+    if mask_kind == "offset":
+        buf = torch.zeros(n * d + 1, device=card, dtype=dtype)
+        buf[1:] = xs.flatten()
+        xs = buf[1:].view(n, d)
+    mask = torch.rand(n, device=card, generator=g) > 0.3
+    mask[0] = True
+    if mask_kind in ("none", "one"):
+        mask[:] = False
+    if mask_kind == "one":
+        mask[n // 2] = True
+    idx = torch.randperm(n, device=card, generator=g).int()
+    factors = torch.rand(n, device=card, generator=g)
+    return (xs, *cc.pad_bucket_aux(mask.float(), factors, idx, n, s))
+
+
+def _case_id(case):
+    n, d, s, dtype, iters, mask = case
+    return (f"n{n}-d{d}-s{s}-{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            f"-it{iters}-{mask}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RESIDENT_CASES, ids=_case_id)
+def test_cuda_gm_resident_matches_plain_at_every_tier(card, case):
+    """gm_resident against its plain version within the sum tolerance, and
+    two calls bit for bit equal ("path": the 8 steps of Fig. 2)."""
+    n, d, s, dtype, iters, mask_kind = case
+    _, gmk = _gm_mods()
+    iters = 8 if iters == "path" else iters
+    xs, m, f, i = _resident_case(card, n, d, s, dtype, mask_kind)
+    ops.reset_launch_counts()
+    got = gmk.gm_resident(xs, m, f, i, s, iters=iters)
+    again = gmk.gm_resident(xs, m, f, i, s, iters=iters)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, gm_resident=2)
+    torch.testing.assert_close(
+        got, gmk.gm_resident_plain(xs, m, f, i, s, iters=iters, eps=1e-8),
+        **SUM_TOL)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_cuda_fig2_engine_goes_through_the_kernels(card):
     from repro_torch.configs.paper import fig2_heuristic, fig2_problem_kwargs
@@ -693,6 +769,27 @@ def test_cuda_cclip_dispatch_both_sides_of_the_threshold(card, s):
             xs, 1.5, mask, bidx, bucket_s=s, tau=0.5)
         torch.testing.assert_close(got, want, **SUM_TOL)
         torch.testing.assert_close(norms, wnorms, **SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RESIDENT_CASES, ids=_case_id)
+def test_cuda_cclip_resident_matches_plain_at_every_tier(card, case):
+    """cclip_resident against its plain version within the sum tolerance
+    (tau 1.0, below the rows' spread, so the clip engages), and two calls
+    bit for bit equal ("path": the 5 steps of Fig. 1)."""
+    n, d, s, dtype, iters, mask_kind = case
+    cc, _ = _gm_mods()
+    iters = 5 if iters == "path" else iters
+    xs, m, f, i = _resident_case(card, n, d, s, dtype, mask_kind)
+    ops.reset_launch_counts()
+    got = cc.cclip_resident(xs, m, f, i, s, iters=iters, tau=1.0)
+    again = cc.cclip_resident(xs, m, f, i, s, iters=iters, tau=1.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict(NO_LAUNCHES, cclip_resident=2)
+    torch.testing.assert_close(
+        got, cc.cclip_resident_plain(xs, m, f, i, s, iters=iters, tau=1.0),
+        **SUM_TOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

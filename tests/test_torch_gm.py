@@ -137,6 +137,24 @@ def test_clip_gm_bf16_matches_pallas_interpret(n, d, s, schedule):
     _assert_close(got.float().numpy(), want, "bf16")
 
 
+@pytest.mark.parametrize("d", [1, 31, 33, 40])
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("iters", [0, 8])
+def test_resident_block_tiers_match_pallas_interpret(d, s, iters):
+    """The widths where the card's resident kernel changes its block (one
+    coordinate; one warp's 32 coordinates and one past them; Fig. 1's 40)
+    and ``iters = 0`` (z0 alone), at n = 21: the plain twin that the card
+    tests hold ``gm_resident`` against is itself pinned to the reference's
+    resident kernel there."""
+    xs, mask, idx, radius = _case(21, d, s, 7 * d + s + iters)
+    xt, mt, it, xj, mj, ij = _inputs(xs, mask, idx, "f32")
+    want, _ = rops.clip_then_geometric_median(xj, radius, mj, ij, bucket_s=s,
+                                              iters=iters)
+    got, _ = ops.clip_then_geometric_median(xt, radius, mt, it, bucket_s=s,
+                                            iters=iters)
+    _assert_close(got.numpy(), want, "f32")
+
+
 @pytest.mark.parametrize("s", [1, 2, 3])
 @pytest.mark.parametrize("schedule", ["resident", "tiled"])
 def test_all_masked_gives_zero_as_in_reference(s, schedule):
