@@ -138,12 +138,34 @@ Phases (any failure raises, prints no result and exits non-zero):
    end without executor faults or degraded rounds, and launch exactly
    what its own chunking predicts; a second, unchecked run of each
    gives rows per second and p50/p99 submit-to-resolution ms.
-6. A ``{"kernels": [...]}`` line, then the card line, then the result.
+6. Scenarios, on "cuda" with backend "auto": adaptive-grad (the
+   kernel-backed ``differentiable_aggregate`` against the plain shadow on
+   the same inputs and Bucketing order at the Fig. 1 shape, CM over
+   Bucketing(2) clipped, and the Fig. 2 shape, RFA over Bucketing(2)
+   clipped: the forward within rtol 1e-5, the CM exactly equal to pass
+   2's plain version given the kernel's factors, the gradient within rtol
+   1e-5, finite and non-zero); adaptive-pin (the reference's pin,
+   tests/test_scenarios.py: n = 12 with 4 byzantine, d = 8, budget 16,
+   radius 0.5; mean unclipped deviates > 0.6, cm/rfa/centered_clip
+   clipped < 0.3 and mean > 2.5 times each); adaptive-fig1-clipped,
+   adaptive-fig1-unclipped and adaptive-fig2 (Fig. 1 and Fig. 2 under
+   ``ScenarioSpec(attack="adaptive", budget=8)``, 300 steps: launches
+   equal to each run's prediction, within rtol 1e-4 of the CPU plain
+   path, wall ms per step and the adversary's share; no threshold on the
+   Fig. 1 losses, since the port's CPU run shows no separation);
+   matrix-smoke (SMOKE_GRID, 24 cells of 250 steps at d = 30, on the card
+   and the CPU: every verdict and the breakdown map equal, every finite
+   gap below 1 within rtol 1e-4 plus 4 f32 units of the loss (the gap
+   subtracts two f32 losses near 0.5), cm.shb.clip and mean.shb.clip at 1.0,
+   mean.gauss.* at 0.1, every noclip curve at or below 0.45, launches of
+   each cell's own coins).
+7. A ``{"kernels": [...]}`` line, then the card line, then the result.
    A kernel's ``launches`` are those of the run of the path it serves
    (``path``; "entry-points" for clipped_diff's and the bucketed median's,
    which no engine calls); ``launches_by_path`` has its counts in every
    run.
 """
+import dataclasses
 import functools
 import json
 import math
@@ -1387,8 +1409,6 @@ def _predicted(name, n_diff):
 
 def main_path():
     """The Fig. 1 runs on the card; returns each run's launch counts."""
-    import dataclasses
-
     import torch
 
     from repro_torch.api import AggregatorSpec, ClipSpec, ServerPlan
@@ -1467,8 +1487,6 @@ def compress_path():
     test_compression_still_converges problem (d = 30, 400 steps).  Each
     agrees with the CPU plain path at rtol 1e-4 and launches what its own
     coins predict.  Returns each run's launch counts."""
-    import dataclasses
-
     import torch
 
     from repro_torch.api import (AggregatorSpec, BucketSpec, ClipSpec,
@@ -1837,6 +1855,337 @@ def _closed(tickets):
     return [seen[k] for k in sorted(seen)]
 
 
+ADAPTIVE_BUDGET = 8  # ScenarioSpec(attack="adaptive", budget=8)
+PIN = dict(n=12, n_byz=4, d=8, budget=16, radius=0.5)  # tests/test_scenarios.py
+# matrix-smoke's gaps: f32 rounding units of the final loss allowed beside
+# rtol 1e-4 (the card and the CPU gave one unit apart at a gap of 2.7e-4)
+GAP_ULPS = 4
+
+
+def adaptive_grad(checks):
+    """The kernel-backed ``differentiable_aggregate`` against the plain
+    shadow on the same inputs and order: at the Fig. 1 shape (CM over
+    Bucketing(2), clipped) and the Fig. 2 shape (RFA over Bucketing(2),
+    clipped).  The forward within rtol 1e-5 of the shadow (the CM also
+    exactly equal to pass 2's plain version given the kernel's clip
+    factors: the shadow clips the rows before it takes the bucket means,
+    which rounds differently), the gradient within rtol 1e-5, finite and
+    not zero, and the kernel path went through the Function."""
+    import torch
+
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ClipSpec,
+                                 ScheduleSpec, ServerPlan)
+    from repro_torch.core.aggregators import _bucket_order
+    from repro_torch.kernels.clip_aggregate import (clip_bucket_select_plain,
+                                                    clip_factor, row_norms,
+                                                    row_norms_plain)
+    from repro_torch.scenarios import (differentiable_aggregate,
+                                       torch_shadow_plan)
+
+    for tag, rule, d, kernel in (("fig1", "cm", 40, "clip_bucket_select"),
+                                 ("fig2", "rfa", 698, "gm_resident")):
+        g = torch.Generator(device="cuda").manual_seed(d)
+        x = torch.randn(20, d, device="cuda", generator=g)
+        mask = torch.zeros(20, dtype=torch.bool, device="cuda")
+        mask[torch.randperm(20, device="cuda", generator=g)[:12]] = True
+        w = torch.randn(d, device="cuda", generator=g)
+        order = torch.randperm(20, generator=torch.Generator().manual_seed(d))
+        radius = row_norms_plain(x).median()  # clips about half the rows
+        plan = ServerPlan(aggregate=AggregatorSpec(rule),
+                          clip=ClipSpec(alpha=1.0), bucket=BucketSpec(s=2),
+                          schedule=ScheduleSpec(backend="auto"))
+        outs, grads = [], []
+        for p in (plan, torch_shadow_plan(plan)):
+            m = x.clone().requires_grad_(True)
+            out = differentiable_aggregate(p)(m, mask=mask, key=order,
+                                              radius=radius)
+            through = type(out.grad_fn).__name__ == "KernelForwardBackward"
+            if through != (p is plan):
+                raise AssertionError(f"adaptive-grad {tag}: the kernel path "
+                                     "did not go through KernelForward")
+            (gr,) = torch.autograd.grad((out * w).sum(), m)
+            outs.append(out.detach())
+            grads.append(gr)
+        checks.compare(kernel, f"adaptive-grad {tag} forward", outs[0],
+                       outs[1], exact=False)
+        if rule == "cm":
+            factors = clip_factor(row_norms(x), radius)  # pass 1's
+            checks.compare(kernel, f"adaptive-grad {tag} forward, same "
+                           "factors", outs[0], clip_bucket_select_plain(
+                               x, factors, mask.float(),
+                               _bucket_order(order, mask, 20, x.device), 2,
+                               -1.0), exact=True)
+        checks.compare(kernel, f"adaptive-grad {tag} gradient", grads[0],
+                       grads[1], exact=False, atol=0.0)
+        if not (torch.isfinite(grads[0]).all() and grads[0].abs().sum() > 0):
+            raise AssertionError(f"adaptive-grad {tag}: the gradient is not "
+                                 "finite and non-zero")
+
+
+def _pin_deviation(rule, clip, device):
+    """The reference pin's measure (tests/test_scenarios.py): the
+    aggregate's distance from the good mean under the adaptive adversary
+    optimised against this plan, on ``device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (AggregatorSpec, ClipSpec, ScenarioSpec,
+                                 ScheduleSpec, ServerPlan)
+    from repro_torch.scenarios import AttackStage, make_context
+
+    n, n_byz, d = PIN["n"], PIN["n_byz"], PIN["d"]
+    rng = np.random.RandomState(3)
+    mu = (0.1 * rng.randn(d)).astype(np.float32)
+    honest = torch.from_numpy(
+        mu[None] + 0.05 * rng.randn(n, d).astype(np.float32)).to(device)
+    good = torch.arange(n, device=device) < n - n_byz
+    plan = ServerPlan(
+        aggregate=AggregatorSpec(rule, byz_bound=n_byz),
+        clip=ClipSpec(radius=PIN["radius"]) if clip else None,
+        schedule=ScheduleSpec(backend="auto"))
+    ctx = make_context(honest, good_mask=good,
+                       sampled=torch.ones(n, dtype=torch.bool, device=device),
+                       key=torch.Generator().manual_seed(1))
+    attack = ScenarioSpec(attack="adaptive",
+                          budget=PIN["budget"]).build(plan)
+    out = plan.build()(AttackStage(attack).corrupt(ctx), mask=ctx.sampled,
+                       key=ctx.key)
+    return float(torch.linalg.vector_norm(out - honest[good].mean(0)))
+
+
+def adaptive_pin():
+    """The reference's acceptance pin on the card: mean without a clip
+    deviates by more than 0.6; cm, rfa and centered_clip with the clip
+    each by less than 0.3, and mean by more than 2.5 times each.  Each
+    server call and each ascent step launches its rule's kernels once."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cases = (("mean", False), ("cm", True), ("rfa", True),
+             ("centered_clip", True))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dev = {rule: _pin_deviation(rule, clip, "cuda") for rule, clip in cases}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    cpu = {rule: _pin_deviation(rule, clip, "cpu") for rule, clip in cases}
+    print("  adaptive-pin deviation from the good mean: " + ", ".join(
+        f"{r} {v:.6f} (CPU {cpu[r]:.6f})" for r, v in dev.items()))
+    if not dev["mean"] > 0.6:
+        raise AssertionError(f"adaptive-pin: mean deviates {dev['mean']}")
+    for rule, _ in cases[1:]:
+        if not (dev[rule] < 0.3 and dev["mean"] > 2.5 * dev[rule]):
+            raise AssertionError(f"adaptive-pin: {rule} deviates "
+                                 f"{dev[rule]} (mean {dev['mean']})")
+    calls = PIN["budget"] + 1  # the ascent steps and the server's call
+    predicted = dict(_NO_LAUNCHES, coordinate_median=calls,
+                     row_norms=3 * calls, clip_bucket_select=calls,
+                     gm_resident=calls, cclip_resident=calls)
+    print(f"  adaptive-pin launches {counts}  predicted {predicted}")
+    if counts != predicted:
+        raise AssertionError("adaptive-pin: launch counts differ from the "
+                             "prediction")
+    return {"adaptive-pin": counts}
+
+
+def _adaptive_predicted(name, n_diff):
+    """Launches of an adaptive run of STEPS steps: g^0 once, every round
+    ADAPTIVE_BUDGET ascent steps (one kernel forward each, the backward
+    being the plain shadow) against the clip the adversary models, and
+    the server's own call (a difference round clips, a full round of
+    Algorithm 1 does not; the heuristic clips every round)."""
+    calls = STEPS * ADAPTIVE_BUDGET
+    if name == "adaptive-fig2":
+        return dict(_NO_LAUNCHES, row_norms=calls + STEPS,
+                    gm_resident=1 + calls + STEPS)
+    if name == "adaptive-fig1-clipped":
+        return dict(_NO_LAUNCHES, row_norms=calls + n_diff,
+                    clip_bucket_select=1 + calls + STEPS)
+    return dict(_NO_LAUNCHES, clip_bucket_select=1 + calls + STEPS)
+
+
+def _timed_attack(algo):
+    """Wrap the engine's attack so that its host wall time, from a
+    synchronised start to a synchronised end, adds up in the returned
+    list's one entry."""
+    import torch
+
+    spent = [0.0]
+    inner = algo.attack_stage.attack
+
+    def timed(ctx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(ctx)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    algo.attack_stage.attack = dataclasses.replace(inner, fn=timed)
+    return spent
+
+
+def adaptive_runs():
+    """Fig. 1 (clipped and unclipped) and Fig. 2 under ``ScenarioSpec(
+    attack="adaptive", budget=8)``, 300 steps each on "cuda" with backend
+    "auto": launches equal to each run's prediction, the card within
+    rtol 1e-4 of the CPU plain path on the same draws, the wall ms per
+    step and the adversary's share of it."""
+    import torch
+
+    from repro_torch.api import ScenarioSpec
+    from repro_torch.configs.paper import (fig1_marina_pp,
+                                           fig1_problem_kwargs,
+                                           fig2_heuristic,
+                                           fig2_problem_kwargs)
+    from repro_torch.core import (ByzVRMarinaPP, ClippedPPMomentum,
+                                  logistic_problem, mlp_problem)
+    from repro_torch.kernels import ops
+
+    spec = ScenarioSpec(attack="adaptive", budget=ADAPTIVE_BUDGET)
+    fig1 = (lambda dev: logistic_problem(0, device=dev,
+                                         **fig1_problem_kwargs()))
+    fig2 = (lambda dev: mlp_problem(0, device=dev,
+                                    **fig2_problem_kwargs("shb")))
+    runs = {  # name: (problem, engine, config)
+        "adaptive-fig1-clipped": (fig1, ByzVRMarinaPP, dataclasses.replace(
+            fig1_marina_pp(True), scenario=spec)),
+        "adaptive-fig1-unclipped": (fig1, ByzVRMarinaPP, dataclasses.replace(
+            fig1_marina_pp(False), scenario=spec)),
+        "adaptive-fig2": (fig2, ClippedPPMomentum, dataclasses.replace(
+            fig2_heuristic("rfa", "shb", True), scenario=spec)),
+    }
+    counts, final = {}, {}
+    for name, (problem, engine, cfg) in runs.items():
+        algo = engine(problem("cuda"), cfg, device="cuda")
+        spent = _timed_attack(algo)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, met = algo.run(STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        loss = met["loss"]
+        final[name] = float(loss[-1])
+        marks = ", ".join(f"{i + 1}: {float(loss[i]):.6f}"
+                          for i in (0, 49, 99, 199, 299))
+        print(f"  {name:24s} loss at steps {{{marks}}}  wall "
+              f"{wall / STEPS * 1e3:.3f} ms/step, the adversary "
+              f"{spent[0] / STEPS * 1e3:.3f} ms/step "
+              f"({spent[0] / wall:.1%})")
+        if not torch.isfinite(loss).all():
+            raise AssertionError(f"{name}: non-finite loss")
+        # the plain path on the CPU makes the same draws from the same seeds
+        _, ref = engine(problem("cpu"), cfg, device="cpu").run(STEPS)
+        err = float(((loss - ref["loss"]).abs() / ref["loss"].abs()).max())
+        print(f"  {name:24s} vs the CPU plain path, steps 1-{STEPS}: max rel "
+              f"err {err:.3e} [rtol 1e-4]; CPU final "
+              f"{float(ref['loss'][-1]):.6f}")
+        if err > 1e-4:
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+        full = met.get("full_round")
+        if full is not None and not torch.equal(full, ref["full_round"]):
+            raise AssertionError(f"{name}: the card and the CPU drew apart")
+        n_diff = STEPS - int(full.sum()) if full is not None else STEPS
+        predicted = _adaptive_predicted(name, n_diff)
+        print(f"  {name:24s} launches {counts[name]}  predicted {predicted}")
+        if counts[name] != predicted:
+            raise AssertionError(f"{name}: launch counts differ from the "
+                                 "prediction")
+    # the port's CPU run shows no separation of the clipped and unclipped
+    # Fig. 1 runs under this adversary (0.638186 and 0.637542 after 300
+    # steps), so no threshold is set
+    print("  adaptive-fig1 final losses: clipped "
+          f"{final['adaptive-fig1-clipped']:.6f}, unclipped "
+          f"{final['adaptive-fig1-unclipped']:.6f} (no threshold: no "
+          "separation on the CPU)")
+    return counts
+
+
+def matrix_smoke():
+    """SMOKE_GRID (24 cells, 250 steps, d = 30) on "cuda" with backend
+    "auto" and on the CPU, on the same draws: every verdict and so the
+    breakdown map equal, every finite gap below 1 within rtol 1e-4 plus
+    GAP_ULPS units of f32 rounding of the loss (the gap is the difference
+    of two f32 losses near 0.5, each rounded; the card and the CPU sum
+    the loss in other orders), the wide-margin outcomes (cm.shb.clip and
+    mean.shb.clip at 1.0, mean.gauss.* at 0.1, every noclip curve at or
+    below 0.45), and the launches of each cell's own coins."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import (SMOKE_GRID, breakdown_points,
+                                       collect_resilience)
+
+    grid = SMOKE_GRID
+    card, cpu = [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    collect_resilience(grid, progress=card.append, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    collect_resilience(grid, progress=cpu.append, device="cpu")
+    print(f"  matrix-smoke: {len(card)} cells of {grid.steps} steps in "
+          f"{wall:.3f} s on the card "
+          f"({wall / len(card) / grid.steps * 1e3:.3f} ms/step)")
+    worst = worst_ulps = 0.0
+    for a, b in zip(card, cpu):
+        if (a["key"], a["byz_frac"]) != (b["key"], b["byz_frac"]):
+            raise AssertionError("matrix-smoke: the cells differ in order")
+        if a["converged"] != b["converged"] or \
+                a["full_rounds"] != b["full_rounds"]:
+            raise AssertionError(f"matrix-smoke: {a['key']}@{a['byz_frac']} "
+                                 f"card {a} CPU {b}")
+        if math.isfinite(b["gap"]) and abs(b["gap"]) < 1.0:
+            err = abs(a["gap"] - b["gap"])
+            ulp = float(np.spacing(np.float32(b["final"])))
+            worst = max(worst, err / abs(b["gap"]))
+            worst_ulps = max(worst_ulps, err / ulp)
+            if err > 1e-4 * abs(b["gap"]) + GAP_ULPS * ulp:
+                raise AssertionError(
+                    f"matrix-smoke: {a['key']}@{a['byz_frac']} gap card "
+                    f"{a['gap']!r} CPU {b['gap']!r}")
+    bmap = breakdown_points(card)
+    if bmap != breakdown_points(cpu):
+        raise AssertionError("matrix-smoke: the breakdown maps differ")
+    print(f"  matrix-smoke gaps below 1: card vs CPU max rel err "
+          f"{worst:.3e}, max err {worst_ulps:.1f} f32 units of the loss "
+          f"[rtol 1e-4 + {GAP_ULPS} units]")
+    print("  breakdown points (card = CPU): " + json.dumps(bmap))
+    wide = {k: v for k, v in bmap.items()
+            if (k.startswith(("cm.shb.clip", "mean.shb.clip")) and v != 1.0)
+            or (k.startswith("mean.gauss.") and v != 0.1)
+            or (".noclip." in k and v > 0.45)}
+    if wide:
+        raise AssertionError(f"matrix-smoke: wide-margin outcomes fail: "
+                             f"{wide}")
+    n_diff = sum(grid.steps - c["full_rounds"] for c in card
+                 if ".clip." in c["key"])
+    predicted = dict(_NO_LAUNCHES, row_norms=n_diff,
+                     clip_bucket_select=len(card) * (grid.steps + 1))
+    print(f"  matrix-smoke launches {counts}  predicted {predicted}")
+    if counts != predicted:
+        raise AssertionError("matrix-smoke: launch counts differ from the "
+                             "prediction")
+    return {"matrix-smoke": counts}
+
+
+def scenario_path(checks):
+    """Phase 6: the adversarial scenarios on the card; returns each
+    run's launch counts."""
+    print("adaptive-grad: the kernel forward against the plain shadow")
+    adaptive_grad(checks)
+    counts = adaptive_pin()
+    counts.update(adaptive_runs())
+    counts.update(matrix_smoke())
+    return counts
+
+
 def main():
     import torch
 
@@ -1913,7 +2262,10 @@ def main():
     serve_counts, _ = serve_path()
     counts.update(serve_counts)
 
-    # 6. the kernels line, the card, the result
+    # 6. the adversarial scenarios
+    counts.update(scenario_path(checks))
+
+    # 7. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

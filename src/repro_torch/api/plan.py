@@ -12,7 +12,9 @@ round-trips byte for byte.
 
 ``plan.build()`` compiles the plan into the engine form of
 :class:`ServerStep`.  The sharded placement and mesh builds raise until
-ROADMAP queue 1 item 11; ``estimate`` is not ported.
+the mesh trainer is ported (ROADMAP queue 1, "the mesh trainer on
+torch.distributed"); ``estimate`` is not ported (it waits for the
+benchmarks, ROADMAP).
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ _COMPRESSOR_KINDS = ("identity", "rand_k", "rand_fraction",
 _PLACEMENTS = ("naive", "sharded")
 _BLOCKS = ("sequential", "pipelined")
 _BACKENDS = ("torch", "cuda", "auto", "jnp", "pallas")
-_MESH_ITEM = "ROADMAP queue 1 item 11 (the mesh trainer on torch.distributed)"
+_MESH_ITEM = "ROADMAP queue 1: the mesh trainer on torch.distributed"
 
 
 def _set(obj, **kw):

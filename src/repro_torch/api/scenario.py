@@ -9,11 +9,15 @@ one document names a scenario in both packages:
 
     spec = ScenarioSpec(attack="alie", byz_frac=0.25, z_max=2.0)
     attack = spec.build()            # the registry Attack, tunables bound
+    spec = ScenarioSpec(attack="adaptive", budget=8)
+    attack = spec.build(plan)        # gradient ascent against THIS plan
 
-The adaptive kinds (``"adaptive"``, ``"autogm"``) validate and round-trip,
-but ``build()`` raises NotImplementedError until ROADMAP queue 1 item 9.
-``byz_frac`` is read by the launchers when they make the cohort;
-``n_byz(n)`` maps it to a count.
+``attack`` is a ``repro_torch.core.attacks`` registry name or one of the
+adaptive kinds, ``"adaptive"`` (the deviation objective by default) and
+``"autogm"`` (the min-max descent objective), which optimise against a
+``ServerPlan`` and therefore need ``build(plan)``.  ``byz_frac`` is read
+by the launchers when they make the cohort; ``n_byz(n)`` maps it to a
+count.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ __all__ = ["ScenarioSpec", "ADAPTIVE_ATTACKS"]
 
 ADAPTIVE_ATTACKS = ("adaptive", "autogm")
 _OBJECTIVES = ("deviation", "descent")
-_ADAPTIVE_ITEM = "ROADMAP queue 1 item 9 (scenarios/adaptive.py)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,14 +81,23 @@ class ScenarioSpec:
         return int(round(self.byz_frac * n))
 
     def build(self, plan=None):
-        """The scenario's :class:`repro_torch.core.attacks.Attack` with its
-        tunables bound."""
+        """The scenario's :class:`repro_torch.core.attacks.Attack`: the
+        adaptive kinds optimise against ``plan`` (required for them),
+        registry attacks get their tunables bound."""
         from ..core.attacks import make_attack
 
         if self.attack in ADAPTIVE_ATTACKS:
-            raise NotImplementedError(
-                f"attack {self.attack!r} (the gradient-ascent adversary) is "
-                f"not ported yet ({_ADAPTIVE_ITEM})")
+            if plan is None:
+                raise PlanError(
+                    f"attack {self.attack!r} gradient-ascends against the "
+                    "server's aggregation rule; pass the ServerPlan: "
+                    "spec.build(plan)")
+            from ..scenarios.adaptive import make_adaptive_attack
+
+            objective = ("descent" if self.attack == "autogm"
+                         else self.objective)
+            return make_adaptive_attack(plan, budget=self.budget, lr=self.lr,
+                                        objective=objective, name=self.attack)
         params = {"alie": {"z_max": self.z_max}, "ipm": {"eps": self.eps},
                   "gauss": {"scale": self.scale}}.get(self.attack, {})
         return make_attack(self.attack, **params)

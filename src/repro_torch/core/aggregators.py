@@ -232,11 +232,25 @@ class Aggregator:
                 f"tensor on {xs.device}; use backend 'torch' or 'auto' there")
         return False
 
+    def _runs_kernels(self, xs) -> bool:
+        """``uses_kernels``, refusing a tensor that records a gradient:
+        the kernels build no autograd graph, so their result would lack
+        one (differentiate through
+        ``repro_torch.scenarios.differentiable_aggregate``)."""
+        if not self.uses_kernels(xs):
+            return False
+        if xs.requires_grad and torch.is_grad_enabled():
+            raise ValueError(
+                f"aggregator {self.name!r} runs CUDA kernels, which build no "
+                "autograd graph; differentiate through "
+                "repro_torch.scenarios.differentiable_aggregate")
+        return True
+
     def __call__(self, xs, mask=None, key=None):
         if isinstance(xs, dict):
             mat, unravel_row = tree_batch_ravel(xs)
             return unravel_row(self(mat, mask=mask, key=key))
-        fn = self.kernel_fn if self.uses_kernels(xs) else self.fn
+        fn = self.kernel_fn if self._runs_kernels(xs) else self.fn
         return fn(xs, mask=mask, key=key)
 
     def clip_then_aggregate(self, xs, radius, mask=None, key=None):
@@ -246,7 +260,7 @@ class Aggregator:
             mat, unravel_row = tree_batch_ravel(xs)
             return unravel_row(self.clip_then_aggregate(
                 mat, radius, mask=mask, key=key))
-        if self.uses_kernels(xs):
+        if self._runs_kernels(xs):
             return self.fused_clip_fn(xs, radius, mask=mask, key=key)
         if self.clip_fn is not None:
             return self.clip_fn(xs, radius, mask=mask, key=key)

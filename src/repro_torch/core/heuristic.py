@@ -15,10 +15,13 @@ clip stage gives the Fig.-2 "no clip" baselines.  With a data-dependent
 x^0 = x^{-1}, and lambda = 0 would zero every message.
 
 Randomness.  Each step draws the cohort permutation, the (n, batch)
-minibatch indices and Bucketing's permutation from the state's CPU
-``torch.Generator``, so a run makes the same draws on every device.  A
-``ClippedPPTape`` replaces every draw by a recorded one (the reference's,
-in the parity tests).  The iterates and metrics stay on the device, and
+minibatch indices, (an adaptive attack) the adversary's Bucketing
+permutation, the attack's own draws (gauss) and the server's Bucketing
+permutation from the state's CPU ``torch.Generator``, so a run makes the
+same draws on every device.  A ``ClippedPPTape`` replaces every draw by
+a recorded one (the reference's, in the parity tests).
+``ClippedPPConfig.scenario``, a ``ScenarioSpec``, wins over ``attack``,
+as in ``core.marina_pp``.  The iterates and metrics stay on the device, and
 ``run`` fetches the metrics once at its end.
 """
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from .._device import resolve_device
 from .attacks import make_attack
+from .marina_pp import attack_key
 
 __all__ = ["ClippedPPConfig", "ClippedPPState", "ClippedPPTape",
            "ClippedPPMomentum"]
@@ -49,7 +53,9 @@ class ClippedPPConfig:
     # ||x^k - x^{k-1}||)
     plan: Optional[object] = None
     attack: str = "none"
-    scenario: Optional[object] = None  # ScenarioSpec: ROADMAP queue 1 item 9
+    # a repro_torch.api.ScenarioSpec wins over ``attack`` (the attack's
+    # tunables, the adaptive adversary's budget against the plan)
+    scenario: Optional[object] = None
     seed: int = 0
 
     def resolve_plan(self):
@@ -76,13 +82,17 @@ class ClippedPPState:
 class ClippedPPTape:
     """Recorded draws of ``steps`` steps over n clients: ``sampled``
     (steps, n) bool cohorts, ``batch_idx`` (steps, n, batch) minibatch
-    indices, ``order`` (steps, n) Bucketing row orders, and ``g0_order``
-    (n,) the order of g^0's aggregation."""
+    indices, ``order`` (steps, n) Bucketing row orders, ``g0_order``
+    (n,) the order of g^0's aggregation, and optionally the attack's
+    draws, ``attack_noise`` (steps, n, d) and ``attack_order`` (steps, n),
+    as in ``MarinaPPTape``."""
 
     sampled: np.ndarray
     batch_idx: np.ndarray
     order: np.ndarray
     g0_order: np.ndarray
+    attack_noise: Optional[np.ndarray] = None
+    attack_order: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.sampled)
@@ -98,9 +108,6 @@ class ClippedPPMomentum:
         if problem.device.type != self.device.type:
             raise ValueError(f"the problem is on {problem.device}, the "
                              f"engine on {self.device}")
-        if cfg.scenario is not None:
-            raise NotImplementedError(
-                "ScenarioSpec is not ported yet (ROADMAP queue 1 item 9)")
         if not 1 <= cfg.C <= problem.n_clients:
             raise ValueError("need 1 <= C <= n")
         self.problem = problem
@@ -109,7 +116,10 @@ class ClippedPPMomentum:
         self.server = self.plan.build()
         from ..scenarios.stage import AttackStage
 
-        self.attack_stage = AttackStage(make_attack(cfg.attack))
+        # a ScenarioSpec wins over the plain ``attack`` registry name
+        self.attack = (cfg.scenario.build(self.plan)
+                       if cfg.scenario is not None else make_attack(cfg.attack))
+        self.attack_stage = AttackStage(self.attack)
         n = problem.n_clients
         self._good = torch.arange(n, device=self.device) < problem.n_good
 
@@ -162,7 +172,9 @@ class ClippedPPMomentum:
             lam = _WARMUP_RADIUS
         ctx = make_context(momenta, good_mask=self._good, sampled=sampled,
                            x_now=state.x, x_prev=state.x_prev, x0=state.x0,
-                           g_prev=state.g, key=state.gen)
+                           g_prev=state.g,
+                           key=attack_key(self.attack, state.gen, tape,
+                                          state.step, self.problem.n_clients))
         diffs = self.attack_stage.corrupt(ctx) - state.g[None]
         # eq. (10): aggregate the clipped differences to the last estimate
         if lam is not None:

@@ -19,11 +19,17 @@ per row, never through the compressor of the flattened matrix.
 
 Randomness.  Each step draws c_k, the cohort permutation, the (n, batch)
 minibatch indices, (difference rounds with a compressor) the (n, d)
-compressor uniforms and Bucketing's permutation from the state's CPU
-``torch.Generator``, so a run makes the same draws on every device.  A
-``MarinaPPTape`` replaces every draw by a recorded one (the reference's,
-in the parity tests); the tape's bucket orders are final orders, which
-Bucketing's stable sampled-first re-sort leaves as they are.
+compressor uniforms, (an adaptive attack) the adversary's Bucketing
+permutation, the attack's own draws (gauss) and the server's Bucketing
+permutation from the state's CPU ``torch.Generator``, so a run makes the
+same draws on every device.  A ``MarinaPPTape`` replaces every draw by a
+recorded one (the reference's, in the parity tests); the tape's bucket
+orders are final orders, which Bucketing's stable sampled-first re-sort
+leaves as they are.
+
+Scenarios.  ``MarinaPPConfig.scenario``, a ``ScenarioSpec``, wins over
+``attack``: ``scenario.build(plan)`` binds the attack's tunables, and the
+adaptive kinds gradient-ascend against the engine's own plan.
 
 The step branches on c_k in Python; the iterates, the metrics and the
 attack's majority bit stay on the device, and ``run`` fetches the
@@ -59,7 +65,9 @@ class MarinaPPConfig:
     # 1.0 * ||x^{k+1} - x^k||, no compression)
     plan: Optional[object] = None
     attack: str = "none"
-    scenario: Optional[object] = None  # ScenarioSpec: ROADMAP queue 1 item 9
+    # a repro_torch.api.ScenarioSpec wins over ``attack`` (the attack's
+    # tunables, the adaptive adversary's budget against the plan)
+    scenario: Optional[object] = None
     seed: int = 0
 
     def resolve_plan(self):
@@ -100,7 +108,10 @@ class MarinaPPTape:
     (steps, n, batch) minibatch indices, ``order`` (steps, n) Bucketing
     row orders, ``g0_order`` (n,) the order of g^0's aggregation, and
     ``q_draws`` (steps, n, d) the compressor's draws of each client (its
-    uniforms, or RandK keep masks), needed only with a compressor."""
+    uniforms, or RandK keep masks), needed only with a compressor.  The
+    attack's draws: ``attack_noise`` (steps, n, d) the standard normal
+    noise of gauss, ``attack_order`` (steps, n) the adaptive adversary's
+    Bucketing order; without them the attack draws from the generator."""
 
     c: np.ndarray
     sampled: np.ndarray
@@ -108,9 +119,27 @@ class MarinaPPTape:
     order: np.ndarray
     g0_order: np.ndarray
     q_draws: Optional[np.ndarray] = None
+    attack_noise: Optional[np.ndarray] = None
+    attack_order: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.c)
+
+
+def attack_key(attack, gen, tape, k: int, n: int):
+    """The attack context's ``key`` at step ``k``: the tape's attack draw
+    where it has one (the adaptive adversary's order, else gauss noise);
+    else, for an adaptive attack, one Bucketing permutation drawn from
+    ``gen`` here, which every ascent step of the round uses, forward and
+    backward alike, whatever the budget; else ``gen`` itself, so that a
+    registry attack draws as it does without a scenario."""
+    if tape is not None:
+        draws = tape.attack_order if attack.adaptive else tape.attack_noise
+        if draws is not None:
+            return torch.tensor(np.asarray(draws[k]))
+    if attack.adaptive:
+        return torch.randperm(n, generator=gen)
+    return gen
 
 
 class ByzVRMarinaPP:
@@ -124,9 +153,6 @@ class ByzVRMarinaPP:
         if problem.device.type != self.device.type:
             raise ValueError(f"the problem is on {problem.device}, the "
                              f"engine on {self.device}")
-        if cfg.scenario is not None:
-            raise NotImplementedError(
-                "ScenarioSpec is not ported yet (ROADMAP queue 1 item 9)")
         if not (1 <= cfg.C <= cfg.C_hat <= problem.n_clients):
             raise ValueError("need 1 <= C <= C_hat <= n")
         self.problem = problem
@@ -136,7 +162,10 @@ class ByzVRMarinaPP:
         self.compressor = self.server.compressor or _identity_compressor()
         from ..scenarios.stage import AttackStage
 
-        self.attack_stage = AttackStage(make_attack(cfg.attack))
+        # a ScenarioSpec wins over the plain ``attack`` registry name
+        self.attack = (cfg.scenario.build(self.plan)
+                       if cfg.scenario is not None else make_attack(cfg.attack))
+        self.attack_stage = AttackStage(self.attack)
         n = problem.n_clients
         self._good = torch.arange(n, device=self.device) < problem.n_good
 
@@ -233,7 +262,9 @@ class ByzVRMarinaPP:
                 idx.to(dev), x_new, state.x))
         ctx = make_context(honest, good_mask=self._good, sampled=sampled,
                            x_now=x_new, x_prev=state.x, x0=state.x0,
-                           g_prev=state.g, key=state.gen)
+                           g_prev=state.g,
+                           key=attack_key(self.attack, state.gen, tape,
+                                          state.step, prob.n_clients))
         msgs = self.attack_stage.corrupt(ctx)
         if c:
             g_new = self.server.aggregate(msgs, mask=sampled, key=key)

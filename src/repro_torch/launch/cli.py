@@ -1,6 +1,7 @@
 """Shared CLI plumbing for the ServerPlan and scenario flags, the
 counterpart of ``repro.launch.cli`` (without its fault-injection group,
-which comes with ROADMAP queue 1 item 10):
+which comes with ROADMAP queue 1, "serve faults, recovery and
+checkpoints"):
 
     ap = argparse.ArgumentParser()
     add_plan_args(ap)
@@ -72,23 +73,32 @@ def add_attack_args(ap, *, attack: str = "none"):
     rows run and its tunables (repro_torch.api.ScenarioSpec)."""
     g = ap.add_argument_group(
         "adversarial scenario",
-        "the byzantine payload (repro_torch.core.attacks registry) and its "
-        "tunables")
+        "the byzantine payload (repro_torch.core.attacks registry, plus the "
+        "adaptive gradient-ascent adversary) and its tunables")
     g.add_argument("--attack", default=attack,
                    help="registry attack (none, bf, sf, lf, ipm, alie, shb, "
-                        "gauss); the adaptive kinds are not ported yet")
+                        "gauss) or an adaptive kind (adaptive, autogm)")
     g.add_argument("--byz-frac", type=float, default=None, dest="byz_frac",
                    help="byzantine fraction in [0, 1]; overrides "
                         "launcher-specific --n-byz when set")
     g.add_argument("--z-max", type=float, default=1.5, dest="z_max",
                    help="ALIE deviation multiple (mu - z_max * sigma)")
+    g.add_argument("--budget", type=int, default=8,
+                   help="adaptive: ascent steps per round")
+    g.add_argument("--lr", type=float, default=0.5,
+                   help="adaptive: ascent step relative to ||mu_good||")
+    g.add_argument("--objective", default="deviation",
+                   choices=["deviation", "descent"],
+                   help="adaptive: damage objective (autogm forces "
+                        "descent)")
     return g
 
 
 def scenario_from_args(args) -> ScenarioSpec:
     """The ScenarioSpec an ``add_attack_args`` parser describes."""
     return ScenarioSpec(attack=args.attack, byz_frac=args.byz_frac,
-                        z_max=args.z_max)
+                        z_max=args.z_max, budget=args.budget, lr=args.lr,
+                        objective=args.objective)
 
 
 def plan_from_args(args, *, byz_bound: Optional[int] = None,

@@ -10,11 +10,12 @@ aggregate out to every submitter's ticket.
     python -m repro_torch.launch.serve --mode stream --device cpu ...
 
 It runs on the card unless ``--device cpu`` is given.  The reference's
-other modes are not ported yet: ``--mode score`` (the robust-scoring
-endpoint) is ROADMAP queue 1 item 12 and ``--mode decode`` (model
-serving on the mesh) items 11-12; both raise.  The fault injector and
-checkpoints (``--fault-json``, ``--ckpt-dir``, ``--resume``) come with
-item 10.
+other modes are not ported yet and raise: ``--mode score`` (the
+robust-scoring endpoint) waits for ROADMAP queue 1, "the score and decode
+modes", and ``--mode decode`` (model serving on the mesh) for the mesh
+trainer and then that item.  The fault injector and checkpoints
+(``--fault-json``, ``--ckpt-dir``, ``--resume``) come with "serve faults,
+recovery and checkpoints".
 
 The client stream is stateless: block b of n submissions is drawn from
 ``np.random.RandomState([seed, b])`` by ``SyntheticCohort``, as the
@@ -157,11 +158,12 @@ def main(argv=None):
     if args.mode == "score":
         raise NotImplementedError(
             "--mode score (the robust-scoring endpoint) is not ported yet "
-            "(ROADMAP queue 1 item 12)")
+            "(ROADMAP queue 1: the score and decode modes)")
     if args.mode == "decode":
         raise NotImplementedError(
             "--mode decode (model serving on the mesh) is not ported yet "
-            "(ROADMAP queue 1 items 11-12)")
+            "(ROADMAP queue 1: the mesh trainer on torch.distributed, then "
+            "the score and decode modes)")
     _main_stream(args)
 
 

@@ -10,7 +10,8 @@ on top of :class:`repro_torch.api.ServerPlan`, the ported part of
   stale-row and duplicate policies, ingest validation, per-slot
   quarantine, the clipping-only fallback close and per-round counters.
 
-The fault injector, recovery and checkpoints are ROADMAP queue 1 item 10.
+The fault injector, recovery and checkpoints are not ported yet (ROADMAP
+queue 1, "serve faults, recovery and checkpoints").
 The CLI entry point is ``python -m repro_torch.launch.serve --mode
 stream``.
 """

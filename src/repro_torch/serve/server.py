@@ -58,7 +58,7 @@ The server runs on the card unless the caller passes ``device="cpu"``.
 A round's Bucketing order comes from :func:`round_key`, a
 ``torch.Generator`` seeded from (``seed``, round id).  The fault
 injector, crash-safe recovery and checkpoints of ``repro.serve`` are not
-ported yet (ROADMAP queue 1 item 10).
+ported yet (ROADMAP queue 1, "serve faults, recovery and checkpoints").
 """
 from __future__ import annotations
 

@@ -1004,3 +1004,72 @@ def test_cuda_clipped_diff_scale_refuses_a_strided_d(card):
         got = cdk.clipped_diff_scale(d.contiguous(), factor)
         torch.cuda.synchronize()
         assert torch.equal(got, cdk.clipped_diff_scale_plain(d, factor))
+
+
+_ADAPTIVE_RULES = [("mean", True, True), ("mean", False, False),
+                   ("cm", True, True), ("cm", True, False),
+                   ("trimmed_mean", True, True), ("rfa", True, True),
+                   ("rfa", False, False), ("centered_clip", True, True),
+                   ("centered_clip", True, False), ("krum", False, False),
+                   ("krum", False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,clip,bucket", _ADAPTIVE_RULES, ids=str)
+def test_cuda_differentiable_aggregate_pairs_kernels_with_the_shadow(
+        card, rule, clip, bucket):
+    """The adaptive adversary's view of a kernel-backed plan: the forward
+    runs the kernels (launches counted) within f32 rtol 1e-5 of the plain
+    shadow, and the gradient, the shadow's backward on the same inputs
+    and Bucketing order, equals the shadow's own bit for bit."""
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ClipSpec,
+                                 ScheduleSpec, ServerPlan)
+    from repro_torch.scenarios import (differentiable_aggregate,
+                                       torch_shadow_plan)
+
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(20, 64, device=card, generator=g)
+    mask = torch.rand(20, device=card, generator=g) > 0.3
+    w = torch.randn(64, device=card, generator=g)
+    order = torch.randperm(20, generator=torch.Generator().manual_seed(3))
+    radius = ca.row_norms_plain(x).median() if clip else None
+    plan = ServerPlan(aggregate=AggregatorSpec(rule, byz_bound=4),
+                      clip=ClipSpec(alpha=1.0) if clip else None,
+                      bucket=BucketSpec(s=2) if bucket else None,
+                      schedule=ScheduleSpec(backend="auto"))
+    outs, grads = [], []
+    for p in (plan, torch_shadow_plan(plan)):
+        m = x.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        out = differentiable_aggregate(p)(m, mask=mask, key=order,
+                                          radius=radius)
+        torch.cuda.synchronize()
+        launched = sum(ops.launch_counts().values())
+        assert (launched > 0) == (p is plan)
+        assert (type(out.grad_fn).__name__ == "KernelForwardBackward") == (
+            p is plan)
+        (gr,) = torch.autograd.grad((out * w).sum(), m)
+        outs.append(out.detach())
+        grads.append(gr)
+    torch.testing.assert_close(outs[0], outs[1], **SUM_TOL)
+    assert torch.equal(grads[0], grads[1])
+    assert torch.isfinite(grads[0]).all() and grads[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_path_refuses_a_tensor_that_records_a_gradient(card):
+    """On the card a kernel-backed step given a grad-recording tensor
+    raises (the kernels build no graph); under no_grad it runs."""
+    from repro_torch.api import AggregatorSpec, ClipSpec, ServerPlan
+
+    step = ServerPlan(aggregate=AggregatorSpec("cm"),
+                      clip=ClipSpec(radius=1.0)).build()
+    x = torch.randn(20, 40, device=card, requires_grad=True)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="no autograd graph"):
+        step(x, radius=1.0)
+    assert ops.launch_counts() == NO_LAUNCHES
+    with torch.no_grad():
+        step(x, radius=1.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["clip_bucket_select"] == 1

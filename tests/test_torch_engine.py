@@ -271,11 +271,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_engine_rejects_unported_scenario_and_device_mismatch():
+    """A ScenarioSpec is accepted (it wins over ``attack``, the adaptive
+    kinds built against the engine's plan); C > n still raises."""
     prob = logistic_problem(0, device="cpu", **fig1_problem_kwargs())
     cfg = fig1_marina_pp(True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ByzVRMarinaPP(prob, type(cfg)(**{**cfg.__dict__, "scenario": object()}),
-                      device="cpu")
+    for kind in ("alie", "adaptive"):
+        algo = ByzVRMarinaPP(prob, dataclasses.replace(
+            cfg, scenario=T.ScenarioSpec(attack=kind, budget=2)), device="cpu")
+        assert algo.attack.name == kind
+        assert algo.attack.adaptive == (kind == "adaptive")
     with pytest.raises(ValueError, match="need 1 <= C"):
         ByzVRMarinaPP(prob, type(cfg)(**{**cfg.__dict__, "C": 30}),
                       device="cpu")

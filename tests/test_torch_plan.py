@@ -98,9 +98,9 @@ def test_superleaf_on_iterative_rule_warns_in_both():
 def test_sharded_and_mesh_builds_name_their_roadmap_item():
     plan = T.ServerPlan(aggregate="cm",
                         schedule=T.ScheduleSpec(placement="sharded"))
-    with pytest.raises(T.PlanError, match="queue 1 item 11"):
+    with pytest.raises(T.PlanError, match="queue 1: the mesh trainer"):
         plan.build()
-    with pytest.raises(T.PlanError, match="queue 1 item 11"):
+    with pytest.raises(T.PlanError, match="queue 1: the mesh trainer"):
         T.ServerPlan(aggregate="cm").build(mesh=object())
 
 

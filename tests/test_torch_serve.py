@@ -629,8 +629,10 @@ def test_scenario_spec_json_matches_reference():
     with pytest.raises(PlanError, match="unknown scenario fields"):
         ScenarioSpec.from_dict({"attack": "none", "nope": 1})
     adaptive = ScenarioSpec.from_json(RScenarioSpec(attack="autogm").to_json())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        adaptive.build(_plan("cm"))
+    attack = adaptive.build(_plan("cm"))
+    assert attack.name == "autogm" and attack.adaptive
+    with pytest.raises(PlanError, match="pass the ServerPlan"):
+        adaptive.build()
 
 
 def test_stream_launcher_runs_on_the_cpu(capsys, tmp_path):
@@ -647,7 +649,8 @@ def test_stream_launcher_runs_on_the_cpu(capsys, tmp_path):
     lines = out.read_text().splitlines()
     assert len(lines) == 3
     assert sum(ops.launch_counts().values()) == 0
-    for mode, item in (("score", "item 12"), ("decode", "items 11-12")):
+    for mode, item in (("score", "queue 1: the score and decode modes"),
+                       ("decode", "queue 1: the mesh trainer")):
         with pytest.raises(NotImplementedError, match=item):
             tlaunch.main(["--mode", mode, "--device", "cpu"])
 
