@@ -159,11 +159,37 @@ Phases (any failure raises, prints no result and exits non-zero):
    subtracts two f32 losses near 0.5), cm.shb.clip and mean.shb.clip at 1.0,
    mean.gauss.* at 0.1, every noclip curve at or below 0.45, launches of
    each cell's own coins).
-7. A ``{"kernels": [...]}`` line, then the card line, then the result.
+7. Faults, recovery and scoring, on "cuda" with backend "auto" at the
+   serve launcher's size (16 slots, d = 4,096, cohort 12, the trailing 4
+   under ALIE, static radius 5.0), the clock injected (0.1 s a pump):
+   serve-chaos-krum (Krum behind a ``FaultInjector`` running
+   ``canonical_fault_plan(seed=11)``, a 1.2 s deadline backstop, so that
+   both triggers fire, 8 rounds: two card runs bitwise equal with equal
+   ``FaultStats``; card and CPU plain path with equal ``FaultStats``,
+   round ids, close reasons, fills and Krum winners, aggregates within
+   rtol 1e-5; every aggregate finite); serve-crash (``FaultPlan(executor_crash=1.0)``: every round
+   degraded with ``executor_error:InjectedFault``, ``executor_faults``
+   equal to the rounds, the fallback within rtol 1e-5 of the CPU's);
+   serve-snapshot-krum and serve-snapshot-cclip (Krum and CenteredClip
+   parked mid-round, ``save_server`` and ``restore_server`` into a fresh
+   card server, timed; the round finished on both, the closes bitwise
+   equal); serve-resume-krum and serve-resume-cclip (``python -m
+   repro_torch.launch.serve --mode stream`` as subprocesses on the card,
+   which load the kernels phase 1 built: uninterrupted, and with a pump sleep SIGKILLed after 3 emitted
+   rounds and restarted with ``--resume``; every round id carries one
+   aggregate, bitwise the uninterrupted run's); score-krum (radius 5.0)
+   and score-cm (no clip, the standalone CM kernel):
+   ``make_scoring_step`` on B = 8 requests of 16 clients at d = 4,096
+   with the trailing 4 at 100x, every output within rtol 1e-5 of the
+   CPU, the same Krum winners, the trailing 4 flagged in every request
+   and no other, ms a request from a second, warmed call.  The
+   in-process runs' launches equal their predictions; wall seconds of
+   each run and of the phase.
+8. A ``{"kernels": [...]}`` line, then the card line, then the result.
    A kernel's ``launches`` are those of the run of the path it serves
    (``path``; "entry-points" for clipped_diff's and the bucketed median's,
    which no engine calls); ``launches_by_path`` has its counts in every
-   run.
+   in-process run.
 """
 import dataclasses
 import functools
@@ -1728,12 +1754,12 @@ class _Audit:
         self.records.append((result, picked, once))
 
 
-def _audited(plan, cfg, device, one_shot=False):
+def _audited(plan, cfg, device, one_shot=False, clock=None):
     """An AggregationServer with an _Audit on its closes."""
     from repro_torch.serve import AggregationServer
 
     audit = _Audit(one_shot)
-    audit.server = AggregationServer(plan, cfg, device=device,
+    audit.server = AggregationServer(plan, cfg, device=device, clock=clock,
                                      on_close=audit)
     return audit
 
@@ -2186,6 +2212,487 @@ def scenario_path(checks):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: faults, recovery, scoring
+# ---------------------------------------------------------------------------
+
+SERVE_DIM = 4096
+CHAOS_ROUNDS, CHAOS_FAULT_SEED, CHAOS_DEADLINE = 8, 11, 1.2
+RESUME_ROUNDS, RESUME_SLEEP_MS, RESUME_KILL_AFTER = 8, 60.0, 3
+SCORE_REQUESTS = 8
+PROC_TIMEOUT = 300  # seconds for any one stream subprocess
+
+
+class _Clock:
+    """The injected serve clock: 0.1 s a pump, so deadline closes are
+    the same on the card and the CPU (the wall clock would differ)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def tick(self, cursor, closed):
+        self.t += 0.1
+
+    def __call__(self):
+        return self.t
+
+
+def _serve_plan(rule, radius):
+    from repro_torch.api import (AggregatorSpec, ClipSpec, ScheduleSpec,
+                                 ServerPlan)
+
+    return ServerPlan(
+        aggregate=AggregatorSpec(rule, byz_bound=SERVE_BYZ),
+        clip=ClipSpec(radius=radius) if radius else None,
+        schedule=ScheduleSpec(placement="naive", backend="auto"))
+
+
+def _fault_run(fault_plan, device, deadline=None):
+    """Krum at the serve size behind a FaultInjector, driven by
+    ``run_stream`` on the injected clock for CHAOS_ROUNDS rounds; returns
+    (audit, injector, launch counts, wall seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_stream
+    from repro_torch.scenarios import SyntheticCohort
+    from repro_torch.serve import FaultInjector, ServeConfig
+
+    clock = _Clock()
+    cfg = ServeConfig(n_slots=SERVE_SLOTS, dim=SERVE_DIM,
+                      cohort_size=SERVE_COHORT, deadline=deadline,
+                      seed=SERVE_SEED)
+    audit = _audited(_serve_plan("krum", 5.0), cfg, device, clock=clock)
+    inj = FaultInjector(fault_plan, audit.server)
+    cohort = SyntheticCohort("alie", n_slots=SERVE_SLOTS, dim=SERVE_DIM,
+                             n_byz=SERVE_BYZ)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_stream(inj, cohort, rounds=CHAOS_ROUNDS, seed=SERVE_SEED,
+               on_pump=clock.tick)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for r, _, _ in audit.records:
+        if not np.all(np.isfinite(r.aggregate)):
+            raise AssertionError(f"round {r.round_id}: a non-finite aggregate")
+    return audit, inj, counts, wall
+
+
+def _same_rounds(name, card, cpu, check_picks=True):
+    """Card and CPU closed the same rounds (ids, reasons, fills, degraded
+    and fallback reasons, Krum winners) with aggregates within rtol 1e-5;
+    returns the worst relative error."""
+    import numpy as np
+
+    if len(card.records) != len(cpu.records):
+        raise AssertionError(f"{name}: {len(card.records)} rounds on the "
+                             f"card, {len(cpu.records)} on the CPU")
+    worst = 0.0
+    for (rc, pc, _), (rp, pp, _) in zip(card.records, cpu.records):
+        key_c = (rc.round_id, rc.close_reason, rc.cohort_fill, rc.degraded,
+                 rc.fallback_reason)
+        key_p = (rp.round_id, rp.close_reason, rp.cohort_fill, rp.degraded,
+                 rp.fallback_reason)
+        if key_c != key_p or (check_picks and pc != pp):
+            raise AssertionError(f"{name}: card {key_c} {pc} vs CPU {key_p} "
+                                 f"{pp}")
+        err = np.abs(rc.aggregate - rp.aggregate)
+        if not np.all(err <= 1e-7 + 1e-5 * np.abs(rp.aggregate)):
+            raise AssertionError(f"{name} round {rc.round_id}: card and CPU "
+                                 "aggregates differ")
+        worst = max(worst, float((err / np.maximum(np.abs(rp.aggregate),
+                                                   1e-30)).max()))
+    return worst
+
+
+def chaos_runs():
+    """serve-chaos-krum (the canonical plan, seed 11, deadline backstop)
+    and serve-crash (a certain executor crash); returns launch counts."""
+    import numpy as np
+
+    from repro_torch.serve import FaultPlan, canonical_fault_plan
+
+    counts = {}
+    fp = canonical_fault_plan(seed=CHAOS_FAULT_SEED)
+    card, inj, counts["serve-chaos-krum"], wall = _fault_run(
+        fp, "cuda", CHAOS_DEADLINE)
+    again, inj2, _, wall2 = _fault_run(fp, "cuda", CHAOS_DEADLINE)
+    cpu, inj_cpu, _, wall_cpu = _fault_run(fp, "cpu", CHAOS_DEADLINE)
+    stats = inj.stats.snapshot()
+    if inj2.stats.snapshot() != stats or inj_cpu.stats.snapshot() != stats:
+        raise AssertionError(f"serve-chaos-krum: FaultStats differ: {stats},"
+                             f" {inj2.stats.snapshot()}, "
+                             f"{inj_cpu.stats.snapshot()}")
+    for (a, pa, _), (b, pb, _) in zip(card.records, again.records):
+        if (a.round_id, a.close_reason, pa) != (b.round_id, b.close_reason,
+                                                pb) or \
+                not np.array_equal(a.aggregate, b.aggregate):
+            raise AssertionError(f"serve-chaos-krum round {a.round_id}: two "
+                                 "card runs differ")
+    if len(card.records) != len(again.records):
+        raise AssertionError("serve-chaos-krum: two card runs closed "
+                             "different rounds")
+    worst = _same_rounds("serve-chaos-krum", card, cpu)
+    m = card.server.metrics
+    full = sum(1 for r, _, _ in card.records if not r.degraded)
+    predicted = dict(_NO_LAUNCHES, cross_gram=m.chunks_ingested,
+                     select_row=full)
+    reasons = [r.close_reason[0] + str(r.cohort_fill)
+               for r, _, _ in card.records]
+    print(f"  serve-chaos-krum  rounds {reasons} (f: fill, d: deadline), "
+          f"{m.rounds_degraded} degraded; FaultStats {stats}")
+    print(f"  serve-chaos-krum  replay bitwise on the card: ok; vs CPU same "
+          f"FaultStats, rounds and winners, max rel err {worst:.3e} "
+          f"[rtol 1e-5]; winners {[p for _, p, _ in card.records][:3]} ...")
+    print(f"  serve-chaos-krum  launches {counts['serve-chaos-krum']}  "
+          f"predicted {predicted}")
+    print(f"  serve-chaos-krum  wall {wall:.3f} s, {wall2:.3f} s (card), "
+          f"{wall_cpu:.3f} s (CPU); {wall / len(card.records) * 1e3:.3f} ms "
+          f"a round")
+    if counts["serve-chaos-krum"] != predicted:
+        raise AssertionError("serve-chaos-krum: launch counts differ from "
+                             "the prediction")
+
+    crash = FaultPlan(executor_crash=1.0)
+    card, inj, counts["serve-crash"], wall = _fault_run(crash, "cuda")
+    cpu, _, _, _ = _fault_run(crash, "cpu")
+    m = card.server.metrics
+    for r, _, _ in card.records:
+        if not r.degraded or \
+                r.fallback_reason != "executor_error:InjectedFault":
+            raise AssertionError(f"serve-crash round {r.round_id}: "
+                                 f"{r.degraded} {r.fallback_reason}")
+    if not (m.executor_faults == inj.stats.executor_crashes
+            == len(card.records) == CHAOS_ROUNDS):
+        raise AssertionError(f"serve-crash: {m.snapshot()} "
+                             f"{inj.stats.snapshot()}")
+    worst = _same_rounds("serve-crash", card, cpu)
+    predicted = dict(_NO_LAUNCHES, cross_gram=m.chunks_ingested)
+    print(f"  serve-crash       {CHAOS_ROUNDS} rounds, every one degraded "
+          f"(executor_error:InjectedFault), executor_faults "
+          f"{m.executor_faults}; fallback vs CPU max rel err {worst:.3e} "
+          f"[rtol 1e-5]; wall {wall:.3f} s")
+    print(f"  serve-crash       launches {counts['serve-crash']}  predicted "
+          f"{predicted}")
+    if counts["serve-crash"] != predicted:
+        raise AssertionError("serve-crash: launch counts differ from the "
+                             "prediction")
+    return counts
+
+
+def snapshot_run(work, name, rule):
+    """serve-snapshot-*: ``rule`` on the card parked mid-round (one round
+    closed, 5 of 12 rows of the next), save_server, restore_server into a
+    fresh card server, the round finished on both: the closes bitwise
+    equal.  Three closes in all (two on the live server, one on the
+    restored one).  Returns (launch counts, save ms, restore ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import SyntheticCohort
+    from repro_torch.serve import (AggregationServer, ServeConfig,
+                                   restore_server, save_server)
+
+    plan = _serve_plan(rule, 5.0)
+    cfg = ServeConfig(n_slots=SERVE_SLOTS, dim=SERVE_DIM,
+                      cohort_size=SERVE_COHORT, seed=SERVE_SEED)
+    rows = SyntheticCohort("alie", n_slots=SERVE_SLOTS, dim=SERVE_DIM,
+                           n_byz=SERVE_BYZ).round_rows(
+        np.random.RandomState([SERVE_SEED, 0]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    live = AggregationServer(plan, cfg, device="cuda")
+    for slot in range(SERVE_COHORT):
+        live.submit(slot, rows[slot])
+    closed = live.pump()
+    for slot in (12, 13, 14, 15, 0):
+        live.submit(slot, rows[slot])
+        live.pump()
+    ckpt_dir = work / name
+    t0 = time.perf_counter()
+    save_server(live, str(ckpt_dir))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    clone = AggregationServer(plan, cfg, device="cuda")
+    t0 = time.perf_counter()
+    step, _ = restore_server(clone, str(ckpt_dir))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if step != 1 or clone.round_id != 1 or \
+            clone._arrived_slots != live._arrived_slots:
+        raise AssertionError(f"{name}: restored step {step}, round "
+                             f"{clone.round_id}")
+    for slot in range(1, 8):
+        for srv in (live, clone):
+            srv.submit(slot, rows[slot] * 0.5)
+    closed += live.pump()
+    mine = clone.pump()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if len(closed) != 2 or len(mine) != 1 or \
+            not np.array_equal(closed[1].aggregate, mine[0].aggregate):
+        raise AssertionError(f"{name}: the restored server closed another "
+                             "aggregate")
+    if rule == "krum":  # the clone ingests one chunk
+        predicted = dict(_NO_LAUNCHES, select_row=3,
+                         cross_gram=live.metrics.chunks_ingested + 1)
+    else:  # the tiled CenteredClip at every close (phase 5's serve-cclip)
+        predicted = dict(_NO_LAUNCHES, row_norms=3,
+                         diff_row_ssq=3 * CCLIP_ITERS,
+                         cclip_update=3 * (CCLIP_ITERS + 1))
+    print(f"  {name:18s} mid-round (fill 5/12) save {save_ms:.3f} ms, "
+          f"restore {restore_ms:.3f} ms; the finished round bitwise equal "
+          f"on both: ok")
+    print(f"  {name:18s} launches {counts}  predicted {predicted}")
+    if counts != predicted:
+        raise AssertionError(f"{name}: launch counts differ from the "
+                             "prediction")
+    return counts, save_ms, restore_ms
+
+
+def _stream_cmd(rule, ckpt_dir, emit, *, sleep_ms=0.0, resume=False):
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+           "stream", "--device", "cuda", "--aggregator", rule, "--backend",
+           "auto", "--clients", str(SERVE_SLOTS), "--dim", str(SERVE_DIM),
+           "--cohort-size", str(SERVE_COHORT), "--clip-radius", "5.0",
+           "--attack", "alie", "--n-byz", str(SERVE_BYZ), "--rounds",
+           str(RESUME_ROUNDS), "--seed", str(SERVE_SEED), "--ckpt-dir",
+           str(ckpt_dir), "--emit-rounds", str(emit), "--pump-sleep-ms",
+           str(sleep_ms)]
+    return cmd + ["--resume"] if resume else cmd
+
+
+def _rounds_by_id(path):
+    out = {}
+    if path.exists():
+        for line in path.read_text().splitlines():
+            d = json.loads(line)
+            out.setdefault(d["round_id"], set()).add(d["aggregate_hex"])
+    return out
+
+
+def _lines(path):
+    return len(path.read_text().splitlines()) if path.exists() else 0
+
+
+def resume_runs(work, src):
+    """serve-resume-krum and serve-resume-cclip: the stream launcher as a
+    subprocess on the card, uninterrupted; again with a pump sleep,
+    SIGKILLed after RESUME_KILL_AFTER emitted rounds and restarted with
+    --resume.  Every round id must carry one aggregate, bitwise the
+    uninterrupted run's.  The four first processes run together, then
+    the two resumes.  Returns each rule's seconds."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(src))
+    rules = (("serve-resume-krum", "krum"),
+             ("serve-resume-cclip", "centered_clip"))
+    procs, logs = [], []
+
+    def start(cmd, tag):
+        log = open(work / f"{tag}.log", "w")
+        logs.append(log)
+        p = subprocess.Popen(cmd, cwd=src.parent, env=env, stdout=log,
+                             stderr=subprocess.STDOUT)
+        procs.append(p)
+        return p, time.perf_counter()
+
+    out = {}
+    try:
+        runs = {}
+        for name, rule in rules:
+            d = work / name
+            d.mkdir()
+            runs[name] = dict(
+                oracle=start(_stream_cmd(rule, d / "oracle_ck",
+                                         d / "oracle.jsonl"),
+                             f"{name}-oracle"),
+                victim=start(_stream_cmd(rule, d / "victim_ck",
+                                         d / "victim.jsonl",
+                                         sleep_ms=RESUME_SLEEP_MS),
+                             f"{name}-victim"),
+                dir=d)
+        t_end = time.perf_counter() + PROC_TIMEOUT
+        pending = {name for name, _ in rules}
+        while pending:
+            for name in sorted(pending):
+                p, _ = runs[name]["victim"]
+                if p.poll() is not None:
+                    log = (work / f"{name}-victim.log").read_text()
+                    raise AssertionError(f"{name}: the stream server ended "
+                                         f"before the kill landed: "
+                                         f"{log[-2000:]}")
+                if _lines(runs[name]["dir"] / "victim.jsonl") \
+                        >= RESUME_KILL_AFTER:
+                    p.send_signal(signal.SIGKILL)
+                    p.wait(timeout=60)
+                    runs[name]["killed_at"] = _lines(
+                        runs[name]["dir"] / "victim.jsonl")
+                    pending.discard(name)
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"{sorted(pending)}: no "
+                                     f"{RESUME_KILL_AFTER} rounds emitted")
+            time.sleep(0.02)
+        for name, _ in rules:
+            p, t0 = runs[name]["oracle"]
+            if p.wait(timeout=PROC_TIMEOUT) != 0:
+                raise AssertionError(f"{name}: the uninterrupted run failed "
+                                     f"({(work / f'{name}-oracle.log').read_text()[-2000:]})")
+            runs[name]["oracle_s"] = time.perf_counter() - t0
+            runs[name]["resume"] = start(
+                _stream_cmd(dict(rules)[name], runs[name]["dir"] / "victim_ck",
+                            runs[name]["dir"] / "victim.jsonl", resume=True),
+                f"{name}-resume")
+        for name, _ in rules:
+            p, t0 = runs[name]["resume"]
+            if p.wait(timeout=PROC_TIMEOUT) != 0:
+                raise AssertionError(f"{name}: the resumed run failed "
+                                     f"({(work / f'{name}-resume.log').read_text()[-2000:]})")
+            resume_s = time.perf_counter() - t0
+            log = (work / f"{name}-resume.log").read_text()
+            m = re.search(r"resumed from checkpoint step (\d+)", log)
+            if m is None or "(0 degraded" not in log:
+                raise AssertionError(f"{name}: the run did not resume from a "
+                                     f"checkpoint or degraded: {log[-2000:]}")
+            oracle = _rounds_by_id(runs[name]["dir"] / "oracle.jsonl")
+            victim = _rounds_by_id(runs[name]["dir"] / "victim.jsonl")
+            if set(oracle) != set(range(RESUME_ROUNDS)) or \
+                    set(victim) != set(oracle):
+                raise AssertionError(f"{name}: rounds {sorted(oracle)} vs "
+                                     f"{sorted(victim)}")
+            for rid in range(RESUME_ROUNDS):
+                if len(victim[rid]) != 1 or victim[rid] != oracle[rid]:
+                    raise AssertionError(f"{name} round {rid}: the resumed "
+                                         "run diverged")
+            replayed = _lines(runs[name]["dir"] / "victim.jsonl") \
+                - runs[name]["killed_at"]
+            # the serve loop's own seconds (restore to the last close)
+            loop_s = [float(re.search(r"wall_s = ([0-9.]+)", (
+                work / f"{name}-{tag}.log").read_text()).group(1))
+                for tag in ("oracle", "resume")]
+            out[name] = dict(oracle_s=runs[name]["oracle_s"],
+                             resume_s=resume_s, step=int(m.group(1)))
+            print(f"  {name:18s} killed after {runs[name]['killed_at']} "
+                  f"rounds, resumed from step {m.group(1)}, {replayed} "
+                  f"rounds emitted after the resume; every round bitwise "
+                  f"== the uninterrupted run: ok; uninterrupted "
+                  f"{runs[name]['oracle_s']:.3f} s, resume {resume_s:.3f} s "
+                  f"(process wall, start-up included); serve loop "
+                  f"{loop_s[0]:.3f} s for {RESUME_ROUNDS} rounds, the "
+                  f"replay {loop_s[1]:.3f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for log in logs:
+            log.close()
+    return out
+
+
+def score_runs():
+    """score-krum (radius 5.0) and score-cm (no clip): make_scoring_step
+    on _main_score's batch (B = 8 requests of 16 clients, d = 4,096, the
+    trailing 4 x100) on the card and the CPU; returns launch counts and
+    ms per request of a second, warmed call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_scoring_step
+
+    xs = np.random.RandomState(0).randn(
+        SCORE_REQUESTS, SERVE_SLOTS, SERVE_DIM).astype(np.float32)
+    xs[:, SERVE_SLOTS - SERVE_BYZ:, :] *= 100.0
+    card_xs = torch.from_numpy(xs).cuda()
+    counts, ms = {}, {}
+    for name, rule, radius, kernel in (
+            ("score-krum", "krum", 5.0, None),
+            ("score-cm", "cm", None, "coordinate_median")):
+        plan = _serve_plan(rule, radius)
+        score = make_scoring_step(plan, "cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        card = score(card_xs, key=2)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        t0 = time.perf_counter()
+        score(card_xs, key=2)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / SCORE_REQUESTS
+        cpu = make_scoring_step(plan, "cpu")(xs, key=2)
+        card = {k: v.cpu().numpy() for k, v in card.items()}
+        worst = 0.0
+        for k, want in cpu.items():
+            want = want.numpy()
+            err = np.abs(card[k] - want)
+            if card[k].shape != want.shape or \
+                    not np.all(err <= 1e-7 + 1e-5 * np.abs(want)):
+                raise AssertionError(f"{name}: {k} differs from the CPU")
+            worst = max(worst, float((err / np.maximum(np.abs(want),
+                                                       1e-30)).max()))
+        winners = card["distance"].argmin(axis=1)
+        if rule == "krum" and not np.array_equal(
+                winners, cpu["distance"].numpy().argmin(axis=1)):
+            raise AssertionError(f"{name}: other Krum winners than the CPU")
+        dist = card["distance"]
+        flagged = dist > np.median(dist, axis=1, keepdims=True) * 3.0
+        if not (flagged[:, SERVE_SLOTS - SERVE_BYZ:].all()
+                and not flagged[:, :SERVE_SLOTS - SERVE_BYZ].any()):
+            raise AssertionError(f"{name}: flagged {flagged.sum(1)}")
+        predicted = dict(_NO_LAUNCHES, gram_matrix=SCORE_REQUESTS,
+                         select_row=SCORE_REQUESTS) if rule == "krum" \
+            else dict(_NO_LAUNCHES, coordinate_median=SCORE_REQUESTS)
+        print(f"  {name:18s} B={SCORE_REQUESTS} x {SERVE_SLOTS} x "
+              f"d={SERVE_DIM}: vs CPU max rel err {worst:.3e} [rtol 1e-5]"
+              f"{', same winners ' + str(winners.tolist()) if rule == 'krum' else ''};"
+              f" the trailing {SERVE_BYZ} flagged in every request, no "
+              f"other; {ms[name]:.3f} ms a request (warm call)")
+        print(f"  {name:18s} launches {counts[name]}  predicted {predicted}")
+        if counts[name] != predicted:
+            raise AssertionError(f"{name}: launch counts differ from the "
+                                 "prediction")
+    return counts, ms
+
+
+def recovery_path():
+    """Phase 7: faults, recovery, scoring on the card; returns the
+    in-process runs' launch counts."""
+    import shutil
+
+    print("faults, recovery, scoring")
+    t0 = time.perf_counter()
+    src = Path(__file__).resolve().parent / "src"
+    work = src.parent / "build" / "chip_smoke_phase7"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    phase = {}
+    t = time.perf_counter()
+    counts = chaos_runs()
+    phase["chaos"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for name, rule in (("serve-snapshot-krum", "krum"),
+                       ("serve-snapshot-cclip", "centered_clip")):
+        counts[name], _, _ = snapshot_run(work, name, rule)
+    phase["snapshot"] = time.perf_counter() - t
+    t = time.perf_counter()
+    resume_runs(work, src)
+    phase["resume"] = time.perf_counter() - t
+    t = time.perf_counter()
+    score_counts, _ = score_runs()
+    counts.update(score_counts)
+    phase["score"] = time.perf_counter() - t
+    print(f"  phase 7 wall {time.perf_counter() - t0:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phase.items()) + ")")
+    return counts
+
+
 def main():
     import torch
 
@@ -2265,7 +2772,10 @@ def main():
     # 6. the adversarial scenarios
     counts.update(scenario_path(checks))
 
-    # 7. the kernels line, the card, the result
+    # 7. faults, recovery, scoring
+    counts.update(recovery_path())
+
+    # 8. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

@@ -1,7 +1,5 @@
-"""Shared CLI plumbing for the ServerPlan and scenario flags, the
-counterpart of ``repro.launch.cli`` (without its fault-injection group,
-which comes with ROADMAP queue 1, "serve faults, recovery and
-checkpoints"):
+"""Shared CLI plumbing for the ServerPlan, scenario and fault-injection
+flags, the counterpart of ``repro.launch.cli``:
 
     ap = argparse.ArgumentParser()
     add_plan_args(ap)
@@ -27,8 +25,8 @@ from ..api import (
     ServerPlan,
 )
 
-__all__ = ["add_attack_args", "add_plan_args", "plan_from_args",
-           "scenario_from_args"]
+__all__ = ["add_attack_args", "add_fault_args", "add_plan_args",
+           "fault_plan_from_args", "plan_from_args", "scenario_from_args"]
 
 
 def add_plan_args(ap, *, aggregator: str = "cm", placement: str = "sharded",
@@ -66,6 +64,30 @@ def add_plan_args(ap, *, aggregator: str = "cm", placement: str = "sharded",
                    help="inline ServerPlan JSON or a path to one; "
                         "overrides the individual plan flags")
     return g
+
+
+def add_fault_args(ap):
+    """Register the fault-injection flag: ``--fault-json`` names a
+    ``repro_torch.serve.faults.FaultPlan`` document (inline or a path),
+    the replayable-chaos analogue of ``--plan-json``."""
+    g = ap.add_argument_group(
+        "fault injection",
+        "deterministic chaos: a seeded, replayable "
+        "repro_torch.serve.faults.FaultPlan wraps the server "
+        "(dropout/delay/duplicates/malformed rows/clock skew/executor "
+        "crashes)")
+    g.add_argument("--fault-json", default="",
+                   help="inline FaultPlan JSON or a path to one; empty "
+                        "disables fault injection")
+    return g
+
+
+def fault_plan_from_args(args):
+    """The FaultPlan an ``add_fault_args`` parser describes (None when
+    fault injection is disabled)."""
+    from ..serve.faults import load_fault_plan
+
+    return load_fault_plan(getattr(args, "fault_json", ""))
 
 
 def add_attack_args(ap, *, attack: str = "none"):

@@ -120,6 +120,14 @@ class PlanExecutor:
         return self.step(buffer, mask=arrived, key=key)
 
 
+def _fresh(value, dtype, device) -> torch.Tensor:
+    """A new tensor holding ``value`` (array or tensor), sharing no
+    memory with it."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device=device, dtype=dtype, copy=True)
+    return torch.tensor(np.asarray(value), dtype=dtype, device=device)
+
+
 _CACHE: dict = {}
 _CACHE_LOCK = threading.Lock()
 _CACHE_STATS = {"hits": 0, "misses": 0}
@@ -175,8 +183,29 @@ class CohortBuilder:
         self._buffer, self._arrived, self._stats = self.executor.init_state()
 
     def state(self):
-        """The round's streaming state: (buffer, arrived, stats)."""
+        """The round's streaming state: (buffer, arrived, stats), the live
+        tensors (``ingest`` updates buffer and arrived in place).
+        Everything ``close`` depends on: these three restored into a fresh
+        cohort resume the round bit for bit (the incremental Gram is plain
+        data)."""
         return self._buffer, self._arrived, self._stats
+
+    def set_state(self, buffer, arrived, stats) -> None:
+        """Install a snapshot taken from :meth:`state` (numpy arrays or
+        tensors, shape-checked against this cohort's geometry) as fresh
+        tensors on the executor's device: never a view of the caller's
+        arrays, which the next ingest would otherwise write through."""
+        template = self.executor.init_state()
+        values = (buffer, arrived, stats)
+        for name, tmpl, val in zip(("buffer", "arrived", "stats"), template,
+                                   values):
+            if tuple(np.shape(val)) != tuple(tmpl.shape):
+                raise ValueError(
+                    f"snapshot {name} shape {tuple(np.shape(val))} != "
+                    f"expected {tuple(tmpl.shape)} for this cohort geometry")
+        self._buffer, self._arrived, self._stats = (
+            _fresh(val, tmpl.dtype, self.executor.device)
+            for tmpl, val in zip(template, values))
 
     @property
     def fill(self) -> int:

@@ -56,9 +56,9 @@ plan's one-shot step.
 
 The server runs on the card unless the caller passes ``device="cpu"``.
 A round's Bucketing order comes from :func:`round_key`, a
-``torch.Generator`` seeded from (``seed``, round id).  The fault
-injector, crash-safe recovery and checkpoints of ``repro.serve`` are not
-ported yet (ROADMAP queue 1, "serve faults, recovery and checkpoints").
+``torch.Generator`` seeded from (``seed``, round id), so a server
+restored from a snapshot (:mod:`repro_torch.serve.recovery`) needs no
+generator state.
 """
 from __future__ import annotations
 

@@ -1073,3 +1073,113 @@ def test_cuda_kernel_path_refuses_a_tensor_that_records_a_gradient(card):
         step(x, radius=1.0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["clip_bucket_select"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the server's faults, snapshots and checkpoints, and the scoring endpoint
+# ---------------------------------------------------------------------------
+
+def _serve_plan(rule, radius=5.0):
+    from repro_torch.api import (AggregatorSpec, ClipSpec, ScheduleSpec,
+                                 ServerPlan)
+
+    return ServerPlan(aggregate=AggregatorSpec(rule, byz_bound=2),
+                      clip=ClipSpec(radius=radius) if radius else None,
+                      schedule=ScheduleSpec(placement="naive",
+                                            backend="auto"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["krum", "centered_clip"])
+def test_cuda_mid_round_snapshot_restores_bitwise(card, rule, tmp_path):
+    """A card server parked mid-round, saved and restored into a fresh
+    card server, closes the round bit for bit as the live one."""
+    import numpy as np
+
+    from repro_torch.serve import (AggregationServer, ServeConfig,
+                                   restore_server, save_server)
+
+    cfg = ServeConfig(n_slots=8, dim=300, cohort_size=6, chunk_size=3,
+                      seed=4)
+    rows = np.random.RandomState(1).randn(12, 300).astype(np.float32)
+    live = AggregationServer(_serve_plan(rule), cfg, device=card)
+    for slot in range(6):
+        live.submit(slot, rows[slot])
+    assert len(live.pump()) == 1
+    for slot in (6, 7, 0, 1):
+        live.submit(slot, rows[slot + 4])
+    assert live.pump() == []
+    save_server(live, str(tmp_path))
+    clone = AggregationServer(_serve_plan(rule), cfg, device=card)
+    assert restore_server(clone, str(tmp_path))[0] == 1
+    for mine, theirs in zip(clone._builder.state(), live._builder.state()):
+        assert mine.is_cuda and mine.data_ptr() != theirs.data_ptr()
+        assert torch.equal(mine, theirs)
+    for srv in (live, clone):
+        srv.submit(2, rows[2] * 0.5)
+        srv.submit(3, rows[3] * 0.5)
+    a, b = live.pump(), clone.pump()
+    assert len(a) == len(b) == 1 and not a[0].degraded
+    np.testing.assert_array_equal(a[0].aggregate, b[0].aggregate)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_onto_the_card(card, tmp_path):
+    from repro_torch import checkpoint
+
+    g = torch.Generator(device=card).manual_seed(3)
+    tree = {"x": torch.randn(5, 7, device=card, generator=g),
+            "h": [torch.randn(9, device=card, generator=g).bfloat16()]}
+    checkpoint.save(str(tmp_path), 2, tree)
+    template = {"x": torch.zeros(5, 7, device=card),
+                "h": [torch.zeros(9, device=card, dtype=torch.bfloat16)]}
+    got = checkpoint.restore(str(tmp_path), 2, template)
+    assert got["x"].is_cuda and got["h"][0].dtype == torch.bfloat16
+    assert torch.equal(got["x"], tree["x"])
+    assert torch.equal(got["h"][0].view(torch.int16),
+                       tree["h"][0].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_injected_crash_degrades_and_kernels_still_count(card):
+    import numpy as np
+
+    from repro_torch.serve import (AggregationServer, FaultInjector,
+                                   FaultPlan, ServeConfig)
+
+    srv = AggregationServer(_serve_plan("krum"),
+                            ServeConfig(n_slots=6, dim=64, cohort_size=4),
+                            device=card)
+    inj = FaultInjector(FaultPlan(executor_crash=1.0), srv)
+    rows = np.random.RandomState(2).randn(4, 64).astype(np.float32)
+    ops.reset_launch_counts()
+    for slot in range(4):
+        inj.submit(slot, rows[slot])
+    closed = inj.pump()
+    assert len(closed) == 1 and closed[0].degraded
+    assert closed[0].fallback_reason == "executor_error:InjectedFault"
+    assert srv.metrics.executor_faults == 1
+    # the rows were folded into the Gram on the card; the close never ran
+    assert ops.launch_counts() == dict(NO_LAUNCHES, cross_gram=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,radius", [("krum", 5.0), ("cm", None)])
+def test_cuda_scoring_step_matches_the_cpu(card, rule, radius):
+    import numpy as np
+
+    from repro_torch.launch.serve import make_scoring_step
+
+    xs = np.random.RandomState(0).randn(3, 10, 200).astype(np.float32)
+    xs[:, 8:] *= 100.0
+    plan = _serve_plan(rule, radius)
+    ops.reset_launch_counts()
+    got = make_scoring_step(plan, card)(xs, key=2)
+    counts = ops.launch_counts()
+    want = make_scoring_step(plan, "cpu")(xs, key=2)
+    for name, w in want.items():
+        assert got[name].is_cuda
+        torch.testing.assert_close(got[name].cpu(), w, **SUM_TOL)
+    assert counts == (dict(NO_LAUNCHES, gram_matrix=3, select_row=3)
+                      if rule == "krum"
+                      else dict(NO_LAUNCHES, coordinate_median=3))
