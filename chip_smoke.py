@@ -185,11 +185,44 @@ Phases (any failure raises, prints no result and exits non-zero):
    and no other, ms a request from a second, warmed call.  The
    in-process runs' launches equal their predictions; wall seconds of
    each run and of the phase.
-8. A ``{"kernels": [...]}`` line, then the card line, then the result.
+8. The mesh aggregation (``ServerPlan.build(mesh)``, on
+   ``torch.distributed``), with the plan's backend "auto": mesh-naive-fig2
+   (NCCL, one rank, a (1, 1) mesh; Fig. 2's MNIST tree, w1 (784, 128), b1,
+   w2 (128, 10), b2, d = 101,770, 20 worker rows; the registry (cm, tm,
+   mean, cclip, rfa, krum, multi_krum, bucket_cm, bucket_krum,
+   bucket_rfa) at radius 3.0 and unclipped, superleaf_elems 0 and
+   24,576: every output within rtol 1e-5 (atol 1e-6) of the CPU plain
+   path, the same Krum winners; then the one-rank sharded placement on
+   one row, through NCCL's all_to_all and all_reduce, equal to its naive
+   placement within atol 3e-5 and pipelined bitwise equal to
+   sequential); mesh-naive-wide (NCCL, one rank; 20 rows of w (4096,
+   4096) and b (37,), 2^24+37 f32 coordinates; cm, rfa, krum, bucket_cm
+   at radius 3.0, five timed steps each, the clip factors from each row's
+   whole-tree norm: within rtol 1e-5 of the plain versions on the card,
+   the same Krum winner); mesh-sharded-4rank (gloo, four processes on
+   cuda:0, spawned once: the MNIST tree on (4, 1) and on (2, 2) with w1's
+   second dimension split over "model" through ``base_specs``, the
+   registry as above; the wide tree with one worker per rank on (4, 1),
+   cm, rfa, krum, bucket_cm); mesh-sharded-8rank (gloo, eight processes
+   on cuda:0: the MNIST tree on (4, 2) with w1 split over "model", four
+   workers all sampled at byz_bound 0, so that Krum's choice rests on
+   the Gram summed over "model"); on each rank: pipelined bitwise equal
+   to sequential, sharded within atol 3e-5 of naive, every output within
+   rtol 1e-5 of the one-process CPU plain path on the gathered tree.
+   Each run prints its wall ms a step, its launches (per rank for the
+   spawned runs) and its collectives with the bytes they returned and
+   their route: NCCL's must stay on the card ("device"); on gloo every
+   collective takes gloo's host route ("host": gloo stages each CUDA
+   tensor through pinned host memory and runs the collective on the
+   CPU), which the phase checks and prints op by op.  Each transport's
+   collectives are also timed alone at 2^22 f32 a rank (gloo on the
+   card's tensors and on CPU ones).
+9. A ``{"kernels": [...]}`` line, then the card line, then the result.
    A kernel's ``launches`` are those of the run of the path it serves
    (``path``; "entry-points" for clipped_diff's and the bucketed median's,
    which no engine calls); ``launches_by_path`` has its counts in every
-   in-process run.
+   in-process run and the mesh runs (the spawned ones summed over their
+   ranks).
 """
 import dataclasses
 import functools
@@ -2693,6 +2726,536 @@ def recovery_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh aggregation
+# ---------------------------------------------------------------------------
+
+MESH_RULES = ("cm", "tm", "mean", "cclip", "rfa", "krum", "multi_krum",
+              "bucket_cm", "bucket_krum", "bucket_rfa")
+MESH_ITERATIVE = ("cclip", "rfa", "bucket_rfa")
+MESH_WIDE_RULES = ("cm", "rfa", "krum", "bucket_cm")
+# Fig. 2's MNIST MLP, d = 101,770 (phase 4's fig2-rfa-wide)
+MNIST_LEAVES = (("w1", (784, 128)), ("b1", (128,)), ("w2", (128, 10)),
+                ("b2", (10,)))
+WIDE_LEAVES = (("w", (4096, 4096)), ("b", (37,)))  # 2^24 + 37 coordinates
+MESH_N = 20
+MESH_CHUNK = 24576
+MESH_RADIUS = 3.0
+MESH_BYZ = 2
+MESH_ATOL = 3e-5
+MESH_TIMEOUT = 300  # seconds for a spawned job
+MESH_WIDE_STEPS = 5  # timed steps per rule of mesh-naive-wide
+COLL_FLOATS = 1 << 22  # f32 values a rank in the collectives' timing
+MESH_SCHEDULES = (("naive", "sequential"), ("sharded", "sequential"),
+                  ("sharded", "pipelined"))
+# the spawned jobs' trees: (leaves, workers, seed, mesh, w1 split, rules,
+# radii, superleaf sizes, byz_bound, mask (None: from the seed))
+MESH_RUNS = {
+    "mnist-4x1": (MNIST_LEAVES, 4, 81, (4, 1), False, MESH_RULES,
+                  (MESH_RADIUS, None), (0, MESH_CHUNK), MESH_BYZ,
+                  (True, True, False, True)),
+    "mnist-2x2": (MNIST_LEAVES, 2, 82, (2, 2), True, MESH_RULES,
+                  (MESH_RADIUS, None), (0, MESH_CHUNK), MESH_BYZ, None),
+    "wide-4x1": (WIDE_LEAVES, 4, 83, (4, 1), False, MESH_WIDE_RULES,
+                 (MESH_RADIUS,), (0,), MESH_BYZ, (True, True, False, True)),
+    # four workers on the split layout, every one sampled and byz_bound 0:
+    # Krum sums each row's 2 nearest distances, a choice that a wrong
+    # Gram all-reduce over "model" would change
+    "mnist-4x2": (MNIST_LEAVES, 4, 84, (4, 2), True, MESH_RULES,
+                  (MESH_RADIUS, None), (0, MESH_CHUNK), 0,
+                  (True, True, True, True)),
+}
+# the spawned jobs: name -> (ranks, runs)
+MESH_JOBS = {
+    "mesh-sharded-4rank": (4, ("mnist-4x1", "mnist-2x2", "wide-4x1")),
+    "mesh-sharded-8rank": (8, ("mnist-4x2",)),
+}
+
+
+def _mesh_plan(agg, placement="naive", blocks="sequential", sle=0,
+               backend="auto", byz=MESH_BYZ):
+    import warnings
+
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ScheduleSpec,
+                                 ServerPlan)
+
+    rule, s = (agg[7:], 2) if agg.startswith("bucket_") else (agg, 0)
+    with warnings.catch_warnings():  # superleaf chunks with rfa/cclip
+        warnings.simplefilter("ignore")
+        return ServerPlan(
+            aggregate=AggregatorSpec(rule, byz_bound=byz),
+            bucket=BucketSpec(s=s) if s else None,
+            schedule=ScheduleSpec(placement=placement, blocks=blocks,
+                                  superleaf_elems=sle, backend=backend))
+
+
+def _mesh_tree(leaves, n, seed):
+    """A worker-stacked tree of ``n`` rows on the card, from ``seed``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randn(n, *shape, device="cuda", generator=g)
+            for k, shape in leaves}
+
+
+def _mesh_inputs(n, seed):
+    """(mask with row 0 in, Bucketing's permutation), on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.rand(n, generator=g) > 0.2
+    mask[0] = True
+    return mask.cuda(), torch.randperm(n, generator=g).cuda()
+
+
+def _mesh_configs(rules, radii, chunks, split=False):
+    for agg in rules:
+        for radius in radii:
+            for sle in chunks:
+                if split and sle and agg in MESH_ITERATIVE:
+                    continue  # chunks other than the whole tree's
+                yield agg, radius, sle
+
+
+def _mesh_factors(tree, radius):
+    """The clip factors of each row's whole message (None: no clip), the
+    norms taken in float64: an f32 sum of 2^24 squares may round 1e-4
+    apart from the kernel's partial sums."""
+    import torch
+
+    from repro_torch.core.tree_utils import tree_batch_ravel
+    from repro_torch.kernels.clip_aggregate import clip_factor
+
+    if radius is None:
+        return None
+    flat = tree_batch_ravel(tree)[0].double()
+    return clip_factor(torch.linalg.vector_norm(flat, dim=1).float(), radius)
+
+
+def _mesh_reference(tree, mask, perm, agg, radius, sle, byz=MESH_BYZ):
+    """The one-process plain path of the naive placement on ``tree``'s
+    device: (output leaves, clip factors)."""
+    from repro_torch.api.mesh_exec import naive_aggregate
+    from repro_torch.core.tree_utils import tree_leaves
+
+    f = _mesh_factors(tree, radius)
+    out = naive_aggregate(tree, mask, perm, agg=_mesh_plan(
+        agg, backend="torch", byz=byz).build_aggregator(), chunk_elems=sle,
+        factors=f)
+    return tree_leaves(out), f
+
+
+def _mesh_close(what, got, want, rtol=SUM_RTOL, atol=SUM_ATOL):
+    """Every leaf within atol + rtol |want|; returns the largest error."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        if not bool((err <= atol + rtol * w.abs()).all()):
+            raise AssertionError(f"{what}: max abs err {float(err.max()):.3e}"
+                                 f" beyond rtol {rtol:g} atol {atol:g}")
+    return worst
+
+
+def _krum_winner(tree, factors, out_leaves):
+    """The row of the (clipped) message that the Krum output is."""
+    import torch
+
+    from repro_torch.core.tree_utils import tree_batch_ravel
+
+    rows = tree_batch_ravel(tree)[0].float()
+    if factors is not None:
+        rows = rows * factors[:, None]
+    out = torch.cat([x.reshape(-1).float() for x in out_leaves])
+    return int((rows - out.to(rows.device)[None]).abs().amax(dim=1).argmin())
+
+
+def _timed_step(step, *args, **kw):
+    import torch
+
+    from repro_torch.core.tree_utils import tree_leaves
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = step(*args, **kw)
+    torch.cuda.synchronize()
+    return tree_leaves(out), (time.perf_counter() - t) * 1e3
+
+
+def _print_mesh_run(name, wall_ms, counts, colls):
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"  {name:22s} wall {statistics.mean(wall_ms):.3f} ms/step "
+          f"(median {statistics.median(wall_ms):.3f}, {len(wall_ms)} steps)")
+    print(f"  {name:22s} launches {launched}")
+    print(f"  {name:22s} collectives {colls}")
+
+
+def _check_routes(what, colls, route):
+    """Every collective in ``colls`` (``collective_counts()``) took
+    ``route``; returns their names."""
+    off = {op: c["route"] for op, c in colls.items() if c["route"] != route}
+    if off:
+        raise AssertionError(f"{what}: collectives off the {route!r} route: "
+                             f"{off}")
+    return sorted(colls)
+
+
+def _collective_ms(group, dev):
+    """Median host ms of each collective the mesh runs, on ``group`` at
+    COLL_FLOATS f32 values a rank on ``dev``: one warm-up, then five
+    synchronised calls."""
+    import torch
+    import torch.distributed as dist
+
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    W = dist.get_world_size(group)
+    y = torch.randn(COLL_FLOATS, device=dev)
+    calls = {
+        "all_to_all": lambda: dist.all_to_all_single(
+            torch.empty_like(y), y, group=group),
+        "all_reduce": lambda: dist.all_reduce(y.clone(), group=group),
+        "all_gather": lambda: gather(
+            torch.empty(W * COLL_FLOATS, device=dev), y, group=group),
+    }
+    out = {}
+    for op, call in calls.items():
+        call()
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[op] = round(statistics.median(ms), 3)
+    return out
+
+
+def mesh_fig2(mesh):
+    """mesh-naive-fig2: the MNIST tree's 20 rows on the one-rank (1, 1)
+    NCCL mesh, the whole registry clipped and unclipped, superleaf 0 and
+    24,576, against the CPU plain path; then the one-rank sharded
+    placement (one row) against the naive one, pipelined bitwise equal
+    to sequential.  Returns the naive run's launch counts."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_map
+    from repro_torch.kernels import ops
+
+    name = "mesh-naive-fig2"
+    tree = _mesh_tree(MNIST_LEAVES, MESH_N, 80)
+    mask, perm = _mesh_inputs(MESH_N, 80)
+    configs = list(_mesh_configs(MESH_RULES, (MESH_RADIUS, None),
+                                 (0, MESH_CHUNK)))
+    steps = {c: _mesh_plan(c[0], sle=c[2]).build(mesh) for c in configs}
+    outs, wall = {}, []
+    for c in configs:  # warm-up: the first calls load the libraries
+        steps[c](tree, mask=mask, key=perm, radius=c[1])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    for c in configs:
+        outs[c], ms = _timed_step(steps[c], tree, mask=mask, key=perm,
+                                  radius=c[1])
+        wall.append(ms)
+    counts, colls = ops.launch_counts(), collective_counts()
+    _print_mesh_run(name, wall, counts, colls)
+    _check_routes(name, colls, "device")
+    cpu = tree_map(lambda x: x.cpu(), tree)
+    worst = 0.0
+    for agg, radius, sle in configs:
+        want, f = _mesh_reference(cpu, mask.cpu(), perm.cpu(), agg, radius,
+                                  sle)
+        what = f"{name} {agg} radius={radius} superleaf={sle}"
+        worst = max(worst, _mesh_close(what, outs[(agg, radius, sle)], want))
+        if agg == "krum":
+            got_w = _krum_winner(cpu, f, outs[(agg, radius, sle)])
+            want_w = _krum_winner(cpu, f, want)
+            if got_w != want_w:
+                raise AssertionError(f"{what}: Krum winner {got_w} on the "
+                                     f"card, {want_w} on the CPU")
+    print(f"  {name:22s} {len(configs)} steps vs the CPU plain path: max abs "
+          f"err {worst:.3e} [rtol {SUM_RTOL:g} atol {SUM_ATOL:g}], the same "
+          "Krum winners")
+    # the one-rank sharded placement: W = 1 row, through NCCL
+    one = tree_map(lambda x: x[:1].contiguous(), tree)
+    m1 = mask[:1]
+    worst, wall = 0.0, []
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    for agg, radius, sle in configs:
+        got = {}
+        for placement, blocks in MESH_SCHEDULES:
+            got[(placement, blocks)], ms = _timed_step(
+                _mesh_plan(agg, placement, blocks, sle).build(mesh), one,
+                mask=m1, radius=radius)
+            wall.append(ms)
+        what = f"{name} sharded-1rank {agg} radius={radius} superleaf={sle}"
+        seq, pipe = got[("sharded", "sequential")], got[("sharded",
+                                                         "pipelined")]
+        if not all(torch.equal(a, b) for a, b in zip(seq, pipe)):
+            raise AssertionError(f"{what}: pipelined != sequential")
+        worst = max(worst, _mesh_close(what, seq, got[("naive", "sequential")],
+                                       rtol=0.0, atol=MESH_ATOL))
+    _print_mesh_run("sharded-1rank", wall, ops.launch_counts(),
+                    collective_counts())
+    if not {"all_to_all", "all_reduce", "all_gather"} <= set(
+            _check_routes("sharded-1rank", collective_counts(), "device")):
+        raise AssertionError("the one-rank sharded placement ran without "
+                             "its collectives")
+    print(f"  sharded-1rank          {3 * len(configs)} steps: pipelined "
+          f"bitwise equal to sequential, sharded vs naive max abs err "
+          f"{worst:.3e} [atol {MESH_ATOL:g}]")
+    return counts
+
+
+def mesh_wide(mesh):
+    """mesh-naive-wide: 20 rows of 2^24+37 f32 coordinates on the one-rank
+    mesh, cm, rfa, krum and bucket_cm at radius 3.0, against the plain
+    versions on the card.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.kernels import ops
+
+    name = "mesh-naive-wide"
+    tree = _mesh_tree(WIDE_LEAVES, MESH_N, 90)
+    mask, perm = _mesh_inputs(MESH_N, 90)
+    steps = {agg: _mesh_plan(agg).build(mesh) for agg in MESH_WIDE_RULES}
+    outs, wall = {}, []
+    for agg in MESH_WIDE_RULES:  # warm-up: the first calls load libraries
+        steps[agg](tree, mask=mask, key=perm, radius=MESH_RADIUS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    by_rule = {}
+    for agg in MESH_WIDE_RULES:
+        for _ in range(MESH_WIDE_STEPS):
+            outs[agg], ms = _timed_step(steps[agg], tree, mask=mask,
+                                        key=perm, radius=MESH_RADIUS)
+            by_rule.setdefault(agg, []).append(ms)
+            wall.append(ms)
+    counts, colls = ops.launch_counts(), collective_counts()
+    _print_mesh_run(name, wall, counts, colls)
+    _check_routes(name, colls, "device")
+    for agg, ms in by_rule.items():
+        print(f"  {name:22s} {agg}: median {statistics.median(ms):.3f} "
+              f"ms/step, min {min(ms):.3f}, max {max(ms):.3f} ({len(ms)} "
+              f"steps: " + ", ".join(f"{v:.3f}" for v in ms) + ")")
+    worst = 0.0
+    for agg in MESH_WIDE_RULES:
+        plain, plain_ms = _timed_step(_mesh_plan(agg, backend="torch")
+                                      .build(mesh), tree, mask=mask,
+                                      key=perm, radius=MESH_RADIUS)
+        what = f"{name} {agg}"
+        worst = max(worst, _mesh_close(what, outs[agg], plain))
+        print(f"  {name:22s} {agg}: plain versions on the card "
+              f"{plain_ms:.3f} ms")
+        if agg == "krum":
+            f = _mesh_factors(tree, MESH_RADIUS)
+            if _krum_winner(tree, f, outs[agg]) != _krum_winner(tree, f,
+                                                                plain):
+                raise AssertionError(f"{what}: the Krum winners differ")
+        del plain
+    print(f"  {name:22s} vs the plain versions on the card: max abs err "
+          f"{worst:.3e} [rtol {SUM_RTOL:g} atol {SUM_ATOL:g}], the same "
+          "Krum winner")
+    del tree, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _mesh_local(tree, rank_d, rank_m, n_model, split):
+    """A rank's piece: its worker's row, and its 1/n_model of w1's
+    columns when w1 is split over "model"."""
+    out = {}
+    for k, x in tree.items():
+        x = x[rank_d:rank_d + 1]
+        if split and k == "w1":
+            cols = x.shape[2] // n_model
+            x = x[:, :, rank_m * cols:(rank_m + 1) * cols]
+        out[k] = x.contiguous()
+    return out
+
+
+def _mesh_job(rank, ref_path, runs):
+    """One rank of a spawned mesh job (gloo, every rank on cuda:0): each
+    tree of ``runs`` under the naive and both sharded schedules, checked
+    here against the CPU references the parent wrote to ``ref_path``;
+    then each collective timed on the first mesh's "data" group, on the
+    card's tensors and on CPU ones.  Returns this rank's launches,
+    collectives and times."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import P, make_debug_mesh
+
+    refs = torch.load(ref_path, weights_only=False)
+    report = {"ms": {}, "checks": 0, "worst_ref": 0.0, "worst_naive": 0.0}
+    meshes = {}
+    for run in runs:
+        shape = MESH_RUNS[run][3]
+        if shape not in meshes:
+            meshes[shape] = make_debug_mesh(*shape)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    for run in runs:
+        leaves, n, seed, shape, split, rules, radii, chunks, byz, _ = \
+            MESH_RUNS[run]
+        mesh = meshes[shape]
+        rd, rm = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+        full = _mesh_tree(leaves, n, seed)
+        local = _mesh_local(full, rd, rm, shape[1], split)
+        del full
+        mask, perm = refs[run]["mask"].cuda(), refs[run]["perm"].cuda()
+        specs = ({"w1": P(None, "model"), "b1": P(), "w2": P(), "b2": P()}
+                 if split else None)
+        for agg, radius, sle in _mesh_configs(rules, radii, chunks, split):
+            got = {}
+            for placement, blocks in MESH_SCHEDULES:
+                step = _mesh_plan(agg, placement, blocks, sle,
+                                  byz=byz).build(mesh)
+                got[(placement, blocks)], ms = _timed_step(
+                    step, local, mask=mask, key=perm, radius=radius,
+                    base_specs=specs)
+                report["ms"].setdefault((run, placement, blocks),
+                                        []).append(ms)
+            what = f"rank {rank} {run} {agg} radius={radius} superleaf={sle}"
+            seq = got[("sharded", "sequential")]
+            if not all(torch.equal(a, b) for a, b in
+                       zip(seq, got[("sharded", "pipelined")])):
+                raise AssertionError(f"{what}: pipelined != sequential")
+            report["worst_naive"] = max(report["worst_naive"], _mesh_close(
+                f"{what} sharded vs naive", seq, got[("naive", "sequential")],
+                rtol=0.0, atol=MESH_ATOL))
+            want = [w.cuda() for w in refs[run]["out"][(agg, radius, sle)]]
+            if split:  # this rank's w1 columns (flatten order b1 b2 w1 w2)
+                cols = want[2].shape[1] // shape[1]
+                want[2] = want[2][:, rm * cols:(rm + 1) * cols]
+            for out in got.values():
+                report["worst_ref"] = max(report["worst_ref"], _mesh_close(
+                    f"{what} vs the CPU plain path", out, want))
+            report["checks"] += 1
+            del got, want
+        del local
+        torch.cuda.empty_cache()
+    report["launches"] = ops.launch_counts()
+    report["collectives"] = collective_counts()
+    group = next(iter(meshes.values())).get_group("data")
+    report["coll_ms"] = {dev: _collective_ms(group, dev)
+                         for dev in ("cuda", "cpu")}
+    return report
+
+
+def mesh_sharded(work, name):
+    """A spawned mesh job of MESH_JOBS: its ranks as gloo processes on
+    cuda:0, spawned once; returns the launch counts summed over the
+    ranks."""
+    import torch
+
+    from repro_torch.core.tree_utils import tree_map
+    from repro_torch.launch.mesh import spawn
+
+    nprocs, runs = MESH_JOBS[name]
+    refs = {}
+    t0 = time.perf_counter()
+    for run in runs:
+        leaves, n, seed, shape, split, rules, radii, chunks, byz, mask = \
+            MESH_RUNS[run]
+        cpu = tree_map(lambda x: x.cpu(), _mesh_tree(leaves, n, seed))
+        seeded, perm = _mesh_inputs(n, seed)
+        mask = seeded.cpu() if mask is None else torch.tensor(mask)
+        refs[run] = {"mask": mask, "perm": perm.cpu(), "out": {
+            c: _mesh_reference(cpu, mask, perm.cpu(), *c, byz=byz)[0]
+            for c in _mesh_configs(rules, radii, chunks, split)}}
+        del cpu
+    ref_path = work / f"{name}_refs.pt"
+    torch.save(refs, ref_path)
+    del refs
+    print(f"  {name:22s} CPU references written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    reports = spawn(_mesh_job, nprocs, (str(ref_path), runs),
+                    timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    host_ops = set()
+    for rank, rep in enumerate(reports):
+        host_ops.update(_check_routes(f"{name} rank {rank}",
+                                      rep["collectives"], "host"))
+    print(f"  {name:22s} transport gloo, {nprocs} processes on cuda:0: "
+          f"{', '.join(sorted(host_ops))} took gloo's host route on every "
+          "rank (gloo copies each CUDA tensor into pinned host memory, runs "
+          "the collective over TCP on the CPU and copies the result back); "
+          f"spawn to join {wall:.3f} s")
+    total = {}
+    for rank, rep in enumerate(reports):
+        launched = {k: v for k, v in rep["launches"].items() if v}
+        print(f"  {name:22s} rank {rank}: {rep['checks']} configurations, "
+              f"vs CPU max abs err {rep['worst_ref']:.3e}, sharded vs naive "
+              f"{rep['worst_naive']:.3e}; launches {launched}; collectives "
+              f"{rep['collectives']}")
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for key, ms in sorted(reports[0]["ms"].items()):
+        print(f"  {name:22s} rank 0 {key[0]} {key[1]}/{key[2]}: "
+              f"{statistics.mean(ms):.3f} ms/step (median "
+              f"{statistics.median(ms):.3f}, {len(ms)} steps)")
+    coll = reports[0]["coll_ms"]
+    print(f"  {name:22s} rank 0, {COLL_FLOATS} f32 a rank on the data "
+          f"group, median ms: card tensors {coll['cuda']}, CPU tensors "
+          f"{coll['cpu']}")
+    print(f"  {name:22s} checks: pipelined bitwise equal to sequential, "
+          f"sharded vs naive [atol {MESH_ATOL:g}], every output vs the "
+          f"CPU plain path [rtol {SUM_RTOL:g} atol {SUM_ATOL:g}]")
+    return total
+
+
+def mesh_path():
+    """Phase 8: the mesh aggregation; returns each run's launch counts."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    print("mesh aggregation")
+    t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_phase8"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counts = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous"), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        print(f"  transport {dist.get_backend()}, one rank: {mesh}; "
+              f"{COLL_FLOATS} f32 on the card, median ms "
+              f"{_collective_ms(mesh.get_group('data'), 'cuda')}")
+        counts["mesh-naive-fig2"] = mesh_fig2(mesh)
+        counts["mesh-naive-wide"] = mesh_wide(mesh)
+    finally:
+        dist.destroy_process_group()
+    for name in MESH_JOBS:
+        counts[name] = mesh_sharded(work, name)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 8 wall {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -2775,7 +3338,10 @@ def main():
     # 7. faults, recovery, scoring
     counts.update(recovery_path())
 
-    # 8. the kernels line, the card, the result
+    # 8. the mesh aggregation
+    counts.update(mesh_path())
+
+    # 9. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

@@ -11,10 +11,10 @@ besides the reference's "jnp" and "pallas", which this package reads as
 round-trips byte for byte.
 
 ``plan.build()`` compiles the plan into the engine form of
-:class:`ServerStep`.  The sharded placement and mesh builds raise until
-the mesh trainer is ported (ROADMAP queue 1, "the mesh trainer on
-torch.distributed"); ``estimate`` is not ported (it waits for the
-benchmarks, ROADMAP).
+:class:`ServerStep`; ``plan.build(mesh)`` into its mesh form, which runs
+the naive or the sharded placement over a ``torch.distributed`` device
+mesh (``repro_torch.api.mesh_exec``).  ``estimate`` is not ported (it
+waits for the benchmarks, ROADMAP).
 """
 from __future__ import annotations
 
@@ -52,7 +52,6 @@ _COMPRESSOR_KINDS = ("identity", "rand_k", "rand_fraction",
 _PLACEMENTS = ("naive", "sharded")
 _BLOCKS = ("sequential", "pipelined")
 _BACKENDS = ("torch", "cuda", "auto", "jnp", "pallas")
-_MESH_ITEM = "ROADMAP queue 1: the mesh trainer on torch.distributed"
 
 
 def _set(obj, **kw):
@@ -152,8 +151,10 @@ class AggregatorSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleSpec:
-    """How the built step places and orders the aggregation work (the
-    reference's fields; only placement="naive" builds in this package)."""
+    """How the built step places and orders the aggregation work: the
+    placement (naive or sharded) and block order (sequential or
+    pipelined) of a mesh build, the superleaf chunk size, the backend and
+    the mesh axes that enumerate the workers (empty: "pod" and "data")."""
 
     placement: str = "naive"
     blocks: str = "sequential"
@@ -226,6 +227,16 @@ class ServerPlan:
                 "set superleaf_elems=0 to keep tensor-boundary blocks",
                 PlanWarning, stacklevel=3)
 
+    # -- worker-count validation -------------------------------------------
+
+    def validate_workers(self, n_workers: int) -> None:
+        """Raise PlanError when the plan cannot run over ``n_workers``."""
+        if self.cohort is not None and self.cohort > n_workers:
+            raise PlanError(
+                f"cohort C={self.cohort} exceeds the {n_workers} available "
+                "workers: partial participation samples C of n workers, so "
+                "C must be <= n")
+
     # -- compilation --------------------------------------------------------
 
     def build_aggregator(self) -> Aggregator:
@@ -258,14 +269,22 @@ class ServerPlan:
         return make_compressor(c.kind, **kw)
 
     def build(self, mesh=None) -> "ServerStep":
-        """Compile the plan into the engine form of :class:`ServerStep`."""
-        if mesh is not None:
-            raise PlanError(f"mesh builds are not ported yet ({_MESH_ITEM})")
-        if self.schedule.placement == "sharded":
+        """Compile the plan into one :class:`ServerStep` callable.
+
+        ``mesh=None`` builds the whole-message engine form; a
+        ``torch.distributed`` device mesh builds the distributed form
+        under ``self.schedule``."""
+        if mesh is None and self.schedule.placement == "sharded":
             raise PlanError(
-                f"placement='sharded' is not ported yet ({_MESH_ITEM}); use "
+                "placement='sharded' needs a mesh: build(mesh) runs the "
+                "all_to_all schedule over the mesh's worker axes; use "
                 "placement='naive' for the single-process engine form")
-        return ServerStep(self)
+        if mesh is not None:
+            from .mesh_exec import mesh_worker_count
+
+            self.validate_workers(
+                mesh_worker_count(mesh, self.schedule.worker_axes))
+        return ServerStep(self, mesh=mesh)
 
     # -- serialization ------------------------------------------------------
 
@@ -321,21 +340,32 @@ class ServerPlan:
 
 
 class ServerStep:
-    """A compiled ServerPlan in engine form: one callable running the
-    whole composition on an (n, d) matrix or a dict of worker-stacked
-    tensors.
+    """A compiled ServerPlan: one callable running the whole composition.
 
-    ``step(msgs, mask=None, key=None, radius=None)`` clips at ``radius``
-    (None: the plan's static ``ClipSpec(radius=)``, or no clip when the
-    plan has none), then aggregates; ``key`` is Bucketing's row order
-    source.  ``step.aggregate(...)`` forces the unclipped form and
-    ``step.radius(x_new, x_old)`` evaluates the ClipSpec(alpha) radius.
+    ``step(msgs, mask=None, key=None, radius=None, base_specs=None)``
+    clips at ``radius`` (None: the plan's static ``ClipSpec(radius=)``,
+    or no clip when the plan has none), then aggregates; ``key`` is
+    Bucketing's row order source.  The engine form (``mesh=None``) takes
+    an (n, d) matrix or a tree of worker-stacked tensors; the mesh form
+    takes this rank's piece of the tree and ``base_specs`` (the ``P`` of
+    each unstacked leaf) and runs the configured collective schedule
+    (``repro_torch.api.mesh_exec``).
+
+    ``step.compress(key, x)`` applies the compression stage (the identity
+    when the plan has none), ``step.aggregate(...)`` forces the unclipped
+    form and ``step.radius(x_new, x_old)`` evaluates the ClipSpec(alpha)
+    radius.
     """
 
-    def __init__(self, plan: ServerPlan):
+    def __init__(self, plan: ServerPlan, mesh=None):
         self.plan = plan
+        self.mesh = mesh
         self.aggregator: Aggregator = plan.build_aggregator()
         self.compressor: Optional[Compressor] = plan.build_compressor()
+
+    @property
+    def clips(self) -> bool:
+        return self.plan.clip is not None
 
     def radius(self, x_new, x_old):
         """lambda = alpha * ||x_new - x_old|| for a ClipSpec(alpha) plan;
@@ -349,15 +379,36 @@ class ServerStep:
 
         return marina_radius(x_new, x_old, clip.alpha)
 
-    def aggregate(self, msgs, mask=None, key=None):
+    def compress(self, key, x):
+        """The worker-side compression stage (the identity when the plan
+        has none)."""
+        if self.compressor is None:
+            return x
+        return self.compressor(key, x)
+
+    def aggregate(self, msgs, mask=None, key=None, base_specs=None):
         """The unclipped aggregation of the full-gradient rounds (it
         bypasses even a static ``ClipSpec(radius=)``)."""
-        return self.aggregator(msgs, mask=mask, key=key)
+        return self(msgs, mask=mask, key=key, radius=None,
+                    base_specs=base_specs, _allow_static_clip=False)
 
-    def __call__(self, msgs, mask=None, key=None, radius=None):
+    def __call__(self, msgs, mask=None, key=None, radius=None,
+                 base_specs=None, _allow_static_clip=True):
         clip = self.plan.clip
-        if radius is None and clip is not None and clip.radius is not None:
+        if (radius is None and _allow_static_clip and clip is not None
+                and clip.radius is not None):
             radius = float(clip.radius)
+        if self.mesh is not None:
+            from .mesh_exec import run_mesh_aggregate
+
+            return run_mesh_aggregate(
+                msgs, mask, key, mesh=self.mesh, agg=self.aggregator,
+                spec=self.plan.schedule, base_specs=base_specs,
+                radius=radius)
+        if base_specs is not None:
+            raise PlanError(
+                "base_specs is a mesh-build argument; this ServerStep was "
+                "built with mesh=None")
         if radius is None:
             return self.aggregator(msgs, mask=mask, key=key)
         return self.aggregator.clip_then_aggregate(msgs, radius, mask=mask,

@@ -5,10 +5,11 @@ other's files.
 Layout: ``<dir>/step_<k>.npz`` holds the flattened leaves, keyed by their
 path strings, and ``<dir>/step_<k>.json`` is the manifest, which marks
 bf16 leaves (npz has no bfloat16; they are stored as their uint16 bits).
-A tree is nested dicts (keys in sorted order), lists and tuples; a leaf is
-a numpy array or scalar, a torch tensor or a Python number; None holds no
-leaf.  A path string is the reference's: ``['name']`` a dict key, ``[i]``
-a sequence index, joined by ``%%`` (``"['extra']%%['cursor']"``).
+A tree is nested dicts (keys in sorted order), NamedTuples, lists and
+tuples; a leaf is a numpy array or scalar, a torch tensor or a Python
+number; None holds no leaf.  A path string is the reference's:
+``['name']`` a dict key, ``.name`` a NamedTuple field, ``[i]`` a sequence
+index, joined by ``%%`` (``"['extra']%%['cursor']"``, ``".a%%['w']"``).
 
 Restore takes a template tree, whose structure, dtypes and shapes the
 result takes: numpy template leaves come back as numpy arrays of their
@@ -31,7 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["save", "restore", "latest_step", "verify_step"]
+__all__ = ["save", "restore", "latest_step", "verify_step", "has_leaf"]
 
 _SEP = "%%"
 
@@ -42,19 +43,30 @@ def _piece(key) -> str:
     return f"[{key!r}]"
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _children(tree) -> list:
+    """(path piece, child) pairs of a node in JAX's flatten order: dict
+    keys sorted, NamedTuple fields as ``.name`` (JAX's ``GetAttrKey``),
+    sequence items as ``[i]``."""
+    if isinstance(tree, dict):
+        return [(_piece(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    return [(_piece(i), v) for i, v in enumerate(tree)]
+
+
 def _flatten_with_paths(tree, prefix=()) -> dict:
     """Path string -> leaf, dict keys in sorted order (JAX's order)."""
     if tree is None:
         return {}
-    if isinstance(tree, dict):
-        items = [(k, tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
+    if not isinstance(tree, (dict, list, tuple)):
         return {_SEP.join(prefix): tree}
     out = {}
-    for key, child in items:
-        out.update(_flatten_with_paths(child, prefix + (_piece(key),)))
+    for piece, child in _children(tree):
+        out.update(_flatten_with_paths(child, prefix + (piece,)))
     return out
 
 
@@ -66,8 +78,11 @@ def _rebuild(template, leaves: dict, prefix=()):
         return {k: _rebuild(v, leaves, prefix + (_piece(k),))
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_rebuild(v, leaves, prefix + (_piece(i),))
-                              for i, v in enumerate(template))
+        values = [_rebuild(v, leaves, prefix + (piece,))
+                  for piece, v in _children(template)]
+        if _is_namedtuple(template):
+            return type(template)(*values)
+        return type(template)(values)
     return leaves[_SEP.join(prefix)]
 
 
@@ -161,6 +176,14 @@ def restore(ckpt_dir: str, step: int, template: Any) -> Any:
         leaves = {k: _restore_leaf(data[k], meta.get(k) == "bfloat16", tmpl)
                   for k, tmpl in _flatten_with_paths(template).items()}
     return _rebuild(template, leaves)
+
+
+def has_leaf(ckpt_dir: str, step: int, path: str) -> bool:
+    """Whether step ``step`` of ``ckpt_dir`` holds a leaf at the path
+    string ``path`` (a reader can then leave a newer key out of its
+    template for an older file)."""
+    with np.load(os.path.join(ckpt_dir, f"step_{step}.npz")) as data:
+        return path in data.files
 
 
 def latest_step(ckpt_dir: str, *, verify: bool = True) -> Optional[int]:

@@ -23,6 +23,12 @@ in several coordinate blocks or as they stream in:
     sel   = agg.finalize(stats, mask=..., key=..., radius=...)
     outs  = agg.apply_selection(blocks, sel)
 
+Every rule takes a ``reduce_fn``, as the reference's do: on a mesh each
+rank holds a block of every row's coordinates, and ``reduce_fn``
+all-reduces a rule's row statistics (squared distances, the Gram) across
+the ranks that hold the rest.  The coordinate-wise rules accept it and
+leave it unused; Bucketing passes it to its inner rule.
+
 ``update_stats`` folds a chunk of newly arrived rows into running stats
 (``repro_torch.serve``); ``supports_two_phase`` says whether a rule has
 the contract.  A clipped ``clip_then_aggregate`` takes the clip factors
@@ -66,7 +72,7 @@ def _full_mask(xs, mask):
 # plain rules ("torch" backend)
 # ---------------------------------------------------------------------------
 
-def _mean(xs, mask=None, key=None):
+def _mean(xs, mask=None, key=None, reduce_fn=None):
     m = _full_mask(xs, mask).to(xs.dtype)
     return (xs * m[:, None]).sum(dim=0) / m.sum().clamp(min=1.0)
 
@@ -79,7 +85,7 @@ def _masked_sorted(xs, mask):
     return torch.sort(vals, dim=0).values, m.sum()
 
 
-def _coordinate_median(xs, mask=None, key=None):
+def _coordinate_median(xs, mask=None, key=None, reduce_fn=None):
     """Coordinate-wise median over the sampled rows (numpy semantics)."""
     s, cnt = _masked_sorted(xs, mask)
     lo = torch.div(cnt - 1, 2, rounding_mode="floor").clamp(min=0).view(1)
@@ -88,7 +94,8 @@ def _coordinate_median(xs, mask=None, key=None):
     return (0.5 * v).to(xs.dtype)
 
 
-def _trimmed_mean(xs, mask=None, key=None, *, trim_ratio: float = 0.1):
+def _trimmed_mean(xs, mask=None, key=None, reduce_fn=None, *,
+                  trim_ratio: float = 0.1):
     """Drop ceil(trim_ratio*cnt) smallest and largest values per
     coordinate, average the rest."""
     s, cnt = _masked_sorted(xs, mask)
@@ -101,23 +108,29 @@ def _trimmed_mean(xs, mask=None, key=None, *, trim_ratio: float = 0.1):
     return (torch.where(keep, s, 0.0).sum(dim=0) / denom).to(xs.dtype)
 
 
-def _geometric_median(xs, mask=None, key=None, *, iters: int = 8,
-                      eps: float = 1e-8):
+def _reduce(ssq, reduce_fn):
+    return ssq if reduce_fn is None else reduce_fn(ssq)
+
+
+def _geometric_median(xs, mask=None, key=None, reduce_fn=None, *,
+                      iters: int = 8, eps: float = 1e-8):
     """Geometric median via smoothed Weiszfeld fixed-point iterations
     (Pillutla et al., 2022 — "RFA"): eps inside the sqrt, an eps-guarded
-    weight sum.  F_A = 1 (it stays in the convex hull)."""
+    weight sum.  F_A = 1 (it stays in the convex hull).  ``reduce_fn``
+    reduces the per-row squared distances across coordinate shards."""
     m = _full_mask(xs, mask).float()
     x32 = xs.float()
     z = (x32 * m[:, None]).sum(dim=0) / m.sum().clamp(min=1.0)
     for _ in range(iters):
-        dist = torch.sqrt(((x32 - z[None]) ** 2).sum(dim=1) + eps)
+        ssq = _reduce(((x32 - z[None]) ** 2).sum(dim=1), reduce_fn)
+        dist = torch.sqrt(ssq + eps)
         w = m / dist
         z = (x32 * w[:, None]).sum(dim=0) / w.sum().clamp(min=eps)
     return z.to(xs.dtype)
 
 
-def _centered_clip(xs, mask=None, key=None, *, tau: float = 10.0,
-                   iters: int = 5):
+def _centered_clip(xs, mask=None, key=None, reduce_fn=None, *,
+                   tau: float = 10.0, iters: int = 5):
     """CenteredClip (Karimireddy et al., 2021): from the masked mean v0,
     ``iters`` steps of v <- v + sum_i m_i min(1, tau/||x_i - v||)(x_i - v)
     / max(sum m, 1), the norm taken as sqrt(||x_i - v||^2 + 1e-30)."""
@@ -127,24 +140,28 @@ def _centered_clip(xs, mask=None, key=None, *, tau: float = 10.0,
     v = (x32 * m[:, None]).sum(dim=0) / denom
     for _ in range(iters):
         diff = x32 - v[None]
-        nrm = torch.sqrt((diff * diff).sum(dim=1) + 1e-30)
+        nrm = torch.sqrt(_reduce((diff * diff).sum(dim=1), reduce_fn)
+                         + 1e-30)
         scale = torch.clamp(nrm.new_tensor(tau) / nrm, max=1.0)  # f32 divide
         v = v + (diff * (scale * m)[:, None]).sum(dim=0) / denom
     return v.to(xs.dtype)
 
 
-def _krum(xs, mask=None, key=None, *, byz_bound: Optional[int] = None,
-          m_select: int = 0, multi: bool = False, bucket_s: int = 0):
+def _krum(xs, mask=None, key=None, reduce_fn=None, *,
+          byz_bound: Optional[int] = None, m_select: int = 0,
+          multi: bool = False, bucket_s: int = 0):
     """Krum (Blanchard et al., 2017), or multi-Krum (Damaskinos et al.,
     2019) with ``multi``: the row, or the mean of the m rows, with the
     best summed squared distance to the cnt-B-2 nearest sampled
     neighbours; over Bucketing's bucket means when ``bucket_s >= 2``
-    (the M G M^T algebra, ``key`` the row order).  F_A = 1."""
+    (the M G M^T algebra, ``key`` the row order).  ``reduce_fn`` sums the
+    Gram across coordinate shards.  F_A = 1."""
     idx = (_bucket_order(key, mask, xs.shape[0], xs.device)
            if bucket_s >= 2 else None)
     out, _ = _kkrum.clip_then_krum_plain(
         xs, 0.0, mask, idx, byz_bound=byz_bound, m_select=m_select,
-        multi=multi, bucket_s=max(bucket_s, 1), use_clip=False)
+        multi=multi, bucket_s=max(bucket_s, 1), use_clip=False,
+        reduce_fn=reduce_fn)
     return out
 
 
@@ -166,9 +183,12 @@ def _bucket_order(key, mask, n: int, device) -> torch.Tensor:
     return perm[order]
 
 
-def _bucketing(xs, mask=None, key=None, *, s: int = 2, inner=None):
+def _bucketing(xs, mask=None, key=None, reduce_fn=None, *, s: int = 2,
+               inner=None):
     """Permute rows, average buckets of ``s`` over their sampled members,
-    apply ``inner`` with empty buckets masked out."""
+    apply ``inner`` with empty buckets masked out.  The bucket means are
+    linear, so exact on a coordinate shard: only ``inner`` takes
+    ``reduce_fn``."""
     n = xs.shape[0]
     m = _full_mask(xs, mask)
     idx = _bucket_order(key, mask, n, xs.device)
@@ -178,7 +198,7 @@ def _bucketing(xs, mask=None, key=None, *, s: int = 2, inner=None):
     mb = F.pad(m[idx].to(xs.dtype), (0, pad)).view(n_buckets, s)
     cntb = mb.sum(dim=1)
     means = (xb * mb[:, :, None]).sum(dim=1) / cntb.clamp(min=1.0)[:, None]
-    return inner(means, mask=cntb > 0)
+    return inner(means, mask=cntb > 0, reduce_fn=reduce_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -246,25 +266,40 @@ class Aggregator:
                 "repro_torch.scenarios.differentiable_aggregate")
         return True
 
-    def __call__(self, xs, mask=None, key=None):
+    def __call__(self, xs, mask=None, key=None, reduce_fn=None):
+        """``reduce_fn`` reduces the rule's row statistics across
+        coordinate shards (module docstring)."""
         if isinstance(xs, dict):
             mat, unravel_row = tree_batch_ravel(xs)
-            return unravel_row(self(mat, mask=mask, key=key))
+            return unravel_row(self(mat, mask=mask, key=key,
+                                    reduce_fn=reduce_fn))
         fn = self.kernel_fn if self._runs_kernels(xs) else self.fn
-        return fn(xs, mask=mask, key=key)
+        return fn(xs, mask=mask, key=key, reduce_fn=reduce_fn)
 
-    def clip_then_aggregate(self, xs, radius, mask=None, key=None):
+    def clip_then_aggregate(self, xs, radius, mask=None, key=None,
+                            factors=None, reduce_fn=None):
         """Agg over per-row l2-clipped messages (the Algorithm-1 server
-        step of difference rounds); fused on the kernel backends."""
+        step of difference rounds); fused on the kernel backends.
+        ``factors`` (n,) scales the rows by the given clip factors instead
+        of clipping by their own norms: a mesh computes them from each
+        worker's whole message, which one block of it cannot see.
+        ``reduce_fn`` as in ``__call__``."""
         if isinstance(xs, dict):
             mat, unravel_row = tree_batch_ravel(xs)
             return unravel_row(self.clip_then_aggregate(
-                mat, radius, mask=mask, key=key))
+                mat, radius, mask=mask, key=key, factors=factors,
+                reduce_fn=reduce_fn))
         if self._runs_kernels(xs):
-            return self.fused_clip_fn(xs, radius, mask=mask, key=key)
+            return self.fused_clip_fn(xs, radius, mask=mask, key=key,
+                                      factors=factors, reduce_fn=reduce_fn)
         if self.clip_fn is not None:
-            return self.clip_fn(xs, radius, mask=mask, key=key)
-        return self.fn(clip_rows(xs, radius), mask=mask, key=key)
+            return self.clip_fn(xs, radius, mask=mask, key=key,
+                                factors=factors, reduce_fn=reduce_fn)
+        if factors is not None:
+            clipped = (xs * factors[:, None]).to(xs.dtype)
+        else:
+            clipped = clip_rows(xs, radius)
+        return self.fn(clipped, mask=mask, key=key, reduce_fn=reduce_fn)
 
     # -- two-phase selection (one decision over many blocks) --
 
@@ -276,12 +311,14 @@ class Aggregator:
         for block in blocks[:1]:  # backend "cuda" refuses a CPU tensor
             self.uses_kernels(block)
 
-    def accumulate_stats(self, xs):
+    def accumulate_stats(self, xs, reduce_fn=None):
         """Phase 1: the (n, n) Gram of one (n, d) block, or summed in list
         order over a list of coordinate chunks; additive over any
-        coordinate partition, so a caller sums it over its blocks."""
+        coordinate partition, so a caller sums it over its blocks.
+        ``reduce_fn`` makes a rank's block's Gram global (a mesh's
+        all-reduce)."""
         self._two_phase(xs)
-        return _kops.accumulate_stats_blocks(self.stats_fn, xs)
+        return _kops.accumulate_stats_blocks(self.stats_fn, xs, reduce_fn)
 
     def update_stats(self, stats, buffer, chunk_emb, chunk_mask):
         """Phase 1 for rows that stream in: fold a chunk into the running
@@ -399,24 +436,25 @@ def resolve_backend(backend: str) -> str:
 def _kernel_fns(kernel_fn, bucket_s: int, **kernel_kwargs):
     """Kernel-backed (aggregate, fused clip -> aggregate) pair from one of
     the ``clip_then_*`` kernel functions, optionally over Bucketing in the
-    shared ``_bucket_order``.  ``kernel_fn(xs, radius, mask, bucket_idx, *,
-    bucket_s, use_clip, **kw) -> (out, norms)``."""
+    shared ``_bucket_order``.  ``kernel_fn(xs, radius, mask, bucket_idx,
+    factors, *, bucket_s, use_clip, reduce_fn, **kw) -> (out, norms)``."""
 
     def _idx(key, mask, xs):
         if bucket_s < 2:
             return None
         return _bucket_order(key, mask, xs.shape[0], xs.device)
 
-    def aggregate(xs, mask=None, key=None):
+    def aggregate(xs, mask=None, key=None, reduce_fn=None):
         out, _ = kernel_fn(xs, 0.0, mask, _idx(key, mask, xs),
                            bucket_s=max(bucket_s, 1), use_clip=False,
-                           **kernel_kwargs)
+                           reduce_fn=reduce_fn, **kernel_kwargs)
         return out
 
-    def fused_clip(xs, radius, mask=None, key=None):
-        out, _ = kernel_fn(xs, radius, mask, _idx(key, mask, xs),
+    def fused_clip(xs, radius, mask=None, key=None, factors=None,
+                   reduce_fn=None):
+        out, _ = kernel_fn(xs, radius, mask, _idx(key, mask, xs), factors,
                            bucket_s=max(bucket_s, 1), use_clip=True,
-                           **kernel_kwargs)
+                           reduce_fn=reduce_fn, **kernel_kwargs)
         return out
 
     return aggregate, fused_clip
@@ -428,7 +466,8 @@ def _cm_kernel_fns(trim_ratio: float, bucket_s: int):
     bucketed, fused_clip = _kernel_fns(_kops.clip_then_aggregate, bucket_s,
                                        trim_ratio=trim_ratio)
 
-    def aggregate(xs, mask=None, key=None):
+    def aggregate(xs, mask=None, key=None, reduce_fn=None):
+        # reduce_fn unused: CM/TM are coordinate-wise (exact per shard)
         if bucket_s >= 2:
             return bucketed(xs, mask=mask, key=key)
         if trim_ratio >= 0:

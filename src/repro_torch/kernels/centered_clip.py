@@ -17,9 +17,13 @@ goes to one of two schedules:
             ``diff_row_ssq`` and its update kernel, with the O(n) weights
             computed on the device between launches (no host sync).
 
-**Dispatch rule.**  A rule's resident kernel keeps ``rows`` f32 rows of
-width d (rows = n for s = 1, n_p / s bucket means for s >= 2), the
-iterate z and its per-row scratch in dynamic shared memory,
+**Dispatch rule.**  With a ``reduce_fn`` (a mesh's all-reduce of the
+per-row statistics across coordinate shards) the tiled schedule runs
+whatever the shared memory allows: the resident kernel runs every step
+inside one launch and cannot host a collective between steps (the
+reference's rule).  Otherwise, a rule's resident kernel keeps ``rows``
+f32 rows of width d (rows = n for s = 1, n_p / s bucket means for
+s >= 2), the iterate z and its per-row scratch in dynamic shared memory,
 ``resident_smem_bytes(rows, d, rule)`` bytes; it runs iff that fits the
 card's opt-in shared memory per block
 (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes = 227 KB on an
@@ -237,9 +241,10 @@ def bucket_means_tiled(xs, mask, factors, bucket_idx, s: int):
     return means, (cnt > 0.5).float()
 
 
-def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
-                            use_clip: bool, resident_fn, tiled_fn,
-                            plain: bool = False, rule: str = "gm"):
+def run_clip_then_iterative(xs, radius, mask, bucket_idx, factors=None, *,
+                            bucket_s: int, use_clip: bool, resident_fn,
+                            tiled_fn, plain: bool = False, rule: str = "gm",
+                            reduce_fn=None):
     """The fused clip -> (Bucketing) -> iterative aggregation that the
     iterative rules share (module docstring); ``rule`` ("gm" or "cclip")
     names the resident kernel whose shared memory decides the schedule.
@@ -248,6 +253,11 @@ def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
     one-launch schedule over the (n_p,) padded auxiliaries;
     ``tiled_fn(x, mask, factors)`` -> (d,) f32, the streaming schedule over
     the rows (factors (n,)) or over the bucket means (factors None).
+    ``factors`` (n,) skips pass 1 and scales the rows by the given
+    factors (a mesh's factors from each worker's whole message).
+    ``reduce_fn`` reduces pass 1's sums of squares across coordinate
+    shards and forces the tiled schedule, whose ``tiled_fn`` then reduces
+    every step's distances with it too.
     ``plain=True`` takes pass 1 and the bucket means from their plain
     versions whatever the device, for a rule's plain twin.
     Returns ``(aggregated (d,) in xs.dtype, row_norms (n,) f32 or None)``.
@@ -261,16 +271,19 @@ def run_clip_then_iterative(xs, radius, mask, bucket_idx, *, bucket_s: int,
         bucket_idx = _row_vector(bucket_idx, n, dev, torch.int32,
                                  "bucket_idx")
     norms = None
-    if use_clip:
-        norms = row_norms_plain(xs) if plain else row_norms(xs)
+    if not use_clip:
+        factors = torch.ones(n, dtype=torch.float32, device=dev)
+    elif factors is None:
+        norms = (row_norms_plain if plain else row_norms)(xs, reduce_fn)
         factors = clip_factor(norms, radius)
     else:
-        factors = torch.ones(n, dtype=torch.float32, device=dev)
+        factors = _row_vector(factors, n, dev, torch.float32, "factors")
     s = bucket_s if bucket_s >= 2 else 1
     mask, factors, bucket_idx = pad_bucket_aux(mask, factors, bucket_idx, n,
                                                s)
     rows = mask.shape[0] // s
-    if resident_smem_bytes(rows, d, rule) <= smem_budget(dev, rule):
+    if (reduce_fn is None
+            and resident_smem_bytes(rows, d, rule) <= smem_budget(dev, rule)):
         out = resident_fn(xs, mask, factors, bucket_idx, s)
     elif s >= 2:
         means_fn = bucket_means_plain if plain else bucket_means_tiled
@@ -377,6 +390,14 @@ def cclip_update(x, sc, factors, z, den) -> torch.Tensor:
     return out
 
 
+def _reduced(ssq_fn, reduce_fn):
+    """``ssq_fn`` with its (n,) output reduced by ``reduce_fn`` (None: as
+    it is)."""
+    if reduce_fn is None:
+        return ssq_fn
+    return lambda x, z, factors: reduce_fn(ssq_fn(x, z, factors))
+
+
 def _cclip_tiled(x, mask, factors, tau, iters, ssq_fn, update_fn):
     mask = mask.float()
     den = mask.sum().clamp(min=1.0)
@@ -388,25 +409,28 @@ def _cclip_tiled(x, mask, factors, tau, iters, ssq_fn, update_fn):
 
 
 def cclip_tiled_plain(x, mask, factors, *, iters: int = 5,
-                      tau: float = 10.0) -> torch.Tensor:
+                      tau: float = 10.0, reduce_fn=None) -> torch.Tensor:
     """Plain version of ``cclip_tiled``, composed the same way."""
-    return _cclip_tiled(x, mask, factors, tau, iters, diff_row_ssq_plain,
+    return _cclip_tiled(x, mask, factors, tau, iters,
+                        _reduced(diff_row_ssq_plain, reduce_fn),
                         cclip_update_plain)
 
 
-def cclip_tiled(x, mask, factors, *, iters: int = 5,
-                tau: float = 10.0) -> torch.Tensor:
+def cclip_tiled(x, mask, factors, *, iters: int = 5, tau: float = 10.0,
+                reduce_fn=None) -> torch.Tensor:
     """The streaming schedule over (rows, d) ``x`` with (rows,) weights
     ``mask`` and factors (None for 1): 1 + ``iters`` launches of
     ``cclip_update`` and ``iters`` of ``diff_row_ssq``; the scales stay on
-    the device.  Returns (d,) f32."""
-    return _cclip_tiled(x, mask, factors, tau, iters, diff_row_ssq,
-                        cclip_update)
+    the device.  ``reduce_fn`` reduces each step's (rows,) squared
+    distances across coordinate shards.  Returns (d,) f32."""
+    return _cclip_tiled(x, mask, factors, tau, iters,
+                        _reduced(diff_row_ssq, reduce_fn), cclip_update)
 
 
-def clip_then_centered_clip_plain(xs, radius, mask=None, bucket_idx=None, *,
-                                  tau: float = 10.0, iters: int = 5,
-                                  bucket_s: int = 1, use_clip: bool = True):
+def clip_then_centered_clip_plain(xs, radius, mask=None, bucket_idx=None,
+                                  factors=None, *, tau: float = 10.0,
+                                  iters: int = 5, bucket_s: int = 1,
+                                  use_clip: bool = True, reduce_fn=None):
     """Plain version of ``clip_then_centered_clip`` on any device: the
     plain versions of its kernels, with the same dispatch and
     composition."""
@@ -415,30 +439,35 @@ def clip_then_centered_clip_plain(xs, radius, mask=None, bucket_idx=None, *,
         return cclip_resident_plain(x, m, f, idx, s, iters=iters, tau=tau)
 
     def tiled(x, m, f):
-        return cclip_tiled_plain(x, m, f, iters=iters, tau=tau)
+        return cclip_tiled_plain(x, m, f, iters=iters, tau=tau,
+                                 reduce_fn=reduce_fn)
 
     return run_clip_then_iterative(
-        xs, radius, mask, bucket_idx, bucket_s=bucket_s, use_clip=use_clip,
-        resident_fn=resident, tiled_fn=tiled, plain=True, rule="cclip")
+        xs, radius, mask, bucket_idx, factors, bucket_s=bucket_s,
+        use_clip=use_clip, resident_fn=resident, tiled_fn=tiled, plain=True,
+        rule="cclip", reduce_fn=reduce_fn)
 
 
-def clip_then_centered_clip(xs, radius, mask=None, bucket_idx=None, *,
-                            tau: float = 10.0, iters: int = 5,
-                            bucket_s: int = 1, use_clip: bool = True):
+def clip_then_centered_clip(xs, radius, mask=None, bucket_idx=None,
+                            factors=None, *, tau: float = 10.0,
+                            iters: int = 5, bucket_s: int = 1,
+                            use_clip: bool = True, reduce_fn=None):
     """Per-row clip at ``radius`` -> (Bucketing over ``bucket_idx`` when
     ``bucket_s >= 2``) -> CenteredClip(tau, iters) over the rows of (n, d).
-    ``use_clip=False`` skips pass 1.  Returns ``(aggregated (d,) in
+    ``use_clip=False`` skips pass 1; ``factors`` and ``reduce_fn`` as in
+    ``run_clip_then_iterative``.  Returns ``(aggregated (d,) in
     xs.dtype, row_norms (n,) f32 or None)``."""
 
     def resident(x, m, f, idx, s):
         return cclip_resident(x, m, f, idx, s, iters=iters, tau=tau)
 
     def tiled(x, m, f):
-        return cclip_tiled(x, m, f, iters=iters, tau=tau)
+        return cclip_tiled(x, m, f, iters=iters, tau=tau, reduce_fn=reduce_fn)
 
     return run_clip_then_iterative(
-        xs, radius, mask, bucket_idx, bucket_s=bucket_s, use_clip=use_clip,
-        resident_fn=resident, tiled_fn=tiled, rule="cclip")
+        xs, radius, mask, bucket_idx, factors, bucket_s=bucket_s,
+        use_clip=use_clip, resident_fn=resident, tiled_fn=tiled,
+        rule="cclip", reduce_fn=reduce_fn)
 
 
 def centered_clip(xs, mask=None, *, tau: float = 10.0, iters: int = 5):

@@ -6,9 +6,9 @@ masked coordinate median or trimmed mean, optionally over Bucketing's
 bucket means.  Two kernels do it without writing the clipped matrix:
 
   pass 1  ``row_norms``: ``csrc/row_norms.cu`` writes per-row partial
-          sums of squares over column chunks; the wrapper sums them and
-          takes the square root, and ``clip_factor`` gives the n scalar
-          factors min{1, lambda/||x_i||}.  Replaces ``_rownorm_kernel``
+          sums of squares over column chunks; the wrapper sums them
+          (``row_ssq``) and takes the square root, and ``clip_factor``
+          gives the n scalar factors min{1, lambda/||x_i||}.  Replaces ``_rownorm_kernel``
           (``src/repro/kernels/clip_aggregate.py``).
   pass 2  ``clip_bucket_select``: ``csrc/clip_aggregate.cu`` applies the
           factors in registers, gathers the rows in Bucketing order,
@@ -46,7 +46,8 @@ from .coordinate_median import (
     select_plain,
 )
 
-__all__ = ["EPS", "LAUNCHES", "clip_factor", "row_norms_plain", "row_norms",
+__all__ = ["EPS", "LAUNCHES", "clip_factor", "row_ssq_plain", "row_ssq",
+           "row_norms_plain", "row_norms",
            "clip_bucket_select_plain", "clip_bucket_select",
            "clip_then_aggregate", "bucketed_cm_plain",
            "bucketed_coordinate_median"]
@@ -65,17 +66,18 @@ def clip_factor(norm, radius):
     return torch.clamp(radius / torch.clamp(norm, min=EPS), max=1.0)
 
 
-def row_norms_plain(xs: torch.Tensor) -> torch.Tensor:
-    """Plain version of pass 1: (n, d) -> (n,) f32 row norms."""
+def row_ssq_plain(xs: torch.Tensor) -> torch.Tensor:
+    """Plain version of pass 1's sums: (n, d) -> (n,) f32 sum_j x_ij^2."""
     x32 = xs.float()
-    return torch.sqrt((x32 * x32).sum(dim=1))
+    return (x32 * x32).sum(dim=1)
 
 
-def row_norms(xs: torch.Tensor) -> torch.Tensor:
-    """(n, d) -> (n,) f32 l2 norms of the rows (pass 1)."""
+def row_ssq(xs: torch.Tensor) -> torch.Tensor:
+    """(n, d) -> (n,) f32 per-row sums of squares (pass 1 without the
+    square root; a mesh adds them up over a worker's leaves and ranks)."""
     check_matrix(xs, "row_norms")
     if not xs.is_cuda:
-        return row_norms_plain(xs)
+        return row_ssq_plain(xs)
     n, d = xs.shape
     lib = _build.load("row_norms")
     chunks = -(-d // lib.row_ssq_chunk())
@@ -86,7 +88,28 @@ def row_norms(xs: torch.Tensor) -> torch.Tensor:
                                 _build.stream_ptr())
     _build.check(lib, "row_norms", rc)
     LAUNCHES["row_norms"] += 1
-    return torch.sqrt(partial.sum(dim=1))
+    return partial.sum(dim=1)
+
+
+def _ssq_norms(ssq, reduce_fn):
+    """sqrt of the per-row sums of squares, reduced first by ``reduce_fn``
+    (an all-reduce over the mesh axes that hold the rest of each row)."""
+    if reduce_fn is not None:
+        ssq = reduce_fn(ssq)
+    return torch.sqrt(ssq)
+
+
+def row_norms_plain(xs: torch.Tensor, reduce_fn=None) -> torch.Tensor:
+    """Plain version of pass 1: (n, d) -> (n,) f32 row norms."""
+    return _ssq_norms(row_ssq_plain(xs), reduce_fn)
+
+
+def row_norms(xs: torch.Tensor, reduce_fn=None) -> torch.Tensor:
+    """(n, d) -> (n,) f32 l2 norms of the rows (pass 1).  ``reduce_fn``
+    takes the summed (n,) sums of squares before the square root: on a
+    mesh it all-reduces them, so that a block of each row's coordinates
+    gives the norms of the whole rows."""
+    return _ssq_norms(row_ssq(xs), reduce_fn)
 
 
 def _slots(n: int, s: int) -> tuple:
@@ -174,16 +197,22 @@ def clip_bucket_select(xs, factors, mask, bucket_idx, s: int,
     return out
 
 
-def clip_then_aggregate(xs, radius, mask=None, bucket_idx=None, *,
-                        trim_ratio: float = -1.0, bucket_s: int = 1,
-                        use_clip: bool = True):
+def clip_then_aggregate(xs, radius, mask=None, bucket_idx=None,
+                        factors=None, *, trim_ratio: float = -1.0,
+                        bucket_s: int = 1, use_clip: bool = True,
+                        reduce_fn=None):
     """Agg({clip_radius(x_i)}_{i in mask}) over the rows of (n, d).
 
     ``trim_ratio < 0`` is the coordinate median, else the trimmed mean.
     With ``bucket_s >= 2`` the clipped rows are averaged in buckets of
     ``bucket_s`` in the ``bucket_idx`` row order (rows in order when
     None) before the selection.  ``use_clip=False`` skips the norm pass
-    (factors 1).  ``radius`` is a float or a 0-d tensor.
+    (factors 1).  ``radius`` is a float or a 0-d tensor.  ``factors``
+    (n,) also skips the norm pass and scales the rows by the given
+    factors: a mesh computes them from each worker's whole message, which
+    one block of it cannot see.  ``reduce_fn`` reduces pass 1's sums of
+    squares across coordinate shards (``row_norms``); the selection is
+    coordinate-wise and needs none.
 
     Returns ``(aggregated (d,) in xs.dtype, row_norms (n,) f32 or None)``.
     """
@@ -195,8 +224,8 @@ def clip_then_aggregate(xs, radius, mask=None, bucket_idx=None, *,
     norms = None
     if not use_clip:
         factors = torch.ones(n, dtype=torch.float32, device=dev)
-    else:
-        norms = row_norms(xs)
+    elif factors is None:
+        norms = row_norms(xs, reduce_fn)
         factors = clip_factor(norms, radius)
     s = bucket_s if bucket_s >= 2 else 1
     out = clip_bucket_select(xs, factors, mask,

@@ -30,6 +30,7 @@ import torch
 from . import _build
 from .centered_clip import (
     _check_aux,
+    _reduced,
     bucket_means_plain,
     diff_row_ssq,
     diff_row_ssq_plain,
@@ -133,26 +134,28 @@ def _tiled(x, mask, factors, iters, eps, ssq_fn, update_fn):
     return z
 
 
-def gm_tiled_plain(x, mask, factors, *, iters: int = 8,
-                   eps: float = 1e-8) -> torch.Tensor:
+def gm_tiled_plain(x, mask, factors, *, iters: int = 8, eps: float = 1e-8,
+                   reduce_fn=None) -> torch.Tensor:
     """Plain version of ``gm_tiled``, composed the same way."""
-    return _tiled(x, mask, factors, iters, eps, diff_row_ssq_plain,
-                  gm_update_plain)
+    return _tiled(x, mask, factors, iters, eps,
+                  _reduced(diff_row_ssq_plain, reduce_fn), gm_update_plain)
 
 
-def gm_tiled(x, mask, factors, *, iters: int = 8,
-             eps: float = 1e-8) -> torch.Tensor:
+def gm_tiled(x, mask, factors, *, iters: int = 8, eps: float = 1e-8,
+             reduce_fn=None) -> torch.Tensor:
     """The streaming schedule over (rows, d) ``x`` with (rows,) weights
     ``mask`` and factors (None for 1): 1 + ``iters`` launches of
     ``gm_update`` and ``iters`` of ``diff_row_ssq``; the weights stay on
-    the device.  Returns (d,) f32."""
-    return _tiled(x, mask, factors, iters, eps, diff_row_ssq, gm_update)
+    the device.  ``reduce_fn`` reduces each Weiszfeld step's (rows,)
+    squared distances across coordinate shards.  Returns (d,) f32."""
+    return _tiled(x, mask, factors, iters, eps,
+                  _reduced(diff_row_ssq, reduce_fn), gm_update)
 
 
 def clip_then_geometric_median_plain(xs, radius, mask=None, bucket_idx=None,
-                                     *, iters: int = 8, eps: float = 1e-8,
-                                     bucket_s: int = 1,
-                                     use_clip: bool = True):
+                                     factors=None, *, iters: int = 8,
+                                     eps: float = 1e-8, bucket_s: int = 1,
+                                     use_clip: bool = True, reduce_fn=None):
     """Plain version of ``clip_then_geometric_median`` on any device: the
     plain versions of its kernels, with the same dispatch and
     composition."""
@@ -161,30 +164,36 @@ def clip_then_geometric_median_plain(xs, radius, mask=None, bucket_idx=None,
         return gm_resident_plain(x, m, f, idx, s, iters=iters, eps=eps)
 
     def tiled(x, m, f):
-        return gm_tiled_plain(x, m, f, iters=iters, eps=eps)
+        return gm_tiled_plain(x, m, f, iters=iters, eps=eps,
+                              reduce_fn=reduce_fn)
 
     return run_clip_then_iterative(
-        xs, radius, mask, bucket_idx, bucket_s=bucket_s, use_clip=use_clip,
-        resident_fn=resident, tiled_fn=tiled, plain=True)
+        xs, radius, mask, bucket_idx, factors, bucket_s=bucket_s,
+        use_clip=use_clip, resident_fn=resident, tiled_fn=tiled, plain=True,
+        reduce_fn=reduce_fn)
 
 
-def clip_then_geometric_median(xs, radius, mask=None, bucket_idx=None, *,
-                               iters: int = 8, eps: float = 1e-8,
-                               bucket_s: int = 1, use_clip: bool = True):
+def clip_then_geometric_median(xs, radius, mask=None, bucket_idx=None,
+                               factors=None, *, iters: int = 8,
+                               eps: float = 1e-8, bucket_s: int = 1,
+                               use_clip: bool = True, reduce_fn=None):
     """Per-row clip at ``radius`` -> (Bucketing over ``bucket_idx`` when
     ``bucket_s >= 2``) -> Weiszfeld geometric median over the rows of
-    (n, d).  ``use_clip=False`` skips pass 1.  Returns ``(aggregated (d,)
-    in xs.dtype, row_norms (n,) f32 or None)``."""
+    (n, d).  ``use_clip=False`` skips pass 1; ``factors`` and
+    ``reduce_fn`` as in ``run_clip_then_iterative`` (centered_clip.py).
+    Returns ``(aggregated (d,) in xs.dtype, row_norms (n,) f32 or
+    None)``."""
 
     def resident(x, m, f, idx, s):
         return gm_resident(x, m, f, idx, s, iters=iters, eps=eps)
 
     def tiled(x, m, f):
-        return gm_tiled(x, m, f, iters=iters, eps=eps)
+        return gm_tiled(x, m, f, iters=iters, eps=eps, reduce_fn=reduce_fn)
 
     return run_clip_then_iterative(
-        xs, radius, mask, bucket_idx, bucket_s=bucket_s, use_clip=use_clip,
-        resident_fn=resident, tiled_fn=tiled)
+        xs, radius, mask, bucket_idx, factors, bucket_s=bucket_s,
+        use_clip=use_clip, resident_fn=resident, tiled_fn=tiled,
+        reduce_fn=reduce_fn)
 
 
 def geometric_median(xs, mask=None, *, iters: int = 8, eps: float = 1e-8):

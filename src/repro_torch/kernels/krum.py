@@ -339,6 +339,10 @@ def krum_select_from_gram(gram, mask=None, radius=None, factors=None,
     nothing is read back to the host."""
     n = gram.shape[0]
     dev = gram.device
+    # a Gram summed across ranks may round G_ij and G_ji differently; its
+    # symmetric part restores the exact ties of mutual nearest neighbours
+    # (and is the Gram itself, bit for bit, when that is symmetric)
+    gram = 0.5 * (gram + gram.T)
     mask_b = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
               else mask.to(device=dev, dtype=torch.bool))
     mask_f = mask_b.float()
@@ -419,39 +423,49 @@ def apply_row_selection(xs, selection: RowSelection, *, onehot: bool = False):
 # public entry points
 # ---------------------------------------------------------------------------
 
-def _clip_then_krum(xs, radius, mask, bucket_idx, gram_fn, apply_fn, *,
-                    byz_bound, m_select, multi, bucket_s, use_clip):
+def _clip_then_krum(xs, radius, mask, bucket_idx, factors, gram_fn,
+                    apply_fn, *, byz_bound, m_select, multi, bucket_s,
+                    use_clip, reduce_fn):
+    gram = gram_fn(xs)
+    if reduce_fn is not None:
+        gram = reduce_fn(gram)
     selection, norms = krum_select_from_gram(
-        gram_fn(xs), mask, radius, None, bucket_idx, byz_bound=byz_bound,
+        gram, mask, radius, factors, bucket_idx, byz_bound=byz_bound,
         m_select=m_select, multi=multi, bucket_s=bucket_s, use_clip=use_clip)
     out = apply_fn(xs, selection,
                    onehot=selection_is_onehot(multi, bucket_s))
     return out, norms
 
 
-def clip_then_krum_plain(xs, radius, mask=None, bucket_idx=None, *,
-                         byz_bound: Optional[int] = None, m_select: int = 0,
-                         multi: bool = False, bucket_s: int = 1,
-                         use_clip: bool = True):
+def clip_then_krum_plain(xs, radius, mask=None, bucket_idx=None,
+                         factors=None, *, byz_bound: Optional[int] = None,
+                         m_select: int = 0, multi: bool = False,
+                         bucket_s: int = 1, use_clip: bool = True,
+                         reduce_fn=None):
     """Plain version of ``clip_then_krum`` on any device."""
-    return _clip_then_krum(xs, radius, mask, bucket_idx, gram_matrix_plain,
-                           apply_row_selection_plain, byz_bound=byz_bound,
-                           m_select=m_select, multi=multi, bucket_s=bucket_s,
-                           use_clip=use_clip)
+    return _clip_then_krum(xs, radius, mask, bucket_idx, factors,
+                           gram_matrix_plain, apply_row_selection_plain,
+                           byz_bound=byz_bound, m_select=m_select,
+                           multi=multi, bucket_s=bucket_s, use_clip=use_clip,
+                           reduce_fn=reduce_fn)
 
 
-def clip_then_krum(xs, radius, mask=None, bucket_idx=None, *,
+def clip_then_krum(xs, radius, mask=None, bucket_idx=None, factors=None, *,
                    byz_bound: Optional[int] = None, m_select: int = 0,
                    multi: bool = False, bucket_s: int = 1,
-                   use_clip: bool = True):
+                   use_clip: bool = True, reduce_fn=None):
     """Krum/multi-Krum over per-row clipped messages: one Gram pass, the
-    clip factors (from diag G) and Bucketing as (n, n) algebra, one apply
-    pass.  Returns ``(aggregated (d,) in xs.dtype, row_norms (n,) or
-    None)``; ``use_clip=False`` aggregates the rows as they are."""
-    return _clip_then_krum(xs, radius, mask, bucket_idx, gram_matrix,
-                           apply_row_selection, byz_bound=byz_bound,
-                           m_select=m_select, multi=multi, bucket_s=bucket_s,
-                           use_clip=use_clip)
+    clip factors (from diag G, or ``factors`` when given) and Bucketing as
+    (n, n) algebra, one apply pass.  ``reduce_fn`` sums the (n, n) Gram
+    across coordinate shards before the selection, so that each rank's
+    block of the rows selects as the whole rows would.  Returns
+    ``(aggregated (d,) in xs.dtype, row_norms (n,) or None)``;
+    ``use_clip=False`` aggregates the rows as they are."""
+    return _clip_then_krum(xs, radius, mask, bucket_idx, factors,
+                           gram_matrix, apply_row_selection,
+                           byz_bound=byz_bound, m_select=m_select,
+                           multi=multi, bucket_s=bucket_s, use_clip=use_clip,
+                           reduce_fn=reduce_fn)
 
 
 def krum(xs, mask=None, *, byz_bound: Optional[int] = None):

@@ -87,17 +87,24 @@ def reset_launch_counts() -> None:
             counter[name] = 0
 
 
-def accumulate_stats_blocks(stats_fn, xs):
+def accumulate_stats_blocks(stats_fn, xs, reduce_fn=None):
     """Phase 1 of the two-phase contract over one (n, d) block, or summed
-    in list order over a list of coordinate chunks."""
+    in list order over a list of coordinate chunks.  ``reduce_fn`` (a
+    mesh's all-reduce across coordinate shards) makes each block's stats
+    global before they are summed."""
+
+    def one(block):
+        stats = stats_fn(block)
+        return stats if reduce_fn is None else reduce_fn(stats)
+
     if isinstance(xs, (list, tuple)):
         if not xs:
             raise ValueError("accumulate_stats: empty chunk list")
-        stats = stats_fn(xs[0])
+        stats = one(xs[0])
         for block in xs[1:]:
-            stats = stats + stats_fn(block)
+            stats = stats + one(block)
         return stats
-    return stats_fn(xs)
+    return one(xs)
 
 
 def apply_selection_blocks(apply_fn, xs, selection):
@@ -108,10 +115,11 @@ def apply_selection_blocks(apply_fn, xs, selection):
     return apply_fn(xs, selection)
 
 
-def krum_gram(xs):
+def krum_gram(xs, reduce_fn=None):
     """(n, d) -> (n, n) f32 Gram (one ``gram_matrix`` launch per block of a
-    chunk list, summed in order): phase 1 of the two-phase Krum contract."""
-    return accumulate_stats_blocks(_kr.gram_matrix, xs)
+    chunk list, summed in order): phase 1 of the two-phase Krum contract.
+    ``reduce_fn`` sums each block's Gram across coordinate shards."""
+    return accumulate_stats_blocks(_kr.gram_matrix, xs, reduce_fn)
 
 
 def krum_cross_gram(a, b):

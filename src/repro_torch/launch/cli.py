@@ -43,7 +43,7 @@ def add_plan_args(ap, *, aggregator: str = "cm", placement: str = "sharded",
     g.add_argument("--agg-schedule", default=placement,
                    choices=["naive", "sharded"], dest="agg_schedule",
                    help="placement: naive (paper parameter-server) or "
-                        "sharded (not ported yet)")
+                        "sharded (all_to_all scatter/aggregate/gather)")
     g.add_argument("--schedule", default="sequential",
                    choices=["sequential", "pipelined"],
                    help="inner block schedule of the sharded placement")

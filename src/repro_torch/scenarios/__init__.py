@@ -14,8 +14,8 @@
 
 Scenarios are declared with :class:`repro_torch.api.ScenarioSpec` and
 consumed by both engines and the streaming launcher.  The pytree stage
-of the mesh trainer (``TreeAttackStage``) comes with the mesh trainer
-(ROADMAP queue 1, "the mesh trainer on torch.distributed").
+of the mesh trainer (``TreeAttackStage``) comes with the trainer (ROADMAP
+queue 1, item 3: the trainer).
 """
 from .adaptive import (  # noqa: F401
     ADAPTIVE_OBJECTIVES,

@@ -3,8 +3,8 @@
 byzantine-majority bit), ``AttackStage`` corrupts the engine's (n, d)
 message matrix, and ``SyntheticCohort`` is the host-side form that gives
 the streaming server's synthetic clients their wire rows.  The pytree
-form of ``repro.scenarios`` (``TreeAttackStage``) comes with the mesh
-trainer (ROADMAP queue 1, "the mesh trainer on torch.distributed")."""
+form of ``repro.scenarios`` (``TreeAttackStage``) comes with the trainer
+(ROADMAP queue 1, item 3: the trainer)."""
 from __future__ import annotations
 
 from typing import Optional

@@ -13,12 +13,14 @@ disk, and ``latest_step`` skips damaged files, so a killed ``--mode
 stream`` server restarts mid-stream and replays forward to aggregates
 bit for bit equal to an uninterrupted run's.
 
-The tree has the reference's keys and ``SERVER_STATE_VERSION`` 1, but its
-``metrics`` vector follows this package's :class:`ServeMetrics` field
-order, which counts ``chunks_ingested`` (the reference does not): server
-snapshots are not read across the two packages.  Plain checkpoint files
-are (``repro_torch.checkpoint``).  A restored server needs no generator
-state: a round's Bucketing order is ``round_key(seed, round_id)``.
+The tree has the reference's keys and ``SERVER_STATE_VERSION`` 1, and its
+``metrics`` vector holds the reference's 15 counters in the reference's
+order.  This package's one further counter, ``chunks_ingested``, is
+stored under a key of its own, which the reference's reader ignores; a
+reference snapshot has no such key, and it reads as 0.  So each package
+restores the other's server snapshots.  A restored server needs no
+generator state: a round's Bucketing order is ``round_key(seed,
+round_id)``.
 
 What a snapshot leaves out:
 
@@ -48,8 +50,12 @@ __all__ = [
 
 SERVER_STATE_VERSION = 1
 
-# fixed field order, so the metrics vector round-trips through one array
-_METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(ServeMetrics))
+# the counter that the reference's ServeMetrics lacks: a key of its own
+_PORT_ONLY = "chunks_ingested"
+# the reference's field order, so the metrics vector round-trips through
+# one array in both packages
+_METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(ServeMetrics)
+                       if f.name != _PORT_ONLY)
 
 
 def _host_copy(t) -> np.ndarray:
@@ -85,6 +91,7 @@ def server_state(server: AggregationServer, extra: Any = None) -> dict:
         "quarantine_level": q_level,
         "quarantine_until": q_until,
         "metrics": metrics,
+        _PORT_ONLY: np.int64(getattr(m, _PORT_ONLY)),
     }
     if extra is not None:
         tree["extra"] = extra
@@ -116,6 +123,8 @@ def _load_state(server: AggregationServer, tree: dict) -> None:
         current = getattr(server.metrics, name)
         cast = float if isinstance(current, float) else int
         setattr(server.metrics, name, cast(value))
+    setattr(server.metrics, _PORT_ONLY,
+            int(np.asarray(tree.get(_PORT_ONLY, 0))))
     # tickets and queued rows do not survive a crash (module docstring)
     server._round_tickets = []
     server._queue.clear()
@@ -154,6 +163,8 @@ def restore_server(server: AggregationServer, ckpt_dir: str, *,
         raise ValueError(
             f"checkpoint step {step} in {ckpt_dir!r} is missing or damaged")
     template = server_state(server, extra_template)
+    if not _ckpt.has_leaf(ckpt_dir, step, f"['{_PORT_ONLY}']"):
+        del template[_PORT_ONLY]  # a reference snapshot
     tree = _ckpt.restore(ckpt_dir, step, template)
     _load_state(server, tree)
     return step, tree.get("extra")

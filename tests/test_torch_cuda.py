@@ -1183,3 +1183,158 @@ def test_cuda_scoring_step_matches_the_cpu(card, rule, radius):
     assert counts == (dict(NO_LAUNCHES, gram_matrix=3, select_row=3)
                       if rule == "krum"
                       else dict(NO_LAUNCHES, coordinate_median=3))
+
+
+# ---------------------------------------------------------------------------
+# the mesh arguments: factors= and reduce_fn, and plan.build(mesh)
+# ---------------------------------------------------------------------------
+
+def _double(t):
+    return 2.0 * t
+
+
+def _identity(t):
+    return t
+
+
+def _mesh_call(kind, xs, radius, mask, idx, factors, s, reduce_fn):
+    gmk, krk = _gm_mods()[1], _krum_mod()
+    cck = importlib.import_module("repro_torch.kernels.centered_clip")
+    if kind in ("cm", "tm"):
+        return ca.clip_then_aggregate(
+            xs, radius, mask, idx, factors,
+            trim_ratio=-1.0 if kind == "cm" else 0.1, bucket_s=s,
+            reduce_fn=reduce_fn)
+    if kind == "gm":
+        return gmk.clip_then_geometric_median(xs, radius, mask, idx, factors,
+                                              bucket_s=s, reduce_fn=reduce_fn)
+    if kind == "cclip":
+        return cck.clip_then_centered_clip(xs, radius, mask, idx, factors,
+                                           tau=0.5, bucket_s=s,
+                                           reduce_fn=reduce_fn)
+    return krk.clip_then_krum(xs, radius, mask, idx, factors, byz_bound=1,
+                              multi=kind == "multi_krum", bucket_s=s,
+                              reduce_fn=reduce_fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cm", "tm", "gm", "cclip", "krum",
+                                  "multi_krum"])
+@pytest.mark.parametrize("s", [1, 2])
+@pytest.mark.parametrize("reduce_fn", [None, _identity, _double],
+                         ids=["none", "identity", "double"])
+@pytest.mark.parametrize("with_factors", [False, True],
+                         ids=["norms", "factors"])
+def test_cuda_mesh_arguments_match_plain(card, kind, s, reduce_fn,
+                                         with_factors):
+    """Each on-path wrapper with ``factors=`` and with an identity and a
+    doubling ``reduce_fn``, on the card against its plain version (the
+    same call on CPU copies)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n, d = 20, 5000
+    xs = torch.randn(n, d, device=card, generator=g)
+    mask = torch.rand(n, device=card, generator=g) > 0.3
+    mask[0] = True
+    idx = torch.randperm(n, device=card, generator=g) if s >= 2 else None
+    factors = (0.2 + 0.8 * torch.rand(n, device=card, generator=g)
+               if with_factors else None)
+    radius = float(torch.linalg.vector_norm(xs, dim=1).median())
+    got, norms = _mesh_call(kind, xs, radius, mask, idx, factors, s,
+                            reduce_fn)
+    cpu = [None if t is None else t.cpu() for t in (xs, mask, idx, factors)]
+    want, wnorms = _mesh_call(kind, cpu[0], radius, cpu[1], cpu[2], cpu[3],
+                              s, reduce_fn)
+    tol = dict(rtol=0, atol=1e-5) if kind in ("gm", "cclip") else SUM_TOL
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    assert (norms is None) == (wnorms is None) == with_factors
+    if norms is not None:
+        torch.testing.assert_close(norms.cpu(), wnorms, **SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,update,steps", [("gm", "gm_update", 8),
+                                               ("cclip", "cclip_update", 5)])
+@pytest.mark.parametrize("s", [1, 2])
+def test_cuda_reduce_fn_takes_the_tiled_schedule(card, rule, update, steps,
+                                                 s):
+    """At a shape the resident kernel takes (n = 20, d = 40), any
+    ``reduce_fn`` sends the call to the tiled kernels: 1 + steps updates,
+    steps distance passes, one bucket-means pass under Bucketing."""
+    xs = torch.randn(20, 40, device=card)
+    idx = torch.randperm(20, device=card) if s >= 2 else None
+    kind = "gm" if rule == "gm" else "cclip"
+    for reduce_fn in (None, _identity):
+        ops.reset_launch_counts()
+        _mesh_call(kind, xs, 1.0, None, idx, None, s, reduce_fn)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if reduce_fn is None:
+            assert counts == {"row_norms": 1, f"{rule}_resident": 1}
+        else:
+            want = {"row_norms": 1, "diff_row_ssq": steps,
+                    update: steps + 1}
+            if s >= 2:
+                want["bucket_means"] = 1
+            assert counts == want
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_mesh_runs_the_registry(card, tmp_path):
+    """``plan.build(mesh)`` on a one-rank NCCL (1, 1) mesh, both
+    placements, the whole registry clipped and unclipped, against the
+    single-process plain path on CPU copies; every collective stays on
+    the card (NCCL never takes gloo's host route)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.api import (AggregatorSpec, BucketSpec, ScheduleSpec,
+                                 ServerPlan)
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           naive_aggregate,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"w1": torch.randn(20, 784, 16, device=card, generator=g),
+            "b1": torch.randn(20, 16, device=card, generator=g)}
+    mask = torch.rand(20, device=card, generator=g) > 0.2
+    perm = torch.randperm(20, device=card, generator=g)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp_path, "rdv"), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        reset_collective_counts()
+        for agg in ("cm", "tm", "mean", "cclip", "rfa", "krum", "multi_krum",
+                    "bucket_cm", "bucket_krum", "bucket_rfa"):
+            rule, s = (agg[7:], 2) if agg.startswith("bucket_") else (agg, 0)
+            for radius in (3.0, None):
+                for placement in ("naive", "sharded"):
+                    plan = ServerPlan(
+                        aggregate=AggregatorSpec(rule, byz_bound=2),
+                        bucket=BucketSpec(s=s) if s else None,
+                        schedule=ScheduleSpec(placement=placement))
+                    tree1 = (tree if placement == "naive"
+                             else tree_map(lambda x: x[:1], tree))
+                    m1 = mask if placement == "naive" else mask[:1]
+                    k1 = perm if placement == "naive" else None
+                    got = plan.build(mesh)(tree1, mask=m1, key=k1,
+                                           radius=radius)
+                    cpu = tree_map(lambda x: x.cpu(), tree1)
+                    f = None
+                    if radius is not None:
+                        flat = torch.cat([x.reshape(x.shape[0], -1)
+                                          for x in tree_leaves(cpu)], dim=1)
+                        f = ca.clip_factor(
+                            torch.linalg.vector_norm(flat, dim=1), radius)
+                    want = naive_aggregate(
+                        cpu, m1.cpu(), None if k1 is None else k1.cpu(),
+                        agg=plan.build_aggregator(), factors=f)
+                    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                        assert a.is_cuda
+                        torch.testing.assert_close(a.cpu(), b, rtol=1e-5,
+                                                   atol=1e-5)
+        routes = {c["route"] for c in collective_counts().values()}
+        assert routes == {"device"}, collective_counts()
+    finally:
+        dist.destroy_process_group()

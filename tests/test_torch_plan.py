@@ -96,12 +96,25 @@ def test_superleaf_on_iterative_rule_warns_in_both():
 
 
 def test_sharded_and_mesh_builds_name_their_roadmap_item():
-    plan = T.ServerPlan(aggregate="cm",
-                        schedule=T.ScheduleSpec(placement="sharded"))
-    with pytest.raises(T.PlanError, match="queue 1: the mesh trainer"):
-        plan.build()
-    with pytest.raises(T.PlanError, match="queue 1: the mesh trainer"):
-        T.ServerPlan(aggregate="cm").build(mesh=object())
+    """Mesh builds are ported: the sharded placement without a mesh and a
+    cohort larger than the mesh's workers raise the reference's
+    PlanErrors (the mesh runs themselves: tests/test_torch_mesh.py)."""
+
+    class FourWorkers:  # the two things a build reads of a mesh
+        mesh_dim_names = ("data", "model")
+
+        def size(self, dim):
+            return (4, 2)[dim]
+
+    for api in (R, T):
+        plan = api.ServerPlan(aggregate="cm",
+                              schedule=api.ScheduleSpec(placement="sharded"))
+        with pytest.raises(api.PlanError, match="needs a mesh"):
+            plan.build()
+    with pytest.raises(T.PlanError, match="exceeds the 4 available"):
+        T.ServerPlan(aggregate="cm", cohort=5).build(mesh=FourWorkers())
+    assert T.ServerPlan(aggregate="cm", cohort=4).build(
+        mesh=FourWorkers()).mesh is not None
 
 
 def test_unported_rules_and_compressors_raise_not_implemented():
