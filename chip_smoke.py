@@ -217,12 +217,37 @@ Phases (any failure raises, prints no result and exits non-zero):
    CPU), which the phase checks and prints op by op.  Each transport's
    collectives are also timed alone at 2^22 f32 a rank (gloo on the
    card's tensors and on CPU ones).
-9. A ``{"kernels": [...]}`` line, then the card line, then the result.
-   A kernel's ``launches`` are those of the run of the path it serves
-   (``path``; "entry-points" for clipped_diff's and the bucketed median's,
-   which no engine calls); ``launches_by_path`` has its counts in every
-   in-process run and the mesh runs (the spawned ones summed over their
-   ranks).
+9. The model zoo (``repro_torch.models``; no kernel: the models run
+   plain PyTorch, TF32 off), each run printing its wall seconds and the
+   card's name and power limit, the reduced sizes listed:
+   models-smoke (each of the ten ``smoke()`` configs in f32, remat off,
+   batch 2 x 32, params and batch made on the CPU from one seed, the
+   VLM's cross-attention gates opened to 0.5: ``apply_train``'s loss and
+   aux on the card within rtol 1e-5 of the CPU's, every gradient leaf
+   (``torch.autograd.grad``) and the prefill logits within 1e-4 of their
+   max-abs, remat on within 1e-6 of remat off; 12 ``apply_decode`` steps
+   from ``init_cache`` equal to the prefill of the same tokens on the
+   seven decodable families at capacity 8.0, atol 2e-3 and rtol 2e-2;
+   the same step in bf16 with a finite, non-zero loss and gradient
+   norm); models-minitron-wide (minitron-8b at full width, 2 of its 32
+   layers, seq 4,096, batch 1: the same params in f32 and in bf16, the
+   bf16 loss within 2e-2 relative of the f32 loss and the global
+   gradient norms within 5%); models-minitron-full (minitron-8b as
+   configured, 9.9e9 parameters, 32 layers, bf16, remat: two train steps
+   at train_4k's seq 4,096 with batch 1, the first cold, the loss finite
+   and within [ln V - 1, ln V + 2], one ``sgd`` update, one prefill at
+   prefill_32k's seq 32,768 with batch 1); models-mamba2-full
+   (mamba2-780m as configured, 48 layers, state 128, chunk 256, bf16:
+   two train steps at 4,096 with every gradient leaf finite, a prefill
+   at 32,768, and layer 0's chunked SSD at S = 1,024 in f32 within 1e-4
+   of its max-abs of the recurrence run step by step in float64).  Each
+   prints ms, tokens/s and the peak of ``torch.cuda.max_memory_allocated``.
+10. A ``{"kernels": [...]}`` line, then the card line, then the result.
+    A kernel's ``launches`` are those of the run of the path it serves
+    (``path``; "entry-points" for clipped_diff's and the bucketed
+    median's, which no engine calls); ``launches_by_path`` has its counts
+    in every in-process run and the mesh runs (the spawned ones summed
+    over their ranks).
 """
 import dataclasses
 import functools
@@ -3256,6 +3281,406 @@ def mesh_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the model zoo
+# ---------------------------------------------------------------------------
+
+MODEL_SEED = 0
+SMOKE_B, SMOKE_S, DECODE_STEPS = 2, 32, 12
+MODEL_LOSS_RTOL = 1e-5  # losses and aux losses, card against the CPU
+MODEL_LEAF_REL = 1e-4  # a gradient leaf or logits, of its max-abs
+MODEL_REMAT_REL = 1e-6  # remat on against remat off, of the leaf's max-abs
+DECODABLE = ("minitron_8b", "yi_34b", "mamba2_780m", "jamba_v01_52b",
+             "deepseek_v3_671b", "llama32_vision_90b", "arctic_480b")
+VISION_GATE = 0.5  # the VLM's cross-attention gates, opened
+TRAIN_SEQ = 4096  # train_4k's sequence; its global batch of 256 cut to 1
+PREFILL_SEQ = 32768  # prefill_32k's sequence; its batch of 32 cut to 1
+WIDE_LOSS_RTOL, WIDE_GNORM_RTOL = 2e-2, 0.05  # bf16 against f32
+SSD_SEQ, SSD_REL = 1024, 1e-4  # the chunked SSD against the recurrence
+
+
+def _value_and_grad(params, cfg, batch):
+    """(loss, aux, grads in flatten order) by ``torch.autograd.grad``."""
+    import torch
+
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.models import apply_train
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    loss, aux = apply_train(tree_unflatten(treedef, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            list(grads))
+
+
+def _global_norm(grads) -> float:
+    return math.sqrt(sum(float(g.float().square().sum()) for g in grads))
+
+
+def _scaled_check(what, got, want, rel):
+    """max |got - want| within ``rel`` of max |want|; returns the ratio."""
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if err > rel * max(scale, 1e-30):
+        raise AssertionError(f"{what}: max err {err:.3e} > {rel:g} x "
+                             f"{scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def _to(tree, device):
+    from repro_torch.core.tree_utils import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _open_gates(params, cfg):
+    for pos, mixer in enumerate(cfg.mixer_pattern):
+        if mixer == "cross":
+            params["body"][pos]["mixer"]["gate"].fill_(VISION_GATE)
+    return params
+
+
+def _smoke_inputs(arch, dtype):
+    """The smoke config in ``dtype`` (remat off), its params and batch made
+    on the CPU from MODEL_SEED (bf16 is the f32 draws rounded)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config(arch).replace(dtype=dtype, remat=False)
+    params = _open_gates(init_params(MODEL_SEED, cfg, device="cpu"), cfg)
+    batch = synthetic_batch(MODEL_SEED + 1, cfg, SMOKE_B, SMOKE_S,
+                            device="cpu")
+    return cfg, params, batch
+
+
+def _decode_vs_prefill(params, cfg, batch):
+    """12 decode steps from ``init_cache`` against the prefill of the same
+    12 tokens, capacity 8.0 (test_decode_matches_prefill's check)."""
+    import torch
+
+    from repro_torch.models import apply_decode, apply_prefill, init_cache
+
+    cfg = cfg.replace(capacity_factor=8.0)
+    cache = init_cache(cfg, SMOKE_B, DECODE_STEPS, device="cuda")
+    with torch.no_grad():
+        for t in range(DECODE_STEPS):
+            step = {k: (v[:, t:t + 1] if k == "tokens" else v)
+                    for k, v in batch.items()}
+            logits, cache = apply_decode(params, cfg, step, cache, t)
+        head = {k: (v[:, :DECODE_STEPS] if k == "tokens" else v)
+                for k, v in batch.items()}
+        want = apply_prefill(params, cfg, head)
+    err = (logits - want).abs()
+    if not bool((err <= 2e-3 + 2e-2 * want.abs()).all()):
+        raise AssertionError(f"{cfg.name}: decode differs from prefill by "
+                             f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def models_smoke(card):
+    """Each smoke config in f32 on the card against the CPU, with remat,
+    decode and bf16."""
+    import torch
+
+    from repro_torch.configs import list_archs
+    from repro_torch.models import apply_prefill
+
+    t_run = time.perf_counter()
+    print(f"  models-smoke on {card}: batch {SMOKE_B} x seq {SMOKE_S}, f32, "
+          "remat off; "
+          f"loss rtol {MODEL_LOSS_RTOL:g}, grads and logits {MODEL_LEAF_REL:g}"
+          f" of max-abs, remat {MODEL_REMAT_REL:g}")
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        cfg, params_cpu, batch_cpu = _smoke_inputs(arch, "float32")
+        params, batch = _to(params_cpu, "cuda"), _to(batch_cpu, "cuda")
+        loss, aux, grads = _value_and_grad(params, cfg, batch)
+        loss_cpu, aux_cpu, grads_cpu = _value_and_grad(params_cpu, cfg,
+                                                       batch_cpu)
+        for what, a, b in [("loss", loss, loss_cpu)] + [
+                (k, aux[k], aux_cpu[k]) for k in aux]:
+            if not math.isclose(float(a), float(b), rel_tol=MODEL_LOSS_RTOL):
+                raise AssertionError(f"{arch} {what}: card {float(a)!r} cpu "
+                                     f"{float(b)!r}")
+        g_err = max(_scaled_check(f"{arch} grad leaf {i}", a, b,
+                                  MODEL_LEAF_REL)
+                    for i, (a, b) in enumerate(zip(grads, grads_cpu)))
+        _, _, remat = _value_and_grad(params, cfg.replace(remat=True), batch)
+        r_err = max(_scaled_check(f"{arch} remat leaf {i}", a, b,
+                                  MODEL_REMAT_REL)
+                    for i, (a, b) in enumerate(zip(remat, grads)))
+        with torch.no_grad():
+            p_err = _scaled_check(
+                f"{arch} prefill", apply_prefill(params, cfg, batch),
+                apply_prefill(params_cpu, cfg, batch_cpu), MODEL_LEAF_REL)
+        d_err = (_decode_vs_prefill(params, cfg, batch)
+                 if arch in DECODABLE else None)
+        bcfg, bparams, bbatch = _smoke_inputs(arch, "bfloat16")
+        bloss, _, bgrads = _value_and_grad(_to(bparams, "cuda"), bcfg,
+                                           _to(bbatch, "cuda"))
+        bnorm = _global_norm(bgrads)
+        if not (math.isfinite(float(bloss)) and float(bloss) != 0.0
+                and math.isfinite(bnorm) and bnorm > 0.0):
+            raise AssertionError(f"{arch} bf16: loss {float(bloss)} grad norm "
+                                 f"{bnorm}")
+        torch.cuda.synchronize()
+        print(f"  {arch:20s} loss {float(loss):.6f} (cpu {float(loss_cpu):.6f}"
+              f") lb {float(aux['lb_loss']):.6f} z {float(aux['z_loss']):.6f};"
+              f" grads {g_err:.2e} of max-abs over {len(grads)} leaves, remat"
+              f" {r_err:.2e}, prefill {p_err:.2e}, decode-prefill "
+              + ("-" if d_err is None else f"{d_err:.2e}")
+              + f"; bf16 loss {float(bloss):.6f} grad norm {bnorm:.4f}; "
+              f"wall {time.perf_counter() - t0:.3f} s")
+    print(f"    models-smoke wall {time.perf_counter() - t_run:.3f} s")
+
+
+def _run_header(name, card, reduced):
+    import gc
+
+    import torch
+
+    gc.collect()  # tensors an earlier run left in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  {name} on {card}; reduced: {reduced}")
+    return time.perf_counter()
+
+
+def _peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _timed(fn):
+    """(result, ms) of one call, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def minitron_wide(card):
+    """minitron-8b at full width, 2 layers: the same params in f32 and
+    bf16, loss within 2e-2 and global gradient norm within 5%."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import init_params, param_count
+
+    t0 = _run_header("models-minitron-wide", card,
+                     f"n_layers 32 -> 2, batch 256 -> 1 (seq {TRAIN_SEQ})")
+    cfg = get_config("minitron_8b", n_layers=2)
+    batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, TRAIN_SEQ)
+    out = {}
+    f32 = cfg.replace(dtype="float32")
+    params = init_params(MODEL_SEED, f32)
+    for name, c in (("f32", f32), ("bf16", cfg)):
+        if name == "bf16":  # each leaf in the bf16 config's dtype
+            leaves, treedef = tree_flatten(params)
+            meta, _ = tree_flatten(init_params(0, c, device="meta"))
+            params = tree_unflatten(treedef, [
+                leaf.to(m.dtype) for leaf, m in zip(leaves, meta)])
+            del leaves
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _, grads), ms = _timed(lambda: _value_and_grad(params, c,
+                                                              batch))
+        out[name] = (float(loss), _global_norm(grads), ms, _peak_gb())
+        del grads
+        print(f"    {name}: loss {out[name][0]:.6f} grad norm "
+              f"{out[name][1]:.6f}; {ms:.1f} ms a step, "
+              f"{TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
+              f"{out[name][3]:.2f} GB")
+    del params
+    (l32, n32, _, _), (l16, n16, _, _) = out["f32"], out["bf16"]
+    if not (abs(l16 - l32) <= WIDE_LOSS_RTOL * abs(l32)
+            and abs(n16 - n32) <= WIDE_GNORM_RTOL * n32):
+        raise AssertionError(f"minitron-wide: bf16 loss {l16} / f32 {l32}, "
+                             f"grad norm {n16} / {n32}")
+    print(f"    {param_count(cfg):,} parameters; bf16 vs f32: loss "
+          f"{abs(l16 - l32) / abs(l32):.3e} (limit {WIDE_LOSS_RTOL:g}), grad "
+          f"norm {abs(n16 - n32) / n32:.3e} (limit {WIDE_GNORM_RTOL:g}); "
+          f"wall {time.perf_counter() - t0:.3f} s")
+
+
+def _check_lm_loss(what, loss, vocab):
+    lo, hi = math.log(vocab) - 1, math.log(vocab) + 2
+    if not (math.isfinite(loss) and lo <= loss <= hi):
+        raise AssertionError(f"{what}: loss {loss} outside [{lo:.3f}, "
+                             f"{hi:.3f}]")
+
+
+def minitron_full(card):
+    """minitron-8b as configured (32 layers, bf16, remat): two train steps
+    at seq 4,096 (the first cold), one sgd update, one prefill at 32,768."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import apply_prefill, init_params, param_count
+    from repro_torch.optim import sgd
+
+    t0 = _run_header("models-minitron-full", card,
+                     "train_4k batch 256 -> 1, prefill_32k batch 32 -> 1")
+    cfg = get_config("minitron_8b")
+    params = init_params(MODEL_SEED, cfg)
+    torch.cuda.synchronize()
+    print(f"    {param_count(cfg):,} parameters, {cfg.n_layers} layers, "
+          f"{cfg.dtype}, remat {cfg.remat}; init "
+          f"{time.perf_counter() - t0:.3f} s")
+    batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, TRAIN_SEQ)
+    losses = []
+    for step in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _, grads), ms = _timed(lambda: _value_and_grad(params, cfg,
+                                                              batch))
+        losses.append(float(loss))
+        _check_lm_loss(f"minitron-full {step} step", float(loss), cfg.vocab)
+        print(f"    train step ({step}): loss {float(loss):.6f}, {ms:.1f} ms,"
+              f" {TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak {_peak_gb():.2f} GB")
+        if step == "cold":
+            del grads
+    torch.cuda.reset_peak_memory_stats()
+    opt = sgd()
+    (params, _), ms = _timed(lambda: opt.apply(params, grads, opt.init(params),
+                                               1e-3))
+    del grads
+    if not bool(torch.isfinite(params["unembed"]).all()):
+        raise AssertionError("minitron-full: sgd gave non-finite weights")
+    print(f"    sgd update: {ms:.1f} ms, peak {_peak_gb():.2f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = synthetic_batch(MODEL_SEED + 2, cfg, 1, PREFILL_SEQ)
+    with torch.no_grad():
+        logits, ms = _timed(lambda: apply_prefill(params, cfg, tokens))
+    if not (logits.shape == (1, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError("minitron-full prefill: bad logits")
+    print(f"    prefill at {PREFILL_SEQ}: {ms:.1f} ms, "
+          f"{PREFILL_SEQ / ms * 1e3:.0f} tokens/s, peak {_peak_gb():.2f} GB; "
+          f"wall {time.perf_counter() - t0:.3f} s")
+
+
+def _ssd_sequential(xh, dt, B_mat, C_mat, A):
+    """The SSM recurrence, one step at a time in float64:
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t = C_t . h_t."""
+    import torch
+
+    xh, dt, B_mat, C_mat, A = (t.double() for t in (xh, dt, B_mat, C_mat, A))
+    Bsz, S, H, P = xh.shape
+    h = torch.zeros((Bsz, H, P, B_mat.shape[-1]), dtype=torch.float64,
+                    device=xh.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A[None])
+        h = h * decay[:, :, None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], xh[:, t], B_mat[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C_mat[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def _ssd_layer_inputs(params, cfg, tokens):
+    """Layer 0's SSD inputs at full width in f32 (the path of
+    ``mamba2_forward`` up to ``_ssd_chunked``)."""
+    from repro_torch.core.tree_utils import tree_map
+    from repro_torch.models import layers, ssm
+
+    layer = tree_map(lambda t: t[0].float(), params["body"][0])
+    mixer = layer["mixer"]
+    x = params["embed"][tokens.long()].float()
+    h = layers.rmsnorm(layer["norm1"], x)
+    z, xbc, dt = ssm._split_proj(cfg, h @ mixer["in_proj"])
+    xbc, _ = ssm._causal_conv(mixer["conv_w"], mixer["conv_b"], xbc)
+    d_inner, nh = ssm._dims(cfg)
+    N, S = cfg.ssm_state, tokens.shape[1]
+    xs = xbc[..., :d_inner].reshape(1, S, nh, cfg.ssm_head_dim)
+    return (xs, ssm._softplus(dt + mixer["dt_bias"][None, None]),
+            xbc[..., d_inner:d_inner + N], xbc[..., d_inner + N:],
+            -mixer["A_log"].exp())
+
+
+def mamba2_full(card):
+    """mamba2-780m as configured (48 layers, state 128, chunk 256, bf16,
+    remat): a train step at 4,096 with every gradient finite, a prefill at
+    32,768, and layer 0's chunked SSD in f32 against the recurrence."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import apply_prefill, init_params, param_count
+    from repro_torch.models import ssm
+
+    t0 = _run_header("models-mamba2-full", card,
+                     "train_4k batch 256 -> 1, prefill_32k batch 32 -> 1")
+    cfg = get_config("mamba2_780m")
+    params = init_params(MODEL_SEED, cfg)
+    print(f"    {param_count(cfg):,} parameters, {cfg.n_layers} layers, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, {cfg.dtype}, remat "
+          f"{cfg.remat}")
+    batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, TRAIN_SEQ)
+    for step in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _, grads), ms = _timed(lambda: _value_and_grad(params, cfg,
+                                                              batch))
+        bad = [i for i, g in enumerate(grads)
+               if not bool(torch.isfinite(g).all())]
+        if bad or not math.isfinite(float(loss)):
+            raise AssertionError(f"mamba2-full: loss {float(loss)}, "
+                                 f"non-finite gradient leaves {bad}")
+        print(f"    train step ({step}): loss {float(loss):.6f}, all "
+              f"{len(grads)} gradient leaves finite, grad norm "
+              f"{_global_norm(grads):.4f}; {ms:.1f} ms, "
+              f"{TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak {_peak_gb():.2f} GB")
+        del grads
+    torch.cuda.reset_peak_memory_stats()
+    tokens = synthetic_batch(MODEL_SEED + 2, cfg, 1, PREFILL_SEQ)
+    with torch.no_grad():
+        logits, ms = _timed(lambda: apply_prefill(params, cfg, tokens))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("mamba2-full prefill: non-finite logits")
+        print(f"    prefill at {PREFILL_SEQ}: {ms:.1f} ms, "
+              f"{PREFILL_SEQ / ms * 1e3:.0f} tokens/s, peak {_peak_gb():.2f} "
+              f"GB")
+        ins = _ssd_layer_inputs(params, cfg, batch["tokens"][:, :SSD_SEQ])
+        (y, h), ms = _timed(lambda: ssm._ssd_chunked(cfg, *ins))
+        y_seq, h_seq = _ssd_sequential(*ins)
+    y_err = _scaled_check("mamba2 SSD y", y, y_seq, SSD_REL)
+    h_err = _scaled_check("mamba2 SSD state", h, h_seq, SSD_REL)
+    print(f"    layer 0's SSD at S = {SSD_SEQ}, f32 ({ins[0].shape[2]} heads "
+          f"x {ins[0].shape[3]} x state {ins[2].shape[-1]}): chunked {ms:.1f} "
+          f"ms; against the float64 recurrence y {y_err:.2e}, final state "
+          f"{h_err:.2e} of max-abs (limit {SSD_REL:g}); wall "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
+def models_path(card):
+    """Phase 9: the model zoo on the card."""
+    import torch
+
+    print("model zoo")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    models_smoke(card)
+    minitron_wide(card)
+    minitron_full(card)
+    mamba2_full(card)
+    torch.cuda.empty_cache()
+    print(f"  phase 9 wall {time.perf_counter() - t0:.3f} s")
+
+
+
 def main():
     import torch
 
@@ -3341,7 +3766,10 @@ def main():
     # 8. the mesh aggregation
     counts.update(mesh_path())
 
-    # 9. the kernels line, the card, the result
+    # 9. the model zoo
+    models_path(card)
+
+    # 10. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

@@ -31,42 +31,52 @@ __all__ = [
 ]
 
 
-def tree_flatten(tree, is_leaf=None):
-    """(leaves, treedef) in JAX's order; anything that is not a dict, list
-    or tuple is a leaf, and so is a node for which ``is_leaf`` is true."""
-    leaves = []
+_NONE = ("none",)  # the treedef of a None: a node with no leaves, as in JAX
 
-    def walk(node):
-        if is_leaf is not None and is_leaf(node):
-            leaves.append(node)
-            return None
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return (dict, keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node), None, [walk(c) for c in node])
+
+def _walk(node, leaves, is_leaf):
+    if is_leaf is not None and is_leaf(node):
         leaves.append(node)
         return None
+    if node is None:
+        return _NONE
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return (dict, keys, [_walk(node[k], leaves, is_leaf) for k in keys])
+    if isinstance(node, (list, tuple)):
+        return (type(node), None, [_walk(c, leaves, is_leaf) for c in node])
+    leaves.append(node)
+    return None
 
-    return leaves, walk(tree)
+
+def tree_flatten(tree, is_leaf=None):
+    """(leaves, treedef) in JAX's order; anything that is not a dict, list,
+    tuple or None is a leaf, and so is a node for which ``is_leaf`` is
+    true.  None holds no leaf and comes back as None."""
+    leaves = []
+    return leaves, _walk(tree, leaves, is_leaf)
+
+
+def _build(node, it):
+    if node is None:
+        return next(it)
+    if node is _NONE:
+        return None
+    kind, keys, children = node
+    values = [_build(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(keys, values))
+    if hasattr(kind, "_fields"):  # a NamedTuple
+        return kind(*values)
+    return kind(values)
 
 
 def tree_unflatten(treedef, leaves):
-    """The tree of ``treedef`` with ``leaves`` in flatten order."""
-    it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return next(it)
-        kind, keys, children = node
-        values = [build(c) for c in children]
-        if kind is dict:
-            return dict(zip(keys, values))
-        if hasattr(kind, "_fields"):  # a NamedTuple
-            return kind(*values)
-        return kind(values)
-
-    return build(treedef)
+    """The tree of ``treedef`` with ``leaves`` in flatten order.  (The
+    recursion is a module-level function: a nested one that refers to
+    itself would form a reference cycle that keeps ``leaves`` alive until
+    the garbage collector runs.)"""
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree, is_leaf=None) -> list:

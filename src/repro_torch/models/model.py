@@ -1,0 +1,575 @@
+"""Unified model assembly for all 10 architectures, the counterpart of
+``repro.models.model``.
+
+A model is described by a ``ModelConfig``: a *period* of layer specs
+(mixer/mlp kind per position) cycled over the depth, plus embedding /
+modality-frontend configuration.  Parameters are stored **stacked over
+periods**, as in the reference: ``params["body"]`` is a tuple with one
+dict a period position whose leaves have a leading ``n_periods`` axis,
+and ``params["prefix"]`` is stacked too.  The forward pass is a Python
+loop over periods that takes each period's slices of the stacked leaves,
+under ``torch.utils.checkpoint`` where the reference applies
+``jax.checkpoint``.
+
+Entry points:
+  init_params(seed, cfg, device=None)        -> params tree (on the card by default)
+  param_count(cfg)                           -> int, on "meta": nothing allocated
+  apply_train(params, cfg, batch)            -> (loss, aux) for the train_4k shape
+  apply_prefill(params, cfg, batch)          -> last-position logits (prefill_32k)
+  init_cache(cfg, batch, cache_len, device)  -> decode cache tree
+  apply_decode(params, cfg, batch, cache, i) -> (logits, new_cache)   (decode shapes)
+  params_from_numpy(tree, device)            -> the reference's weights as a params tree
+  params_to_numpy(tree)                      -> and back
+
+Gradients are taken with ``torch.autograd.grad`` over the tree's leaves.
+Modality stubs: hubert consumes precomputed frame embeddings, the VLM
+consumes precomputed projected vision tokens.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch._device import resolve_device
+from repro_torch.core.tree_utils import tree_flatten, tree_map, tree_unflatten
+from repro_torch.sharding.constraints import maybe_constrain
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .layers import (
+    F32,
+    Draw,
+    cross_attn_forward,
+    dense_init,
+    gqa_forward,
+    init_cross_attn,
+    init_gqa,
+    init_mla,
+    init_rmsnorm,
+    init_swiglu,
+    mla_forward,
+    rmsnorm,
+    swiglu_forward,
+)
+
+__all__ = [
+    "ModelConfig",
+    "init_params",
+    "apply_train",
+    "apply_prefill",
+    "apply_decode",
+    "init_cache",
+    "param_count",
+    "params_from_numpy",
+    "params_to_numpy",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0
+    # layer pattern (cycled); both tuples must share one period length
+    mixer_pattern: Tuple[str, ...] = ("attn",)  # "attn"|"ssm"|"cross"
+    mlp_pattern: Tuple[str, ...] = ("dense",)  # "dense"|"moe"|"none"
+    first_dense_layers: int = 0  # prefix of attn+dense layers (deepseek-v3)
+    first_dense_ff: int = 0  # FFN width of the prefix layers (0 -> d_ff)
+    causal: bool = True
+    attn_kind: str = "gqa"  # "gqa"|"mla"
+    sliding_window: int = 0  # >0: sliding-window attention (long_500k variant)
+    rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_dense_residual: bool = False  # arctic: dense FFN parallel to MoE
+    capacity_factor: float = 1.25
+    # MLA
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    # SSM
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    # IO / modality
+    input_kind: str = "tokens"  # "tokens"|"frames"|"tokens+vision"
+    n_vision_tokens: int = 0
+    frame_dim: int = 0
+    mtp_depth: int = 0  # deepseek-v3 multi-token-prediction aux head
+    dtype: str = "bfloat16"
+    logit_chunk: int = 512  # chunked cross-entropy block
+    remat: bool = True  # activation-checkpoint each layer group
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+        if len(self.mixer_pattern) != len(self.mlp_pattern):
+            raise ValueError("mixer_pattern and mlp_pattern must share a period")
+        if (self.n_layers - self.first_dense_layers) % len(self.mixer_pattern):
+            raise ValueError(
+                f"{self.name}: n_layers-{self.first_dense_layers} not divisible "
+                f"by period {len(self.mixer_pattern)}"
+            )
+
+    @property
+    def period(self) -> int:
+        return len(self.mixer_pattern)
+
+    @property
+    def n_periods(self) -> int:
+        return (self.n_layers - self.first_dense_layers) // self.period
+
+    @property
+    def jdtype(self) -> torch.dtype:
+        """The parameter dtype (the reference's name for it)."""
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# per-layer init/apply
+# ---------------------------------------------------------------------------
+
+def _init_layer(rng: Draw, cfg: ModelConfig, mixer: str, mlp: str, ff: int = 0):
+    dt = cfg.jdtype
+    ff = ff or cfg.d_ff
+    layer: Dict[str, Any] = {"norm1": init_rmsnorm(rng, cfg.d_model, dt)}
+    if mixer == "attn":
+        layer["mixer"] = (
+            init_mla(rng, cfg, dt) if cfg.attn_kind == "mla" else init_gqa(rng, cfg, dt)
+        )
+    elif mixer == "cross":
+        layer["mixer"] = init_cross_attn(rng, cfg, dt)
+    elif mixer == "ssm":
+        layer["mixer"] = ssm_mod.init_mamba2(rng, cfg, dt)
+    else:
+        raise ValueError(mixer)
+    if mlp == "none":  # mixer-only block (Mamba-2)
+        return layer
+    layer["norm2"] = init_rmsnorm(rng, cfg.d_model, dt)
+    if mlp == "dense":
+        layer["mlp"] = init_swiglu(rng, cfg.d_model, ff, dt)
+    elif mlp == "moe":
+        layer["mlp"] = moe_mod.init_moe(rng, cfg, dt)
+        if cfg.moe_dense_residual:
+            layer["mlp_dense"] = init_swiglu(rng, cfg.d_model, cfg.d_ff, dt)
+    else:
+        raise ValueError(mlp)
+    return layer
+
+
+def _apply_layer(
+    layer,
+    cfg: ModelConfig,
+    mixer: str,
+    mlp: str,
+    x,
+    *,
+    positions,
+    vision=None,
+    cache=None,
+    cache_index=None,
+    window=0,
+):
+    """Returns (x, new_cache, aux) where aux = (lb_loss, z_loss)."""
+    h = rmsnorm(layer["norm1"], x)
+    new_cache = cache
+    if mixer == "attn":
+        if cfg.attn_kind == "mla":
+            out, new_cache = mla_forward(
+                layer["mixer"], cfg, h, positions=positions, cache=cache,
+                cache_index=cache_index, window=window,
+            )
+        else:
+            out, new_cache = gqa_forward(
+                layer["mixer"], cfg, h, positions=positions, causal=cfg.causal,
+                window=window, cache=cache, cache_index=cache_index,
+            )
+    elif mixer == "cross":
+        out = cross_attn_forward(layer["mixer"], cfg, h, vision)
+        new_cache = cache  # cross-attn kv are static vision tokens: no cache
+    elif mixer == "ssm":
+        if x.shape[1] == 1 and cache is not None:
+            out, new_cache = ssm_mod.mamba2_decode_step(layer["mixer"], cfg, h, cache)
+        else:
+            out, new_cache = ssm_mod.mamba2_forward(layer["mixer"], cfg, h, state=cache)
+    else:
+        raise ValueError(mixer)
+    x = x + out
+    zero = torch.zeros((), dtype=F32, device=x.device)
+    aux = (zero, zero)
+    if mlp == "none":
+        return x, new_cache, aux
+    h = rmsnorm(layer["norm2"], x)
+    if mlp == "dense":
+        x = x + swiglu_forward(layer["mlp"], h)
+    else:
+        mo = moe_mod.moe_forward(layer["mlp"], cfg, h, capacity_factor=cfg.capacity_factor)
+        x = x + mo.out
+        if "mlp_dense" in layer:
+            x = x + swiglu_forward(layer["mlp_dense"], h)
+        aux = (mo.lb_loss, mo.z_loss)
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# whole-model init
+# ---------------------------------------------------------------------------
+
+def init_params(seed, cfg: ModelConfig, *, device=None):
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
+    in the reference's tree: the same keys, shapes, dtypes and stacking.
+    ``device="meta"`` allocates nothing."""
+    rng = Draw.from_seed(seed, resolve_device(device))
+    dt = cfg.jdtype
+    params: Dict[str, Any] = {}
+    if cfg.input_kind == "frames":
+        params["frontend"] = dense_init(rng, cfg.frame_dim, cfg.d_model, dt)
+    else:
+        params["embed"] = rng.normal((cfg.vocab, cfg.d_model), dt, 0.02)
+
+    # prefix (plain attn+dense) layers, stacked
+    if cfg.first_dense_layers:
+        params["prefix"] = _init_layer(
+            rng.stacked(cfg.first_dense_layers), cfg, "attn", "dense",
+            ff=cfg.first_dense_ff)
+
+    # main body: one stacked tree per period position
+    params["body"] = tuple(
+        _init_layer(rng.stacked(cfg.n_periods), cfg, cfg.mixer_pattern[pos],
+                    cfg.mlp_pattern[pos])
+        for pos in range(cfg.period))
+
+    params["final_norm"] = init_rmsnorm(rng, cfg.d_model, dt)
+    params["unembed"] = dense_init(rng, cfg.d_model, cfg.vocab, dt, scale=0.02)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "layer": _init_layer(rng, cfg, "attn", "dense"),
+            "norm": init_rmsnorm(rng, cfg.d_model, dt),
+            "proj": dense_init(rng, 2 * cfg.d_model, cfg.d_model, dt),
+        }
+    return params
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The number of parameters, from the shapes on "meta"."""
+    leaves, _ = tree_flatten(init_params(0, cfg, device="meta"))
+    return sum(int(math.prod(leaf.shape)) for leaf in leaves)
+
+
+# ---------------------------------------------------------------------------
+# weights across the packages
+# ---------------------------------------------------------------------------
+
+def _leaf_to_torch(a, device):
+    if a is None:
+        return None
+    a = np.array(a, order="C")  # a copy: JAX's host arrays are read-only
+    if a.dtype.name == "bfloat16":  # ml_dtypes, as JAX gives it
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _leaf_to_numpy(t):
+    if t is None:
+        return None
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device=None):
+    """A tree of numpy arrays (the reference's ``init_params`` output via
+    ``np.asarray``; bf16 arrives as ``ml_dtypes.bfloat16`` and crosses as
+    its bits) as the port's tree on ``device``: the same nesting,
+    NamedTuples included, every leaf a tensor of the same dtype."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_to_torch(a, dev), tree)
+
+
+def params_to_numpy(tree):
+    """The port's tree as numpy arrays on the host, bf16 as
+    ``ml_dtypes.bfloat16`` (what ``jnp.asarray`` reads as bf16)."""
+    return tree_map(_leaf_to_numpy, tree)
+
+
+# ---------------------------------------------------------------------------
+# embedding / stack runner
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    if cfg.input_kind == "frames":
+        x = batch["frames"].to(cfg.jdtype) @ params["frontend"]
+    else:
+        x = params["embed"][batch["tokens"].long()]
+    return maybe_constrain(x, "data", None, None)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` slices along the leading axis of a stacked tree, as
+    views (``unbind``: one backward node a leaf, which stacks the
+    slices' gradients once)."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [p[i] for p in per_leaf])
+            for i in range(n)]
+
+
+def _stack(trees: list):
+    return tree_map(lambda *ls: torch.stack(ls), *trees)
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` under activation checkpointing where the reference applies
+    ``jax.checkpoint``; with no gradient being recorded there is nothing
+    to save, so it runs as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return fn
+
+
+def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
+               caches=None, cache_index=None, window=0):
+    """Run the prefix layers then the periodic body.
+
+    ``caches``: None (training/prefill without cache) or a dict
+    {"prefix": stacked, "body": tuple of stacked per position} matching
+    init_cache.  Returns (x, new_caches, aux_sum)."""
+    aux = torch.zeros((2,), dtype=F32, device=x.device)
+    new_caches = {"prefix": None, "body": None}
+
+    def prefix_step(h, aux, layer, cache):
+        h, nc, (lb, zl) = _apply_layer(
+            layer, cfg, "attn", "dense", h, positions=positions, vision=vision,
+            cache=cache, cache_index=cache_index, window=window,
+        )
+        return h, aux + torch.stack([lb, zl]), nc
+
+    def body_step(h, aux, layers, caches_slice):
+        new_slices = []
+        for pos in range(cfg.period):
+            cache = None if caches_slice is None else caches_slice[pos]
+            h, nc, (lb, zl) = _apply_layer(
+                layers[pos], cfg, cfg.mixer_pattern[pos], cfg.mlp_pattern[pos], h,
+                positions=positions, vision=vision, cache=cache,
+                cache_index=cache_index, window=window,
+            )
+            aux = aux + torch.stack([lb, zl])
+            new_slices.append(nc)
+        return h, aux, tuple(new_slices)
+
+    prefix_step = _maybe_remat(cfg, prefix_step)
+    body_step = _maybe_remat(cfg, body_step)
+
+    if cfg.first_dense_layers:
+        n = cfg.first_dense_layers
+        layers = _unstack(params["prefix"], n)
+        pc = None if caches is None else _unstack(caches["prefix"], n)
+        out = []
+        for i in range(n):
+            x, aux, nc = prefix_step(x, aux, layers[i],
+                                     None if pc is None else pc[i])
+            out.append(nc)
+        if pc is not None:
+            new_caches["prefix"] = _stack(out)
+
+    n = cfg.n_periods
+    per_pos = [_unstack(p, n) for p in params["body"]]
+    per_pos_caches = (None if caches is None
+                      else [_unstack(c, n) for c in caches["body"]])
+    out = []
+    for i in range(n):
+        layers = tuple(p[i] for p in per_pos)
+        cs = None if per_pos_caches is None else tuple(
+            c[i] for c in per_pos_caches)
+        x, aux, nc = body_step(x, aux, layers, cs)
+        out.append(nc)
+    if caches is not None:
+        new_caches["body"] = tuple(
+            _stack([o[pos] for o in out]) for pos in range(cfg.period))
+    return x, new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# losses / entry points
+# ---------------------------------------------------------------------------
+
+def _chunk_loss(hq, tq, vq, unembed):
+    logits = (hq @ unembed).to(F32)  # (B, Q, V)
+    logits = maybe_constrain(logits, "data", None, "model")
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tq[..., None].long())[..., 0]
+    valid = vq.to(F32)
+    nll = (lse - gold) * valid
+    return torch.sum(nll), torch.sum(valid)
+
+
+def _chunked_ce(cfg, h, unembed, targets, valid):
+    """Memory-bounded cross-entropy: a loop over sequence chunks, each
+    chunk's logits recomputed in the backward pass (checkpointed) so the
+    (B, S, vocab) tensor never exists at once."""
+    B, S, D = h.shape
+    Q = min(cfg.logit_chunk, S)
+    n_chunks = -(-S // Q)
+    pad = n_chunks * Q - S
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    loss_fn = _chunk_loss
+    if torch.is_grad_enabled():
+        loss_fn = lambda *a: checkpoint(_chunk_loss, *a, use_reentrant=False)  # noqa: E731
+    total = torch.zeros((), dtype=F32, device=h.device)
+    count = torch.zeros((), dtype=F32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * Q, (c + 1) * Q)
+        ls, ns = loss_fn(h[:, sl], targets[:, sl], valid[:, sl], unembed)
+        total = total + ls
+        count = count + ns
+    return total / torch.clamp(count, min=1.0)
+
+
+def _positions(B, S, device):
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def apply_train(params, cfg: ModelConfig, batch):
+    """Next-token (or masked-prediction) training loss.  Returns (loss, aux
+    dict)."""
+    x = _embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    positions = _positions(B, S, x.device)
+    vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
+    x, _, aux = _run_stack(
+        params, cfg, x, positions=positions, vision=vision,
+        window=cfg.sliding_window,
+    )
+    h = rmsnorm(params["final_norm"], x)
+
+    if cfg.input_kind == "frames":
+        targets = batch["targets"]
+        valid = batch.get("mask")
+        if valid is None:
+            valid = torch.ones(targets.shape, dtype=torch.bool,
+                               device=targets.device)
+        loss = _chunked_ce(cfg, h, params["unembed"], targets, valid)
+    else:
+        tokens = batch["tokens"]
+        pad = torch.nn.functional.pad
+        targets = pad(tokens[:, 1:], (0, 1))
+        valid = (torch.arange(S, device=x.device)[None] < S - 1).expand(B, S)
+        loss = _chunked_ce(cfg, h, params["unembed"], targets, valid)
+        if cfg.mtp_depth and "mtp" in params:
+            # simplified DeepSeek-V3 MTP: one extra block predicts t+2
+            mtp = params["mtp"]
+            nxt = params["embed"][targets.long()]  # emb of t+1
+            hm = torch.cat([h, nxt.to(h.dtype)], dim=-1) @ mtp["proj"]
+            hm, _, _ = _apply_layer(
+                mtp["layer"], cfg, "attn", "dense", hm, positions=positions
+            )
+            hm = rmsnorm(mtp["norm"], hm)
+            t2 = pad(tokens[:, 2:], (0, 2))
+            v2 = (torch.arange(S, device=x.device)[None] < S - 2).expand(B, S)
+            loss = loss + 0.3 * _chunked_ce(cfg, hm, params["unembed"], t2, v2)
+
+    lb, zl = aux[0], aux[1]
+    n_moe = sum(1 for m in cfg.mlp_pattern if m == "moe") * cfg.n_periods
+    if n_moe:
+        loss = loss + 0.01 * lb / n_moe + 1e-4 * zl / n_moe
+    return loss, {"lb_loss": lb, "z_loss": zl}
+
+
+def apply_prefill(params, cfg: ModelConfig, batch):
+    """Full-sequence forward returning last-position logits (B, vocab)."""
+    x = _embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
+    x, _, _ = _run_stack(
+        params, cfg, x, positions=_positions(B, S, x.device), vision=vision,
+        window=cfg.sliding_window,
+    )
+    h = rmsnorm(params["final_norm"], x[:, -1])
+    return (h @ params["unembed"]).to(F32)
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
+                 device, lead):
+    dt = cfg.jdtype
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    if mixer == "attn":
+        if cfg.attn_kind == "mla":
+            return {
+                "ckv": zeros(batch, cache_len, cfg.kv_lora_rank),
+                "krope": zeros(batch, cache_len, cfg.qk_rope_dim),
+            }
+        return {
+            "k": zeros(batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+            "v": zeros(batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+        }
+    if mixer == "ssm":
+        return ssm_mod.init_ssm_state(cfg, batch, dt, device=device, lead=lead)
+    if mixer == "cross":
+        return {"_empty": zeros(batch, 0)}  # vision kv are inputs
+    raise ValueError(mixer)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None):
+    """Decode cache tree; attention caches hold ``cache_len`` positions
+    (the sliding window size for long-context configs)."""
+    dev = resolve_device(device)
+    if cfg.sliding_window:
+        cache_len = min(cache_len, cfg.sliding_window)
+    caches = {"prefix": None, "body": None}
+    if cfg.first_dense_layers:
+        caches["prefix"] = _layer_cache(cfg, "attn", batch, cache_len, dev,
+                                        (cfg.first_dense_layers,))
+    caches["body"] = tuple(
+        _layer_cache(cfg, cfg.mixer_pattern[pos], batch, cache_len, dev,
+                     (cfg.n_periods,))
+        for pos in range(cfg.period))
+    return caches
+
+
+def apply_decode(params, cfg: ModelConfig, batch, caches, cache_index):
+    """One-token decode step: batch["tokens"] is (B, 1); ``cache_index`` is
+    the write position (== current sequence length so far, possibly wrapped
+    by the caller for sliding windows).  Returns (logits (B, vocab), caches)."""
+    cache_index = int(cache_index)
+    x = _embed_inputs(params, cfg, batch)
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_index, dtype=torch.long,
+                           device=x.device)
+    vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
+    x, new_caches, _ = _run_stack(
+        params, cfg, x, positions=positions, vision=vision, caches=caches,
+        cache_index=cache_index, window=cfg.sliding_window,
+    )
+    h = rmsnorm(params["final_norm"], x[:, -1])
+    return (h @ params["unembed"]).to(F32), new_caches

@@ -1,0 +1,150 @@
+"""Logical-axis sharding rules, the counterpart of
+``repro.sharding.constraints``.
+
+Model code annotates activations with *logical* axis names; the mapping to
+physical mesh axes lives here.  The port has no ambient mesh
+(``launch.mesh.set_mesh`` is a no-op and placement is explicit in
+``api/mesh_exec.py``), so ``maybe_constrain`` returns its input; the
+rules themselves (``logical_to_spec``, ``axis_size``) resolve over any
+mesh's axis names and sizes, and the trainer uses them to place a leaf.
+
+Logical names:
+  "data"   -> batch-like dims      -> ("pod","data") if pod axis else "data"
+  "model"  -> TP dims              -> "model"
+  "heads"  -> attention head dims  -> "model" when divisible, else replicated
+  "kv"     -> kv head dims         -> "model" when divisible, else replicated
+  "expert" -> MoE expert dim       -> "model"
+  None     -> replicated
+
+A mesh here is a ``torch.distributed`` ``DeviceMesh``, anything with
+``axis_names`` and a ``shape`` mapping name -> size (JAX's meshes), or an
+:class:`AbstractMesh`, which gives only names and sizes and starts no
+rank.
+"""
+from __future__ import annotations
+
+import contextvars
+import dataclasses
+from typing import Optional
+
+from repro_torch.launch.mesh import P
+
+__all__ = [
+    "AbstractMesh",
+    "maybe_constrain",
+    "logical_to_spec",
+    "axis_size",
+    "suspend_data_axis",
+    "override_data_axes",
+]
+
+# When the trainer maps the model over the worker dim, inner "data"
+# annotations must not also claim the axes the workers sit on:
+# suspend_data_axis(axes) removes exactly those axes from "data"
+# resolution inside its block.  override_data_axes routes "data" onto
+# other axes (zero3: batch dims shard over "model").  Both are context
+# variables, so a block's setting ends with it and stays in its thread.
+_SUSPENDED = contextvars.ContextVar("suspended_data_axes",
+                                    default=frozenset())
+_DATA_OVERRIDE = contextvars.ContextVar("data_axes_override", default=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no ranks behind them:
+    ``AbstractMesh((2, 16, 16), ("pod", "data", "model"))``."""
+
+    axis_sizes: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+class override_data_axes:
+    """Route logical "data" onto different physical axes (zero3: batch dims
+    shard over "model" because params hold no TP there)."""
+
+    def __init__(self, axes):
+        self._axes = tuple(axes)
+
+    def __enter__(self):
+        self._token = _DATA_OVERRIDE.set(self._axes)
+        return self
+
+    def __exit__(self, *exc):
+        _DATA_OVERRIDE.reset(self._token)
+        return False
+
+
+class suspend_data_axis:
+    def __init__(self, axes=("pod", "data")):
+        self._axes = frozenset(axes)
+
+    def __enter__(self):
+        self._token = _SUSPENDED.set(_SUSPENDED.get() | self._axes)
+        return self
+
+    def __exit__(self, *exc):
+        _SUSPENDED.reset(self._token)
+        return False
+
+
+def _sizes(mesh) -> dict:
+    """Axis name -> size, in the mesh's order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:  # a torch DeviceMesh
+        return {a: mesh.size(i) for i, a in enumerate(names)}
+    return dict(mesh.shape)
+
+
+def axis_size(mesh, name: str) -> int:
+    return _sizes(mesh).get(name, 1)
+
+
+def _resolve(sizes: dict, logical: Optional[str], dim_size: int):
+    if logical is None:
+        return None
+    if logical == "data":
+        override = _DATA_OVERRIDE.get()
+        pool = override if override is not None else ("pod", "data")
+        suspended = _SUSPENDED.get()
+        axes = tuple(a for a in pool if a in sizes and a not in suspended)
+        if not axes:
+            return None
+        total = 1
+        for a in axes:
+            total *= sizes[a]
+        if dim_size % total != 0:
+            return None
+        return axes if len(axes) > 1 else axes[0]
+    if logical in ("model", "expert", "heads", "kv"):
+        # indivisible head counts stay replicated
+        if "model" not in sizes or dim_size % sizes["model"]:
+            return None
+        return "model"
+    raise ValueError(f"unknown logical axis {logical!r}")
+
+
+def logical_to_spec(mesh, logical_axes, shape) -> P:
+    """Resolve logical axes; earlier dims win on physical-axis conflicts
+    (zero3 routes "data" onto "model", so a later "model" dim replicates)."""
+    sizes = _sizes(mesh)
+    used: set = set()
+    out = []
+    for ax, s in zip(logical_axes, shape):
+        r = _resolve(sizes, ax, s)
+        flat = (r,) if isinstance(r, str) else tuple(r or ())
+        if any(a in used for a in flat):
+            r = None
+            flat = ()
+        used.update(flat)
+        out.append(r)
+    return P(*out)
+
+
+def maybe_constrain(x, *logical_axes):
+    """``x`` itself: the port has no ambient mesh to constrain against
+    (placement is explicit in ``api/mesh_exec.py``)."""
+    return x

@@ -1338,3 +1338,115 @@ def test_cuda_one_rank_nccl_mesh_runs_the_registry(card, tmp_path):
         assert routes == {"device"}, collective_counts()
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the model zoo: each smoke config on the card against the CPU
+# ---------------------------------------------------------------------------
+
+_ZOO = ("minitron_8b", "stablelm_12b", "mamba2_780m", "jamba_v01_52b",
+        "hubert_xlarge", "deepseek_v3_671b", "llama32_vision_90b",
+        "deepseek_7b", "yi_34b", "arctic_480b")
+_ZOO_DECODABLE = ("minitron_8b", "yi_34b", "mamba2_780m", "jamba_v01_52b",
+                  "deepseek_v3_671b", "llama32_vision_90b", "arctic_480b")
+
+
+def _zoo_inputs(arch, dtype="float32", **overrides):
+    """The smoke config (remat off), its params and a batch of 2 x 32,
+    made on the CPU from seeds 0 and 1; the VLM's gates opened to 0.5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import init_params
+
+    cfg = get_smoke_config(arch).replace(dtype=dtype, remat=False,
+                                         **overrides)
+    params = init_params(0, cfg, device="cpu")
+    for pos, mixer in enumerate(cfg.mixer_pattern):
+        if mixer == "cross":
+            params["body"][pos]["mixer"]["gate"].fill_(0.5)
+    return cfg, params, synthetic_batch(1, cfg, 2, 32, device="cpu")
+
+
+def _zoo_to(tree, device):
+    from repro_torch.core.tree_utils import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _zoo_value_and_grad(params, cfg, batch):
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.models import apply_train
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    loss, aux = apply_train(tree_unflatten(treedef, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+def _zoo_close(got, want, rel):
+    """max |got - want| within ``rel`` of max |want| (the leaf's scale)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    assert float((got - want).abs().max() if want.numel() else 0.0) \
+        <= rel * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _ZOO)
+def test_cuda_smoke_model_matches_the_cpu(card, arch):
+    """f32: loss and aux within rtol 1e-5, every gradient leaf and the
+    prefill logits within 1e-4 of their max-abs, remat's gradients
+    within 1e-6 of remat off's."""
+    from repro_torch.models import apply_prefill
+
+    cfg, params_cpu, batch_cpu = _zoo_inputs(arch)
+    params, batch = _zoo_to(params_cpu, card), _zoo_to(batch_cpu, card)
+    loss, aux, grads = _zoo_value_and_grad(params, cfg, batch)
+    loss_cpu, aux_cpu, grads_cpu = _zoo_value_and_grad(params_cpu, cfg,
+                                                       batch_cpu)
+    assert float(loss) == pytest.approx(float(loss_cpu), rel=1e-5)
+    for k in aux:
+        assert float(aux[k]) == pytest.approx(float(aux_cpu[k]), rel=1e-5)
+    for a, b in zip(grads, grads_cpu):
+        assert a.is_cuda
+        _zoo_close(a, b, 1e-4)
+    _, _, remat = _zoo_value_and_grad(params, cfg.replace(remat=True), batch)
+    for a, b in zip(remat, grads):
+        _zoo_close(a, b, 1e-6)
+    with torch.no_grad():
+        _zoo_close(apply_prefill(params, cfg, batch),
+                   apply_prefill(params_cpu, cfg, batch_cpu), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _ZOO_DECODABLE)
+def test_cuda_smoke_decode_matches_prefill(card, arch):
+    """12 decode steps from init_cache equal the prefill's last logits
+    (capacity 8.0; atol 2e-3, rtol 2e-2, test_decode_matches_prefill's)."""
+    from repro_torch.models import apply_decode, apply_prefill, init_cache
+
+    cfg, params, batch = _zoo_inputs(arch, capacity_factor=8.0)
+    params, batch = _zoo_to(params, card), _zoo_to(batch, card)
+    cache = init_cache(cfg, 2, 12, device=card)
+    with torch.no_grad():
+        for t in range(12):
+            step = {k: (v[:, t:t + 1] if k == "tokens" else v)
+                    for k, v in batch.items()}
+            logits, cache = apply_decode(params, cfg, step, cache, t)
+        head = {k: (v[:, :12] if k == "tokens" else v)
+                for k, v in batch.items()}
+        want = apply_prefill(params, cfg, head)
+    torch.testing.assert_close(logits, want, atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _ZOO)
+def test_cuda_smoke_model_bf16_step_is_finite(card, arch):
+    cfg, params, batch = _zoo_inputs(arch, dtype="bfloat16")
+    loss, _, grads = _zoo_value_and_grad(_zoo_to(params, card), cfg,
+                                         _zoo_to(batch, card))
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    assert bool(torch.isfinite(loss)) and float(loss) != 0.0
+    assert bool(torch.isfinite(norm)) and float(norm) > 0.0
