@@ -193,8 +193,9 @@ Phases (any failure raises, prints no result and exits non-zero):
    bucket_rfa) at radius 3.0 and unclipped, superleaf_elems 0 and
    24,576: every output within rtol 1e-5 (atol 1e-6) of the CPU plain
    path, the same Krum winners; then the one-rank sharded placement on
-   one row, through NCCL's all_to_all and all_reduce, equal to its naive
-   placement within atol 3e-5 and pipelined bitwise equal to
+   one row, through NCCL's all_reduce (an all_to_all or all-gather over
+   an axis of one rank returns its input and runs no collective), equal
+   to its naive placement within atol 3e-5 and pipelined bitwise equal to
    sequential); mesh-naive-wide (NCCL, one rank; 20 rows of w (4096,
    4096) and b (37,), 2^24+37 f32 coordinates; cm, rfa, krum, bucket_cm
    at radius 3.0, five timed steps each, the clip factors from each row's
@@ -242,12 +243,55 @@ Phases (any failure raises, prints no result and exits non-zero):
    at 32,768, and layer 0's chunked SSD at S = 1,024 in f32 within 1e-4
    of its max-abs of the recurrence run step by step in float64).  Each
    prints ms, tokens/s and the peak of ``torch.cuda.max_memory_allocated``.
-10. A ``{"kernels": [...]}`` line, then the card line, then the result.
+10. The mesh trainer and the decode launcher (``repro_torch.launch.train``,
+    ``launch/serve.py``'s decode mode), each run printing its wall seconds,
+    the card's name and power limit and its reduced sizes:
+    train-minitron-wide (NCCL, one rank, the (1, 1) mesh: one worker;
+    minitron-8b at full width with 2 of its 32 layers, bf16, remat,
+    train_4k's seq 4,096 with batch 1, the default plan: sharded CM with
+    alpha 2; 4 steps on a tape, a full round then three difference
+    rounds: the params x - gamma g bit for bit; the step's aggregate
+    (``make_train_step``'s ``on_aggregate``) within 1e-4 of each leaf's
+    max-abs of its definition, the gradient at x+ (full round, the CM of
+    one row) or min(1, lambda/||d||) d (difference rounds, d the
+    gradients' difference), each gradient from its own
+    ``_value_and_grad`` call, with the clip factor the aggregate shows
+    printed beside the plain one; g+ (agg, or g + agg cast to bf16)
+    within 2^-7; ms a step, tokens/s, peak GB, launches and collectives,
+    which stay on the card: over the axes of one rank the port runs no
+    all_to_all and no all-gather);
+    train-robust-8rank (gloo, eight processes on cuda:0, the (4, 2) mesh:
+    the reference's robustness job, tests/test_mesh_trainer.py:588-635,
+    gauss from one of 4 workers, 25 steps, the default plan and mean on
+    the naive placement, then the same job on the CPU in the same ranks:
+    CM below its start and below mean - 0.05 on both; the card against
+    the CPU: the loss on batch 0 after each step within rtol 1e-4 at every
+    step for CM and at the first two for mean (which takes gauss's noise
+    whole and runs away chaotically from there), g after the first step
+    within 1e-4 of each leaf's max-abs for both; every rank's params
+    equal bit for bit,
+    launches and collectives per rank on gloo's host route);
+    train-example (``python -m repro_torch.train_marina_pp --smoke
+    --steps 8 --ckpt-dir``, eight gloo ranks on cuda:0: OK, and the
+    checkpoint restores to the final params); decode-minitron
+    (minitron-8b as configured, 32 layers, bf16, on decode_32k's cache of
+    32,768 with the batch cut to 8: 16 ``make_serve_step`` steps from
+    index 0 against ``apply_prefill`` of the same tokens (one token and
+    t + 1 tokens run GEMMs of other shapes, whose bf16 roundings differ
+    by 2.7e-2 of the logits' max-abs after 32 layers: held within 6e-2,
+    and at least 0.9 of the greedy tokens equal to the prefill's argmax),
+    ms a token at index 32,767, tokens/s, peak GB; the same 16 steps in
+    f32 at batch 2, held to the prefill at atol 2e-3 and rtol 2e-2; then ``python -m
+    repro_torch.launch.serve --arch minitron_8b`` and ``python -m
+    repro_torch.serve_demo``, which must print OK).  Rows 1-3
+    (``row_norms``, ``clip_bucket_select``, ``coordinate_median``) must
+    be launched on both trainer runs.
+11. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
-    in every in-process run and the mesh runs (the spawned ones summed
-    over their ranks).
+    in every in-process run, the mesh runs and the trainer runs (the
+    spawned ones summed over their ranks).
 """
 import dataclasses
 import functools
@@ -3031,10 +3075,13 @@ def mesh_fig2(mesh):
                                        rtol=0.0, atol=MESH_ATOL))
     _print_mesh_run("sharded-1rank", wall, ops.launch_counts(),
                     collective_counts())
-    if not {"all_to_all", "all_reduce", "all_gather"} <= set(
-            _check_routes("sharded-1rank", collective_counts(), "device")):
-        raise AssertionError("the one-rank sharded placement ran without "
-                             "its collectives")
+    # over axes of one rank the scatter and the gathers are the identity
+    # and run no collective; the row statistics' reductions still do
+    if set(_check_routes("sharded-1rank", collective_counts(),
+                         "device")) != {"all_reduce"}:
+        raise AssertionError("the one-rank sharded placement ran "
+                             f"{sorted(collective_counts())}, not only its "
+                             "all_reduce")
     print(f"  sharded-1rank          {3 * len(configs)} steps: pipelined "
           f"bitwise equal to sequential, sharded vs naive max abs err "
           f"{worst:.3e} [atol {MESH_ATOL:g}]")
@@ -3680,6 +3727,526 @@ def models_path(card):
     print(f"  phase 9 wall {time.perf_counter() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mesh trainer and the decode launcher
+# ---------------------------------------------------------------------------
+
+# train-minitron-wide: a full round, then three difference rounds, on a tape
+TRAIN_COINS = (True, False, False, False)
+# the step's whole aggregate (``make_train_step``'s on_aggregate) against
+# its definition from separate gradients, d their difference: CM of one
+# row is the row, clipped on difference rounds, so the aggregate must be
+# d's entries times the clip factor, cast to the messages' bf16, bit for
+# bit, where the factor is the one the kernels give for d (row_norms' sums
+# over the whole tree); that factor within TRAIN_FACTOR_RTOL of the plain
+# code's (torch's f32 sums, in another order); and g+ = agg, or g + agg in
+# f32 cast to bf16, bit for bit
+TRAIN_FACTOR_RTOL = 1e-5
+# train-robust-8rank (tests/test_torch_train_mesh.py holds the same job
+# and thresholds on the CPU: CM 5.5637 -> 5.4504, mean 11455 after 25
+# steps)
+ROBUST_STEPS, ROBUST_MARGIN, ROBUST_RTOL = 25, 0.05, 1e-4
+# mean takes gauss's noise whole every round: its loss climbs from the
+# first step on and the runs part chaotically (a relative change of
+# 1e-7 in the initial params moves the loss after the third step by
+# 1.2e-4 and after the fourth by 5e-3 on the CPU), so the card is held
+# to the CPU on mean's loss after the first ROBUST_MEAN_HELD steps, and
+# on g after the first step (the first aggregate, of the TM kernel) at
+# ROBUST_G_REL of each leaf's max-abs
+ROBUST_MEAN_HELD, ROBUST_G_REL = 2, 1e-4
+ROBUST_TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, d_ff=128, vocab=256, remat=False,
+                   dtype="float32")
+EXAMPLE_STEPS = 8
+# decode-minitron: decode_32k's cache with its batch of 128 cut to 8
+DECODE_B, DECODE_LEN, DECODE_CHECK, DECODE_TIMED = 8, 32768, 16, 8
+# the f32 check's batch: 39.5 GB of weights and 17.2 of cache; two rows,
+# so that a cache write that crosses rows shows
+DECODE_F32_B = 2
+# bf16 at batch 8 against the prefill, of the logits' max-abs, and the
+# share of greedy tokens equal to the prefill's argmax: one token and t + 1
+# tokens run GEMMs of other shapes, whose bf16 roundings grow over 32
+# layers to 2.69e-2 and 0.953 (PERF.md, phase 10); a wrong cache or a
+# wrong row moves both far past these bounds
+DECODE_BF16_REL, DECODE_BF16_AGREE = 6e-2, 0.9
+TRAIN_TIMEOUT = 600  # seconds for a spawned job or a subprocess
+TRAINER_KERNELS = ("row_norms", "clip_bucket_select", "coordinate_median")
+
+
+def _check_train_step(old, new, agg, cfg, tc, batch, full):
+    """The one-worker (1, 1) step against its definition: x+ = x - gamma g
+    (f32, cast back) bit for bit; the step's whole aggregate ``agg`` (in
+    the messages' dtype) = the gradient at x+ (full round: CM of one row
+    is the row) or f d, with d the gradients' difference and f = min(1,
+    lambda/||d||), lambda = 2 gamma ||g|| (CM clipped at lambda), bit for
+    bit, with ||d|| from the ``row_ssq`` wrapper on d's leaves (on the
+    card, the kernel) and f held to the plain code's; g+ = agg, or g + agg
+    in f32 cast to g's dtype, bit for bit.  Each gradient comes from its
+    own ``_value_and_grad`` call.  Returns the kernels' and the plain
+    code's clip factors (None on a full round)."""
+    import torch
+
+    from repro_torch.core.tree_utils import tree_flatten, tree_norm
+    from repro_torch.kernels.clip_aggregate import clip_factor, row_ssq
+
+    p_old, g_old = tree_flatten(old.params)[0], tree_flatten(old.g)[0]
+    for i, (x, g, got) in enumerate(zip(p_old, g_old,
+                                        tree_flatten(new.params)[0])):
+        if not torch.equal(got, (x.float() - tc.gamma * g.float()).to(
+                x.dtype)):
+            raise AssertionError(f"train-minitron-wide: params leaf {i} is "
+                                 "not x - gamma g")
+    want = _value_and_grad(new.params, cfg, batch)[2]
+    factor = plain = None
+    if not full:
+        old_grads = _value_and_grad(old.params, cfg, batch)[2]
+        for a, b in zip(want, old_grads):
+            a.sub_(b)  # the difference, in the gradient dtype
+        del old_grads
+        radius = 2.0 * tc.gamma * tree_norm(g_old)
+        ssq = sum(row_ssq(d.reshape(1, -1)) for d in want)
+        factor = clip_factor(torch.sqrt(ssq), radius).float()
+        plain = torch.clamp(radius / torch.sqrt(sum(
+            (d.float() ** 2).sum() for d in want)), max=1.0)
+        if not abs(float(factor) - float(plain)) <= (TRAIN_FACTOR_RTOL *
+                                                     float(plain)):
+            raise AssertionError(f"train-minitron-wide: clip factor "
+                                 f"{float(factor):.8f} from row_ssq, "
+                                 f"{float(plain):.8f} from torch's sums")
+    for i, (a, got, g, w) in enumerate(zip(agg, tree_flatten(new.g)[0],
+                                           g_old, want)):
+        # on the card (bf16 values and their differences are exact in
+        # f32): a host copy of the 1.05e9-value embedding would take
+        # seconds a leaf
+        ref = w if factor is None else (w.float() * factor).to(w.dtype)
+        if not torch.equal(a, ref):
+            k = int((a.float() - ref.float()).abs().argmax())
+            raise AssertionError(
+                f"train-minitron-wide aggregate leaf {i} {tuple(a.shape)}: "
+                f"entry {k} is {float(a.reshape(-1)[k]):.6e}, its "
+                f"definition {float(ref.reshape(-1)[k]):.6e}")
+        ref = (ref if factor is None else g.float() + ref.float()).to(
+            g.dtype)
+        if not (bool(torch.isfinite(got).all()) and torch.equal(got, ref)):
+            raise AssertionError(f"train-minitron-wide g leaf {i}: max err "
+                                 f"{float((got - ref).abs().max()):.3e}")
+    if factor is None:
+        return None, None
+    return float(factor), float(plain)
+
+
+def train_minitron_wide(card, work):
+    """train-minitron-wide: the trainer on NCCL with one rank, the (1, 1)
+    mesh (one worker), minitron-8b at full width with 2 layers, bf16,
+    remat, seq 4,096, the default plan (sharded CM, alpha 2); 4 steps on a
+    tape, each checked against its definition.  Returns the launches."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
+                                          TrainTape, make_train_step,
+                                          train_key, worker_grads)
+    from repro_torch.models import init_params, param_count
+
+    t0 = _run_header(
+        "train-minitron-wide", card,
+        f"n_layers 32 -> 2, train_4k's batch 256 -> 1 (seq {TRAIN_SEQ}), "
+        f"one worker on the (1, 1) mesh, 4 steps (coins {TRAIN_COINS})")
+    cfg = get_config("minitron_8b", n_layers=2)
+    tc = ByzTrainConfig(n_byz=0)  # the default plan; gamma 3e-4
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous_train"), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        params = init_params(MODEL_SEED, cfg)
+        batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
+                   for k in range(len(TRAIN_COINS) + 1)]
+        g0 = tree_unflatten(tree_flatten(params)[1],
+                            worker_grads(params, cfg, batches[0]))
+        state = MeshTrainState(params, g0, train_key(tc.seed),
+                               torch.zeros((), dtype=torch.int32))
+        del params, g0
+        n = len(TRAIN_COINS)
+        tape = TrainTape(c=np.array(TRAIN_COINS), sampled=np.ones((n, 1), bool),
+                         order=np.zeros((n, 1), np.int64))
+        probe = []
+        step = make_train_step(cfg, mesh, tc, on_aggregate=lambda full, agg:
+                               probe.append(agg))
+        print(f"    {param_count(cfg):,} parameters, {cfg.dtype}, remat "
+              f"{cfg.remat}; g^0 and init {time.perf_counter() - t0:.3f} s; "
+              "check: params, the step's aggregate and g bit for bit, the "
+              f"clip factor within {TRAIN_FACTOR_RTOL:g} of the plain one")
+        for k, full in enumerate(TRAIN_COINS):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            reset_collective_counts()
+            new, ms = _timed(lambda: step(state, batches[k + 1], tape))
+            peak = _peak_gb()
+            launched = {a: b for a, b in ops.launch_counts().items() if b}
+            colls = collective_counts()
+            for a, b in ops.launch_counts().items():
+                counts[a] += b
+            _check_routes(f"train-minitron-wide step {k}", colls, "device")
+            factor, plain = _check_train_step(
+                state, new, probe.pop(), cfg, tc, batches[k + 1], full)
+            kind = "full round" if full else (
+                f"difference round, clip factor {factor:.8f} (plain "
+                f"{plain:.8f})")
+            print(f"    step {k} ({kind}): {ms:.1f} ms, "
+                  f"{TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GB; "
+                  f"aggregate and g+ equal to their definitions; launches "
+                  f"{launched}; collectives {colls}")
+            state = new
+            del new
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del state, batches
+    print(f"    train-minitron-wide wall {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def _robust_job(rank, devices):
+    """One rank of train-robust-8rank: the reference's robustness job
+    (tests/test_mesh_trainer.py:588-635) on the (4, 2) mesh, once a
+    device of ``devices``: per device and plan the loss on batch 0 before
+    and after each of ROBUST_STEPS steps, the final params' digest and ms
+    a step;
+    the card run's launches and collectives; per plan the worst leaf error
+    of g after the first step of the first device over the second's, of
+    the leaf's max-abs."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.api import AggregatorSpec, ScheduleSpec, ServerPlan
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
+                                          make_train_step, train_key,
+                                          worker_grads)
+    from repro_torch.models import ModelConfig, apply_train, init_params
+
+    torch.set_num_threads(1)
+    cfg = ModelConfig(**ROBUST_TINY)
+    mesh = make_debug_mesh(4, 2)
+    out, g1 = {}, {}
+    for dev in devices:
+        if dev == "cuda":
+            ops.reset_launch_counts()
+            reset_collective_counts()
+        for agg in ("cm", "mean"):
+            if agg == "cm":  # the default plan: sharded CM, alpha = 2
+                tc = ByzTrainConfig(gamma=0.3, n_byz=1, attack="gauss",
+                                    p=0.125)
+            else:
+                tc = ByzTrainConfig.from_plan(
+                    ServerPlan(aggregate=AggregatorSpec("mean"),
+                               schedule=ScheduleSpec(placement="naive")),
+                    gamma=0.3, n_byz=1, attack="gauss", p=0.125)
+            step = make_train_step(cfg, mesh, tc)
+            # weights and batches drawn on the CPU, so that the card's run
+            # starts where the CPU's does (a CUDA generator draws others)
+            it = (_to(b, dev) for b in make_batch_iterator(
+                cfg, 8, 64, seed=3, device="cpu"))
+            params = _to(init_params(0, cfg, device="cpu"), dev)
+            batch0 = next(it)
+            g0 = tree_unflatten(tree_flatten(params)[1],
+                                worker_grads(params, cfg, batch0))
+            state = MeshTrainState(params, g0, train_key(tc.seed),
+                                   torch.zeros((), dtype=torch.int32))
+            with torch.no_grad():
+                start = float(apply_train(params, cfg, batch0)[0])
+            losses, spent = [], 0.0
+            for k in range(ROBUST_STEPS):
+                t = time.perf_counter()
+                state = step(state, next(it))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                spent += time.perf_counter() - t
+                if k == 0:
+                    g1[(dev, agg)] = [x.cpu() for x in
+                                      tree_flatten(state.g)[0]]
+                with torch.no_grad():
+                    losses.append(float(apply_train(state.params, cfg,
+                                                    batch0)[0]))
+            digest = hashlib.sha256()
+            for leaf in tree_flatten(state.params)[0]:
+                digest.update(leaf.cpu().numpy().tobytes())
+            out[(dev, agg)] = (start, losses, digest.hexdigest(),
+                               spent * 1e3 / ROBUST_STEPS)
+        if dev == "cuda":
+            out["launches"] = ops.launch_counts()
+            out["collectives"] = collective_counts()
+    for agg in ("cm", "mean"):  # g after the first step, card against CPU
+        out["g1 " + agg] = max(
+            float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(g1[(devices[0], agg)], g1[(devices[1], agg)]))
+    return out
+
+
+def train_robust(card):
+    """train-robust-8rank: eight gloo ranks on cuda:0, then the same job on
+    the CPU in the same ranks; returns the card run's launches summed over
+    the ranks."""
+    from repro_torch.launch.mesh import spawn
+
+    t0 = _run_header(
+        "train-robust-8rank", card,
+        "none (the reference's robustness job: 2 layers, d_model 64, vocab "
+        f"256, f32, batch 8 x 64, gauss x1 of 4 workers, {ROBUST_STEPS} "
+        "steps)")
+    reports = spawn(_robust_job, 8, (("cuda", "cpu"),), timeout=TRAIN_TIMEOUT)
+    first = reports[0]
+    for rank, rep in enumerate(reports):
+        for key in (k for k in rep if isinstance(k, tuple)):
+            if rep[key][2] != first[key][2]:
+                raise AssertionError(f"train-robust-8rank rank {rank} {key}: "
+                                     "params differ from rank 0's")
+        _check_routes(f"train-robust-8rank rank {rank}", rep["collectives"],
+                      "host")
+    for dev in ("cuda", "cpu"):
+        (cm0, cm, _, cm_ms), (_, mean, _, mean_ms) = (first[(dev, "cm")],
+                                                      first[(dev, "mean")])
+        if not (cm[-1] < cm0 and cm[-1] < mean[-1] - ROBUST_MARGIN):
+            raise AssertionError(f"train-robust-8rank on {dev}: cm {cm0} -> "
+                                 f"{cm[-1]}, mean {mean[-1]}")
+        print(f"    {dev}: cm {cm0:.6f} -> {cm[-1]:.6f} ({cm_ms:.1f} ms a "
+              f"step), mean -> {mean[-1]:.6f} ({mean_ms:.1f} ms a step); "
+              "every rank's params equal bit for bit")
+    # the card against the CPU, step by step: CM at every step, mean after
+    # its first ROBUST_MEAN_HELD steps; g after the first step for both
+    for agg in ("cm", "mean"):
+        card, cpu = first[("cuda", agg)][1], first[("cpu", agg)][1]
+        held = len(card) if agg == "cm" else ROBUST_MEAN_HELD
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        bad = [k for k in range(held) if not rel[k] <= ROBUST_RTOL]
+        if bad:
+            raise AssertionError(f"train-robust-8rank {agg}: card vs CPU loss"
+                                 f" after step {bad[0]}: {card[bad[0]]} vs "
+                                 f"{cpu[bad[0]]} (rtol {ROBUST_RTOL:g})")
+        g1 = max(rep["g1 " + agg] for rep in reports)
+        if not g1 <= ROBUST_G_REL:
+            raise AssertionError(f"train-robust-8rank {agg}: g after the "
+                                 f"first step, card vs CPU {g1:.3e} of "
+                                 "max-abs")
+        parted = next((k for k, r in enumerate(rel) if r > ROBUST_RTOL), None)
+        print(f"    {agg} card vs CPU: g after step 0 {g1:.2e} of max-abs "
+              f"[{ROBUST_G_REL:g}]; the loss after steps 0-{held - 1} at "
+              f"most {max(rel[:held]):.2e} [rtol {ROBUST_RTOL:g}], over all "
+              f"{len(rel)} steps {max(rel):.2e} (first beyond the rtol: "
+              f"{parted}); final card {card[-1]:.6f}, CPU {cpu[-1]:.6f}")
+    total = {}
+    for rank, rep in enumerate(reports):
+        launched = {k: v for k, v in rep["launches"].items() if v}
+        print(f"    rank {rank}: launches {launched}; collectives "
+              f"{rep['collectives']}")
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    print(f"    checks: cm below its start and below mean - {ROBUST_MARGIN:g}"
+          f" on both, the card's loss vs the CPU's [rtol {ROBUST_RTOL:g}] "
+          f"after every step for cm and the first {ROBUST_MEAN_HELD} for "
+          f"mean, g after the first step [{ROBUST_G_REL:g} of max-abs], "
+          f"gloo's host route; wall {time.perf_counter() - t0:.3f} s")
+    return total
+
+
+def train_example(card, work, src):
+    """train-example: ``python -m repro_torch.train_marina_pp --smoke
+    --steps 8 --ckpt-dir``, eight gloo ranks on cuda:0; OK, and the
+    checkpoint restores to the final params."""
+    import os
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.models import init_params
+    from repro_torch.train_marina_pp import build_config, params_digest
+
+    t0 = _run_header("train-example", card,
+                     f"--smoke --steps {EXAMPLE_STEPS} (the example's own "
+                     "smoke size)")
+    ckpt = work / "example_ckpt"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.train_marina_pp", "--smoke",
+         "--steps", str(EXAMPLE_STEPS), "--ckpt-dir", str(ckpt)],
+        cwd=src.parent, env=dict(os.environ, PYTHONPATH=str(src)),
+        capture_output=True, text=True, timeout=TRAIN_TIMEOUT)
+    lines = r.stdout.rstrip().splitlines()
+    if r.returncode != 0 or not lines or lines[-1] != "OK":
+        raise AssertionError(f"train-example: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    for line in lines:
+        print(f"    | {line}")
+    digest = params_digest(restore(str(ckpt), EXAMPLE_STEPS, init_params(
+        0, build_config(True), device="cpu")))
+    if f"final params sha256 {digest}" not in r.stdout:
+        raise AssertionError("train-example: the checkpoint does not "
+                             "restore to the final params")
+    print(f"    the checkpoint restores to the final params (sha256 "
+          f"{digest[:16]}...); wall {time.perf_counter() - t0:.3f} s")
+
+
+def _decode_steps(params, cfg, cache, tokens, hold):
+    """DECODE_CHECK ``make_serve_step`` steps from index 0, step t's logits
+    against ``apply_prefill`` of the first t + 1 tokens (held at phase
+    9's atol 2e-3 and rtol 2e-2 when ``hold``); returns the last next
+    tokens, the cache, the worst abs error, the worst error over the
+    prefill's max-abs and the share of greedy tokens equal to the
+    prefill's argmax."""
+    import torch
+
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models import apply_prefill
+
+    step = make_serve_step(cfg)
+    worst, worst_rel, agree = 0.0, 0.0, 0
+    for t in range(DECODE_CHECK):
+        nxt, logits, cache = step(params, {"tokens": tokens[:, t:t + 1]},
+                                  cache, t)
+        with torch.no_grad():
+            want = apply_prefill(params, cfg, {"tokens": tokens[:, :t + 1]})
+        err = (logits - want).abs()
+        if not bool(torch.isfinite(logits).all()) or (hold and not bool(
+                (err <= 2e-3 + 2e-2 * want.abs()).all())):
+            raise AssertionError(f"decode-minitron {cfg.dtype} step {t}: "
+                                 "differs from the prefill by "
+                                 f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+        worst_rel = max(worst_rel, float(err.max() / want.abs().max()))
+        agree += int((nxt == want.argmax(dim=-1)).sum())
+    if not (nxt.dtype == torch.int32 and nxt.shape == tokens.shape[:1]):
+        raise AssertionError(f"decode-minitron: next tokens {nxt.dtype} "
+                             f"{tuple(nxt.shape)}")
+    return nxt, cache, worst, worst_rel, agree / nxt.numel() / DECODE_CHECK
+
+
+def decode_minitron(card, src):
+    """decode-minitron: minitron-8b as configured on decode_32k's cache
+    (batch cut to 8, bf16): 16 decode steps from 0 against the prefill of
+    the same tokens (bounds for bf16's roundings) and timed steps at the
+    cache's last index; the same 16 steps in f32 at batch 2, held to the
+    prefill at phase 9's tolerance; then the decode launcher and the demo
+    as subprocesses."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models import init_cache, init_params, param_count
+
+    t0 = _run_header("decode-minitron", card,
+                     f"decode_32k's batch 128 -> {DECODE_B} in bf16 and -> "
+                     f"{DECODE_F32_B} in f32 (cache {DECODE_LEN})")
+    cfg = get_config("minitron_8b")
+    params = init_params(MODEL_SEED, cfg)
+    cache = init_cache(cfg, DECODE_B, DECODE_LEN)
+    cache_gb = sum(t.numel() * t.element_size() for t in
+                   (cache["body"][0]["k"], cache["body"][0]["v"])) / 1e9
+    step = make_serve_step(cfg)
+    tokens = synthetic_batch(MODEL_SEED + 3, cfg, DECODE_B,
+                             DECODE_CHECK)["tokens"]
+    torch.cuda.synchronize()
+    print(f"    {param_count(cfg):,} parameters, {cfg.n_layers} layers, "
+          f"{cfg.dtype}; cache {cache_gb:.2f} GB; init "
+          f"{time.perf_counter() - t0:.3f} s")
+    nxt, cache, worst, rel, agree = _decode_steps(params, cfg, cache, tokens,
+                                                  hold=False)
+    print(f"    bf16: {DECODE_CHECK} decode steps from index 0 vs the "
+          f"prefill of the same tokens: max abs err {worst:.3e} ({rel:.2e} "
+          f"of max-abs) [{DECODE_BF16_REL:g}], greedy tokens equal to the "
+          f"prefill's argmax {agree:.3f} [{DECODE_BF16_AGREE:g}]")
+    if not (rel <= DECODE_BF16_REL and agree >= DECODE_BF16_AGREE):
+        raise AssertionError("decode-minitron bf16: the decode steps "
+                             "part from the prefill")
+    torch.cuda.reset_peak_memory_stats()
+    tok = nxt[:, None]
+    ms = []
+    for _ in range(DECODE_TIMED):
+        (nxt, _, cache), m = _timed(lambda: step(
+            params, {"tokens": tok}, cache, DECODE_LEN - 1))
+        ms.append(m)
+    if not bool(((nxt >= 0) & (nxt < cfg.vocab)).all()):
+        raise AssertionError("decode-minitron: tokens outside the vocabulary")
+    print(f"    at cache index {DECODE_LEN - 1}: {statistics.median(ms):.1f} "
+          f"ms a token (median of {DECODE_TIMED}; first {ms[0]:.1f}, range "
+          f"{min(ms):.1f}-{max(ms):.1f}), "
+          f"{DECODE_B / statistics.median(ms) * 1e3:.1f} tokens/s, peak "
+          f"{_peak_gb():.2f} GB")
+    del params, cache
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    params = init_params(MODEL_SEED, cfg32)
+    _, _, worst, rel, agree = _decode_steps(
+        params, cfg32, init_cache(cfg32, DECODE_F32_B, DECODE_LEN),
+        tokens[:DECODE_F32_B], hold=True)
+    print(f"    f32 at batch {DECODE_F32_B}: {DECODE_CHECK} decode steps vs "
+          f"the prefill: max abs err {worst:.3e} ({rel:.2e} of max-abs) "
+          f"[atol 2e-3, rtol 2e-2]; greedy tokens equal {agree:.3f}")
+    del params
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(src))
+    for cmd, want_ok in (
+            (["-m", "repro_torch.launch.serve", "--arch", "minitron_8b"],
+             False),
+            (["-m", "repro_torch.serve_demo"], True)):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, *cmd], cwd=src.parent, env=env,
+                           capture_output=True, text=True,
+                           timeout=TRAIN_TIMEOUT)
+        lines = r.stdout.rstrip().splitlines()
+        if r.returncode != 0 or not lines or (want_ok and lines[-1] != "OK"):
+            raise AssertionError(f"{' '.join(cmd)}: rc {r.returncode}\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        print(f"    {' '.join(cmd[1:])}: {lines[0]}"
+              f"{' ... OK' if want_ok else ''} "
+              f"({time.perf_counter() - t:.3f} s)")
+    print(f"    decode-minitron wall {time.perf_counter() - t0:.3f} s")
+
+
+def train_path(card):
+    """Phase 10: the mesh trainer and the decode launcher; returns the
+    trainer runs' launch counts."""
+    import shutil
+
+    import torch
+
+    print("mesh trainer and decode")
+    t0 = time.perf_counter()
+    src = Path(__file__).resolve().parent / "src"
+    work = src.parent / "build" / "chip_smoke_phase10"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    torch.cuda.empty_cache()
+    counts = {"train-minitron-wide": train_minitron_wide(card, work)}
+    counts["train-robust-8rank"] = train_robust(card)
+    for run, c in counts.items():
+        missing = [k for k in TRAINER_KERNELS if not c.get(k)]
+        if missing:
+            raise AssertionError(f"{run}: {missing} not launched")
+    train_example(card, work, src)
+    decode_minitron(card, src)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"  phase 10 wall {time.perf_counter() - t0:.3f} s")
+    return counts
+
 
 def main():
     import torch
@@ -3769,7 +4336,10 @@ def main():
     # 9. the model zoo
     models_path(card)
 
-    # 10. the kernels line, the card, the result
+    # 10. the mesh trainer and the decode launcher
+    counts.update(train_path(card))
+
+    # 11. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

@@ -47,7 +47,10 @@ TCP on the CPU and copies the result back), so on gloo a CUDA tensor
 costs a collective on the host plus two copies.  ``collective_counts()``
 gives the calls, the bytes each collective returned on this rank and its
 route ("device": NCCL; "host": gloo on CUDA tensors, staged through the
-host; "cpu": CPU tensors) since ``reset_collective_counts()``.
+host; "cpu": CPU tensors) since ``reset_collective_counts()``.  Over
+an axis of one rank an all_to_all or an all-gather is the identity: the
+tensor is returned as it is, with no collective and no copy, and is not
+counted (the reductions of ``reduce_fn`` still run there).
 """
 from __future__ import annotations
 
@@ -109,6 +112,8 @@ def _all_to_all(x, mesh, axis, async_op: bool):
     """all_to_all over ``axis`` of the dim-0 chunks of contiguous ``x``:
     chunk j goes to the rank at coordinate j, and chunk j of the result
     came from it.  Returns (result, Work or None)."""
+    if axis_size(mesh, axis) == 1:
+        return x, None
     out, group = torch.empty_like(x), mesh.get_group(axis)
     work = dist.all_to_all_single(out, x, group=group, async_op=async_op)
     _count("all_to_all", out, group)
@@ -118,6 +123,8 @@ def _all_to_all(x, mesh, axis, async_op: bool):
 def _all_gather(x, mesh, axis, dim: int = 0):
     """The pieces of ``x`` of the ranks along ``axis``, concatenated along
     ``dim`` in coordinate order."""
+    if axis_size(mesh, axis) == 1:
+        return x
     group = mesh.get_group(axis)
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((dist.get_world_size(group) * xt.shape[0],

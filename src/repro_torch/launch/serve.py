@@ -1,28 +1,33 @@
-"""The serving launcher, the counterpart of ``repro.launch.serve``: two of
-its three products.
+"""The serving launcher, the counterpart of ``repro.launch.serve``: its
+three products.
 
-1. **Robust scoring** (``--mode score``): each request carries an (n, d)
+1. **Model serving** (``--mode decode``, the default): batched prefill
+   and incremental decode, one new token a step against the KV cache
+   (``make_serve_step``: greedy argmax, int32 tokens; ``decode_32k`` is
+   batch 128 x cache 32,768).  The CLI decodes the ``--arch`` smoke
+   config with random weights, as the reference's does.
+2. **Robust scoring** (``--mode score``): each request carries an (n, d)
    matrix of client updates; :func:`make_scoring_step` runs the plan's
    clip -> bucket -> aggregate composition on it (through the kernels on
    the card) and returns the robust aggregate with per-client
    diagnostics: distance to the aggregate (the outlier score), clip
    factor and message norm.  A request carries no iterate pair, so plans
    clip with a static ``ClipSpec(radius=)`` or not at all.
-2. **Streaming aggregation** (``--mode stream``): synthetic clients
+3. **Streaming aggregation** (``--mode stream``): synthetic clients
    submit rows one at a time, the server (``repro_torch.serve``)
    assembles them into per-round cohorts on the card, closes a round on
    a cohort-size or deadline trigger and fans the aggregate out to every
    submitter's ticket; ``--fault-json`` injects a fault plan, and
    ``--ckpt-dir`` / ``--resume`` make the run survive a SIGKILL.
 
+    python -m repro_torch.launch.serve --arch jamba_v01_52b --tokens 24
     python -m repro_torch.launch.serve --mode score --aggregator krum \\
         --requests 8 --clients 16 --dim 4096 --clip-radius 5.0
     python -m repro_torch.launch.serve --mode stream --aggregator krum \\
         --clients 16 --dim 4096 --rounds 8 --cohort-size 12
     python -m repro_torch.launch.serve --mode stream --device cpu ...
 
-Both run on the card unless ``--device cpu`` is given.  ``--mode
-decode`` (model serving on the mesh) is not ported yet and raises.
+Every mode runs on the card unless ``--device cpu`` is given.
 
 The client stream is stateless: block b of n submissions is drawn from
 ``np.random.RandomState([seed, b])`` by ``SyntheticCohort``, as the
@@ -41,9 +46,86 @@ import torch
 from .._device import resolve_device
 from ..api import PlanError, ServerPlan
 from ..kernels.clip_aggregate import clip_factor
+from ..models.model import apply_decode, apply_prefill, init_cache, init_params
 from ..serve.server import round_key
 
-__all__ = ["run_stream", "latency_ms", "make_scoring_step", "main"]
+__all__ = ["make_prefill_step", "make_serve_step", "abstract_serve_inputs",
+           "decode_batch", "run_stream", "latency_ms", "make_scoring_step",
+           "main"]
+
+
+# ---------------------------------------------------------------------------
+# model serving (decode path)
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(model_cfg):
+    def prefill_step(params, batch):
+        return apply_prefill(params, model_cfg, batch)
+
+    return prefill_step
+
+
+def make_serve_step(model_cfg):
+    """serve_step(params, batch, cache, cache_index) -> (next_token,
+    logits, cache): greedy next tokens (B,) int32, the logits (B, vocab)
+    f32 and the cache with the step's keys and values written in."""
+
+    def serve_step(params, batch, cache, cache_index):
+        with torch.no_grad():
+            logits, new_cache = apply_decode(params, model_cfg, batch, cache,
+                                             cache_index)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_token, logits, new_cache
+
+    return serve_step
+
+
+def abstract_serve_inputs(model_cfg, batch: int, cache_len: int):
+    """(params, batch, cache, cache_index) on "meta" tensors: the shapes
+    and dtypes of a decode step, nothing allocated."""
+    params = init_params(0, model_cfg, device="meta")
+    b = {"tokens": torch.empty((batch, 1), dtype=torch.int32, device="meta")}
+    if model_cfg.input_kind == "tokens+vision":
+        b["vision"] = torch.empty(
+            (batch, model_cfg.n_vision_tokens, model_cfg.d_model),
+            dtype=model_cfg.jdtype, device="meta")
+    cache = init_cache(model_cfg, batch, cache_len, device="meta")
+    idx = torch.empty((), dtype=torch.int32, device="meta")
+    return params, b, cache, idx
+
+
+def decode_batch(model_cfg, tokens):
+    """A decode step's batch: ``tokens`` (B, 1), with the VLM's vision
+    tokens (zeros) when the config takes them."""
+    batch = {"tokens": tokens}
+    if model_cfg.input_kind == "tokens+vision":
+        batch["vision"] = torch.zeros(
+            (tokens.shape[0], model_cfg.n_vision_tokens, model_cfg.d_model),
+            dtype=model_cfg.jdtype, device=tokens.device)
+    return batch
+
+
+def _main_decode(args):
+    from ..configs.registry import get_smoke_config
+
+    cfg = get_smoke_config(args.arch)
+    if not cfg.causal:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
+    dev = resolve_device(args.device)
+    params = init_params(0, cfg, device=dev)
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, args.batch, args.tokens + 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (args.batch, 1), generator=gen,
+                        dtype=torch.int32, device=dev)
+    t0 = time.time()
+    for t in range(args.tokens):
+        nxt, _, cache = step(params, decode_batch(cfg, tok), cache, t)
+        tok = nxt[:, None]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {args.tokens} tokens x batch {args.batch} in "
+          f"{time.time() - t0:.2f}s (device={dev})")
 
 
 # ---------------------------------------------------------------------------
@@ -304,10 +386,14 @@ def main(argv=None):
     from .cli import add_attack_args, add_fault_args, add_plan_args
 
     ap = argparse.ArgumentParser(description="serving launcher")
-    ap.add_argument("--mode", default="stream",
+    ap.add_argument("--mode", default="decode",
                     choices=["decode", "score", "stream"])
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the plain PyTorch path)")
+    # decode-mode flags
+    ap.add_argument("--arch", default="minitron_8b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=24)
     ap.add_argument("--requests", type=int, default=8,
                     help="score mode: requests in the batch")
     ap.add_argument("--clients", type=int, default=16)
@@ -355,15 +441,12 @@ def main(argv=None):
     add_attack_args(ap, attack="gauss")
     add_fault_args(ap)
     args = ap.parse_args(argv)
-    if args.mode == "decode":
-        raise NotImplementedError(
-            "--mode decode (model serving on the mesh) is not ported yet "
-            "(ROADMAP queue 1: the mesh trainer on torch.distributed, then "
-            "the decode mode)")
     if args.mode == "score":
         _main_score(args)
-    else:
+    elif args.mode == "stream":
         _main_stream(args)
+    else:
+        _main_decode(args)
 
 
 if __name__ == "__main__":

@@ -254,12 +254,13 @@ def init_gqa(rng: Draw, cfg, dtype):
 
 def _write_at(buf, update, index):
     """``buf`` with ``update`` written along dim 1 from ``index``, the
-    start clamped so the update fits, as ``dynamic_update_slice`` does."""
+    start clamped so the update fits, as ``dynamic_update_slice`` does.
+    The write is in place (a KV cache is not copied a token), and
+    ``buf`` itself is returned."""
     T = update.shape[1]
     start = max(0, min(int(index), buf.shape[1] - T))
-    out = buf.clone()
-    out[:, start:start + T] = update.to(buf.dtype)
-    return out
+    buf[:, start:start + T] = update.to(buf.dtype)
+    return buf
 
 
 def gqa_forward(

@@ -17,7 +17,7 @@ Entry points:
   apply_train(params, cfg, batch)            -> (loss, aux) for the train_4k shape
   apply_prefill(params, cfg, batch)          -> last-position logits (prefill_32k)
   init_cache(cfg, batch, cache_len, device)  -> decode cache tree
-  apply_decode(params, cfg, batch, cache, i) -> (logits, new_cache)   (decode shapes)
+  apply_decode(params, cfg, batch, cache, i) -> (logits, cache)  (decode; cache updated in place)
   params_from_numpy(tree, device)            -> the reference's weights as a params tree
   params_to_numpy(tree)                      -> and back
 
@@ -335,8 +335,16 @@ def _unstack(tree, n: int) -> list:
             for i in range(n)]
 
 
-def _stack(trees: list):
-    return tree_map(lambda *ls: torch.stack(ls), *trees)
+def _store(stacked, trees: list):
+    """Write ``trees[i]`` into slice i of the stacked tree, in place, and
+    return it; a slice that already is that view (an attention cache,
+    written in place) is left as it is."""
+    leaves, _ = tree_flatten(stacked)
+    for i, tree in enumerate(trees):
+        for dst, src in zip(leaves, tree_flatten(tree)[0]):
+            if src.numel() and src.data_ptr() != dst[i].data_ptr():
+                dst[i].copy_(src)
+    return stacked
 
 
 def _maybe_remat(cfg: ModelConfig, fn):
@@ -391,7 +399,7 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
                                      None if pc is None else pc[i])
             out.append(nc)
         if pc is not None:
-            new_caches["prefix"] = _stack(out)
+            new_caches["prefix"] = _store(caches["prefix"], out)
 
     n = cfg.n_periods
     per_pos = [_unstack(p, n) for p in params["body"]]
@@ -406,7 +414,8 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
         out.append(nc)
     if caches is not None:
         new_caches["body"] = tuple(
-            _stack([o[pos] for o in out]) for pos in range(cfg.period))
+            _store(caches["body"][pos], [o[pos] for o in out])
+            for pos in range(cfg.period))
     return x, new_caches, aux
 
 
@@ -560,7 +569,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None):
 def apply_decode(params, cfg: ModelConfig, batch, caches, cache_index):
     """One-token decode step: batch["tokens"] is (B, 1); ``cache_index`` is
     the write position (== current sequence length so far, possibly wrapped
-    by the caller for sliding windows).  Returns (logits (B, vocab), caches)."""
+    by the caller for sliding windows).  Returns (logits (B, vocab), caches).
+
+    The caches are updated in place and returned (the same tensors): the
+    reference's functional update copies the cache each step, which at
+    decode_32k's batch 128 x 32,768 would hold it three times over."""
     cache_index = int(cache_index)
     x = _embed_inputs(params, cfg, batch)
     B = x.shape[0]

@@ -2,8 +2,9 @@
 ``repro.scenarios``:
 
 - :mod:`repro_torch.scenarios.stage`: the attack stage (``make_context``,
-  ``AttackStage`` over the engines' (n, d) message matrix, and the
-  host-side ``SyntheticCohort`` of the streaming server);
+  ``AttackStage`` over the engines' (n, d) message matrix,
+  ``TreeAttackStage`` over the mesh trainer's worker-stacked tree, and
+  the host-side ``SyntheticCohort`` of the streaming server);
 - :mod:`repro_torch.scenarios.adaptive`: the gradient-ascent adversary
   against the differentiable view of a ``ServerPlan`` (plain rules
   directly, the CUDA kernels through a ``torch.autograd.Function`` with
@@ -13,9 +14,7 @@
   breakdown points.
 
 Scenarios are declared with :class:`repro_torch.api.ScenarioSpec` and
-consumed by both engines and the streaming launcher.  The pytree stage
-of the mesh trainer (``TreeAttackStage``) comes with the trainer (ROADMAP
-queue 1, item 3: the trainer).
+consumed by both engines, the mesh trainer and the streaming launcher.
 """
 from .adaptive import (  # noqa: F401
     ADAPTIVE_OBJECTIVES,
@@ -31,7 +30,12 @@ from .matrix import (  # noqa: F401
     collect_resilience,
     run_cell,
 )
-from .stage import AttackStage, SyntheticCohort, make_context  # noqa: F401
+from .stage import (  # noqa: F401
+    AttackStage,
+    SyntheticCohort,
+    TreeAttackStage,
+    make_context,
+)
 
 __all__ = [
     "ADAPTIVE_OBJECTIVES",
@@ -39,6 +43,7 @@ __all__ = [
     "MatrixGrid",
     "SMOKE_GRID",
     "SyntheticCohort",
+    "TreeAttackStage",
     "append_resilience",
     "breakdown_points",
     "collect_resilience",

@@ -1,10 +1,10 @@
 """The attack stage: ``make_context`` builds one round's
 ``AttackContext`` (the one place that computes the sampled-cohort
 byzantine-majority bit), ``AttackStage`` corrupts the engine's (n, d)
-message matrix, and ``SyntheticCohort`` is the host-side form that gives
-the streaming server's synthetic clients their wire rows.  The pytree
-form of ``repro.scenarios`` (``TreeAttackStage``) comes with the trainer
-(ROADMAP queue 1, item 3: the trainer)."""
+message matrix, ``TreeAttackStage`` corrupts a worker-stacked message
+tree leaf by leaf (the mesh trainer's form), and ``SyntheticCohort`` is
+the host-side form that gives the streaming server's synthetic clients
+their wire rows."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from ..core.attacks import Attack, AttackContext, make_attack
+from ..core.tree_utils import tree_flatten, tree_unflatten
 
-__all__ = ["AttackStage", "SyntheticCohort", "make_context"]
+__all__ = ["AttackStage", "TreeAttackStage", "SyntheticCohort",
+           "make_context"]
 
 
 def make_context(honest, *, good_mask, sampled, x_now=None, x_prev=None,
@@ -48,6 +50,56 @@ class AttackStage:
         payload = self.attack(ctx)
         return torch.where(ctx.good_mask[:, None], ctx.honest,
                            payload.to(ctx.honest.dtype))
+
+
+class TreeAttackStage:
+    """Pytree form for the mesh trainer: leaves are (W, ...)
+    worker-stacked messages; the attack runs once per leaf on the (W,
+    leaf_size) f32 view with the shared cohort masks.  Omniscient
+    statistics (ALIE's mu and sigma, IPM's mean) are per coordinate, so
+    per leaf they equal those of the flattened message.  Adaptive attacks
+    optimise one whole-message payload and do not decompose by leaf: they
+    raise here; iterate-reading attacks (shb) raise in :meth:`corrupt_tree`
+    (the mesh trainer tracks no x0: run them through the simulation
+    engines).
+
+    ``key`` of :meth:`corrupt_tree` is where gauss's noise comes from: a
+    ``torch.Generator`` that draws each leaf's (W, leaf_size) block in
+    leaf order (the reference folds its key per leaf instead), or a
+    sequence with one noise tensor a leaf (the reference's draws, as
+    ``core.attacks`` takes a noise tensor)."""
+
+    def __init__(self, attack):
+        self.attack: Attack = make_attack(attack)
+        if self.attack.adaptive:
+            raise ValueError(
+                f"attack {self.attack.name!r} is adaptive (whole-message "
+                "inner optimization); the mesh stage applies attacks "
+                "leafwise — run adaptive attacks through the simulation "
+                "engines (repro_torch.core) or a ScenarioSpec there")
+
+    def corrupt_tree(self, honest_tree, *, good_mask, sampled, key):
+        if self.attack.name == "none":
+            return honest_tree
+        if self.attack.needs_iterates:
+            raise ValueError(
+                f"attack {self.attack.name!r} reads the iterates (x0, "
+                "x_now), which the worker-stacked stage does not take — "
+                "pick a message-level attack, or run it through the "
+                "simulation engines (repro_torch.core)")
+        leaves, treedef = tree_flatten(honest_tree)
+        out = []
+        for i, leaf in enumerate(leaves):
+            flat = leaf.reshape(leaf.shape[0], -1).float()
+            ctx = make_context(
+                flat, good_mask=good_mask, sampled=sampled,
+                key=(key if key is None or isinstance(key, torch.Generator)
+                     else key[i].reshape(flat.shape)))
+            payload = self.attack(ctx)
+            wire = torch.where(good_mask[:, None], flat,
+                               payload.to(flat.dtype))
+            out.append(wire.reshape(leaf.shape).to(leaf.dtype))
+        return tree_unflatten(treedef, out)
 
 
 class SyntheticCohort:

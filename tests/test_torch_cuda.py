@@ -1450,3 +1450,123 @@ def test_cuda_smoke_model_bf16_step_is_finite(card, arch):
     norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
     assert bool(torch.isfinite(loss)) and float(loss) != 0.0
     assert bool(torch.isfinite(norm)) and float(norm) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# the mesh trainer and the decode launcher on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _trainer_run(device, init, steps):
+    """4 steps of the (1, 1) trainer (the smoke minitron in f32, the
+    default plan) on a tape (a full round, then three difference rounds)
+    in a one-rank group of ``init``'s backend; returns the params and g
+    leaves after every step, the launches and the collectives' routes."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
+                                          TrainTape, make_train_step,
+                                          train_key, worker_grads)
+
+    cfg, params, _ = _zoo_inputs("minitron_8b")
+    params = _zoo_to(params, device)
+    from repro_torch.data import synthetic_batch
+
+    batches = [_zoo_to(synthetic_batch(k, cfg, 2, 32, device="cpu"), device)
+               for k in range(steps + 1)]
+    backend, path = init
+    dist.init_process_group(backend, init_method="file://" + path, rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        g0 = tree_unflatten(tree_flatten(params)[1],
+                            worker_grads(params, cfg, batches[0]))
+        state = MeshTrainState(params, g0, train_key(0),
+                               torch.zeros((), dtype=torch.int32))
+        tape = TrainTape(c=np.array([True] + [False] * (steps - 1)),
+                         sampled=np.ones((steps, 1), bool),
+                         order=np.zeros((steps, 1), np.int64))
+        step = make_train_step(cfg, mesh, ByzTrainConfig(gamma=0.1))
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        out = []
+        for k in range(steps):
+            state = step(state, batches[k + 1], tape)
+            out.append([x.cpu() for x in tree_flatten(state.params)[0]
+                        + tree_flatten(state.g)[0]])
+        return (out, ops.launch_counts(),
+                {c["route"] for c in collective_counts().values()})
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_trainer_matches_the_cpu(card, tmp_path):
+    """The trainer on a one-rank NCCL mesh launches rows 1-3 (the clip
+    factors' sums, the clipped CM, the unclipped CM) and follows the CPU
+    plain path on a gloo mesh within 1e-4 of each leaf's max-abs."""
+    got, launches, routes = _trainer_run(card, ("nccl", str(tmp_path / "a")),
+                                         4)
+    want, _, _ = _trainer_run(torch.device("cpu"),
+                              ("gloo", str(tmp_path / "b")), 4)
+    for step_got, step_want in zip(got, want):
+        for a, b in zip(step_got, step_want):
+            _zoo_close(a, b, 1e-4)
+    assert launches["coordinate_median"] > 0  # the full round
+    assert launches["row_norms"] > 0 and launches["clip_bucket_select"] > 0
+    assert routes == {"device"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _ZOO_DECODABLE)
+def test_cuda_serve_step_matches_the_cpu(card, arch):
+    """``make_serve_step`` on the card against the CPU: the same greedy
+    tokens (int32) and logits within 1e-4 of their max-abs over 6 steps,
+    the cache updated in place."""
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.serve import decode_batch, make_serve_step
+    from repro_torch.models import init_cache
+
+    cfg, params, batch = _zoo_inputs(arch, capacity_factor=8.0)
+    step = make_serve_step(cfg)
+    caches = {dev: init_cache(cfg, 2, 6, device=dev) for dev in ("cpu", card)}
+    gpu_params = _zoo_to(params, card)
+    tok = batch["tokens"][:, :1]
+    for t in range(6):
+        want_tok, want, caches["cpu"] = step(params, decode_batch(cfg, tok),
+                                             caches["cpu"], t)
+        got_tok, got, cache = step(gpu_params,
+                                   decode_batch(cfg, tok.to(card)),
+                                   caches[card], t)
+        assert got_tok.dtype == torch.int32
+        assert all(a.data_ptr() == b.data_ptr() for a, b in zip(
+            tree_flatten(cache)[0], tree_flatten(caches[card])[0]))
+        assert torch.equal(got_tok.cpu(), want_tok)
+        _zoo_close(got, want, 1e-4)
+        tok = want_tok[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attack", ["bf", "sf", "lf", "alie", "ipm", "gauss"])
+def test_cuda_tree_attack_stage_matches_the_cpu(card, attack):
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.scenarios import TreeAttackStage
+
+    g = torch.Generator().manual_seed(4)
+    tree = {"a": torch.randn(5, 6, 32, generator=g),
+            "b": torch.randn(5, 17, generator=g).to(torch.bfloat16)}
+    noise = [torch.randn(5, 192, generator=g), torch.randn(5, 17, generator=g)]
+    good = torch.tensor([True, True, True, False, False])
+    sampled = torch.tensor([True, False, True, True, True])
+    stage = TreeAttackStage(attack)
+    want = stage.corrupt_tree(tree, good_mask=good, sampled=sampled,
+                              key=noise)
+    got = stage.corrupt_tree(_zoo_to(tree, card), good_mask=good.to(card),
+                             sampled=sampled.to(card), key=noise)
+    for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+        assert a.is_cuda and a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)

@@ -649,9 +649,10 @@ def test_stream_launcher_runs_on_the_cpu(capsys, tmp_path):
     lines = out.read_text().splitlines()
     assert len(lines) == 3
     assert sum(ops.launch_counts().values()) == 0
-    # --mode score runs (tests/test_torch_score.py); decode alone raises
-    with pytest.raises(NotImplementedError, match="queue 1: the mesh trainer"):
-        tlaunch.main(["--mode", "decode", "--device", "cpu"])
+    # --mode score runs (tests/test_torch_score.py); decode, the default
+    # mode, runs too (tests/test_torch_train.py holds its step)
+    tlaunch.main(["--device", "cpu", "--batch", "2", "--tokens", "3"])
+    assert "minitron-8b-smoke: 3 tokens x batch 2" in capsys.readouterr().out
 
 
 def test_stream_driver_arrival_patterns():
