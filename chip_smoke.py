@@ -263,14 +263,15 @@ Phases (any failure raises, prints no result and exits non-zero):
     train-robust-8rank (gloo, eight processes on cuda:0, the (4, 2) mesh:
     the reference's robustness job, tests/test_mesh_trainer.py:588-635,
     gauss from one of 4 workers, 25 steps, the default plan and mean on
-    the naive placement, then the same job on the CPU in the same ranks:
-    CM below its start and below mean - 0.05 on both; the card against
-    the CPU: the loss on batch 0 after each step within rtol 1e-4 at every
-    step for CM and at the first two for mean (which takes gauss's noise
-    whole and runs away chaotically from there), g after the first step
-    within 1e-4 of each leaf's max-abs for both; every rank's params
-    equal bit for bit,
-    launches and collectives per rank on gloo's host route);
+    the naive placement under the tensor-parallel split, and the default
+    plan under zero3, the trainer's replicated branch; then the same job
+    on the CPU in the same ranks: CM below its start and below mean - 0.05
+    on both, under either mode; the card against the CPU: the loss on
+    batch 0 after each step within rtol 1e-4 at every step for CM and at
+    the first two for mean (which takes gauss's noise whole and runs away
+    chaotically from there), g after the first step within 1e-4 of each
+    leaf's max-abs for all; every rank's params, gathered whole, equal
+    bit for bit, launches and collectives per rank on gloo's host route);
     train-example (``python -m repro_torch.train_marina_pp --smoke
     --steps 8 --ckpt-dir``, eight gloo ranks on cuda:0: OK, and the
     checkpoint restores to the final params); decode-minitron
@@ -285,8 +286,28 @@ Phases (any failure raises, prints no result and exits non-zero):
     repro_torch.launch.serve --arch minitron_8b`` and ``python -m
     repro_torch.serve_demo``, which must print OK).  Rows 1-3
     (``row_norms``, ``clip_bucket_select``, ``coordinate_median``) must
-    be launched on both trainer runs.
-11. A ``{"kernels": [...]}`` line, then the card line, then the result.
+    be launched on both trainer runs, and by the zero3 plan alone.
+11. The tensor-parallel split and the dry run (``repro_torch.models.tp``,
+    ``launch/dryrun.py``): train-tp-small (``TINY`` in f32, the default
+    plan, 4 steps on one ``TrainTape``, on 2 gloo ranks of a (1, 2) and 4
+    of a (1, 4) mesh on cuda:0, whose ``wk``/``wv`` pieces are half a kv
+    head; each rank's pieces of params and g within 1e-5 of each leaf's
+    max-abs of the matching slices of a one-rank NCCL run on the card
+    after every step; launches per rank); train-tp-wide (minitron-8b at
+    full width with 2 of 32 layers, bf16, remat, seq 4,096, batch 1, on 2
+    gloo ranks of a (1, 2) mesh on cuda:0: a difference and a full round;
+    each rank's held bytes of params and g equal to the sum of its
+    ``param_specs`` pieces exactly, the step-0 loss within 1e-3 relative
+    of train-minitron-wide's on the same weights and batch, and each
+    rank's g^0 pieces within 5e-2 of each leaf's max-abs of the same
+    cut of train-minitron-wide's g^0 (bf16); peak, ms a round and
+    collectives by route, gloo's host route); dryrun-vs-card
+    (``launch.dryrun.run_one`` on train-minitron-wide's own config and
+    batch on the (1, 1) mesh: its state's bytes on the card within 1% of
+    what ``torch.cuda.memory_allocated`` grew by when phase 10 built that
+    state; its temp figure beside phase 10's measured peak; the same
+    config's held state on (16, 16)).
+12. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
@@ -3757,6 +3778,11 @@ ROBUST_MEAN_HELD, ROBUST_G_REL = 2, 1e-4
 ROBUST_TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4,
                    n_kv_heads=2, d_ff=128, vocab=256, remat=False,
                    dtype="float32")
+# the plans: cm and mean run the tensor-parallel split on the (4, 2) mesh;
+# cm-zero3 is cm under zero3, which splits no model compute, so that the
+# trainer's replicated branch (whole gradients cut for the aggregation and
+# the aggregate all-gathered back) runs on the card too; it is held as cm
+ROBUST_PLANS = ("cm", "mean", "cm-zero3")
 EXAMPLE_STEPS = 8
 # decode-minitron: decode_32k's cache with its batch of 128 cut to 8
 DECODE_B, DECODE_LEN, DECODE_CHECK, DECODE_TIMED = 8, 32768, 16, 8
@@ -3771,6 +3797,10 @@ DECODE_F32_B = 2
 DECODE_BF16_REL, DECODE_BF16_AGREE = 6e-2, 0.9
 TRAIN_TIMEOUT = 600  # seconds for a spawned job or a subprocess
 TRAINER_KERNELS = ("row_norms", "clip_bucket_select", "coordinate_median")
+# what train-minitron-wide measured, for phase 11: the loss at x^0 on step
+# 0's batch, the bytes the allocator grew by for params and g^0, the peak
+# of its steps, and the file its g^0 leaves were saved to (host copies)
+PHASE10 = {}
 
 
 def _check_train_step(old, new, agg, cfg, tc, batch, full):
@@ -3856,7 +3886,7 @@ def train_minitron_wide(card, work):
     from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
                                           TrainTape, make_train_step,
                                           train_key, worker_grads)
-    from repro_torch.models import init_params, param_count
+    from repro_torch.models import apply_train, init_params, param_count
 
     t0 = _run_header(
         "train-minitron-wide", card,
@@ -3869,14 +3899,24 @@ def train_minitron_wide(card, work):
         work, "rendezvous_train"), rank=0, world_size=1)
     try:
         mesh = make_debug_mesh(1, 1)
-        params = init_params(MODEL_SEED, cfg)
         batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
                    for k in range(len(TRAIN_COINS) + 1)]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        params = init_params(MODEL_SEED, cfg)
+        with torch.no_grad():  # phase 11 holds its split's loss to this one
+            PHASE10["loss0"] = float(apply_train(params, cfg,
+                                                 batches[1])[0])
         g0 = tree_unflatten(tree_flatten(params)[1],
                             worker_grads(params, cfg, batches[0]))
         state = MeshTrainState(params, g0, train_key(tc.seed),
                                torch.zeros((), dtype=torch.int32))
         del params, g0
+        torch.cuda.synchronize()
+        PHASE10["state_bytes"] = torch.cuda.memory_allocated() - before
+        # host copies of g^0 for phase 11's split, written to a file after
+        # the timed steps
+        g0_host = [x.cpu() for x in tree_flatten(state.g)[0]]
         n = len(TRAIN_COINS)
         tape = TrainTape(c=np.array(TRAIN_COINS), sampled=np.ones((n, 1), bool),
                          order=np.zeros((n, 1), np.int64))
@@ -3884,7 +3924,10 @@ def train_minitron_wide(card, work):
         step = make_train_step(cfg, mesh, tc, on_aggregate=lambda full, agg:
                                probe.append(agg))
         print(f"    {param_count(cfg):,} parameters, {cfg.dtype}, remat "
-              f"{cfg.remat}; g^0 and init {time.perf_counter() - t0:.3f} s; "
+              f"{cfg.remat}; loss at x^0 on step 0's batch "
+              f"{PHASE10['loss0']:.6f}; params and g^0 "
+              f"{PHASE10['state_bytes']:,} bytes of the allocator's; "
+              f"g^0 and init {time.perf_counter() - t0:.3f} s; "
               "check: params, the step's aggregate and g bit for bit, the "
               f"clip factor within {TRAIN_FACTOR_RTOL:g} of the plain one")
         for k, full in enumerate(TRAIN_COINS):
@@ -3893,6 +3936,7 @@ def train_minitron_wide(card, work):
             reset_collective_counts()
             new, ms = _timed(lambda: step(state, batches[k + 1], tape))
             peak = _peak_gb()
+            PHASE10["peak_gb"] = max(PHASE10.get("peak_gb", 0.0), peak)
             launched = {a: b for a, b in ops.launch_counts().items() if b}
             colls = collective_counts()
             for a, b in ops.launch_counts().items():
@@ -3913,6 +3957,14 @@ def train_minitron_wide(card, work):
     finally:
         dist.destroy_process_group()
     del state, batches
+    # phase 11's spawned ranks read it by mmap; synced, so that no
+    # writeback of its 5.17 GB runs under a later timed step
+    PHASE10["g0"] = str(work.parent / "chip_smoke_g0.pt")
+    with open(PHASE10["g0"], "wb") as f:
+        torch.save(g0_host, f)
+        f.flush()
+        os.fsync(f.fileno())
+    del g0_host
     print(f"    train-minitron-wide wall {time.perf_counter() - t0:.3f} s")
     return counts
 
@@ -3923,9 +3975,9 @@ def _robust_job(rank, devices):
     device of ``devices``: per device and plan the loss on batch 0 before
     and after each of ROBUST_STEPS steps, the final params' digest and ms
     a step;
-    the card run's launches and collectives; per plan the worst leaf error
-    of g after the first step of the first device over the second's, of
-    the leaf's max-abs."""
+    the card run's launches and collectives, and its launches per plan;
+    per plan the worst leaf error of g after the first step of the first
+    device over the second's, of the leaf's max-abs."""
     import hashlib
 
     import torch
@@ -3933,14 +3985,14 @@ def _robust_job(rank, devices):
     from repro_torch.api import AggregatorSpec, ScheduleSpec, ServerPlan
     from repro_torch.api.mesh_exec import (collective_counts,
                                            reset_collective_counts)
-    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
-                                          make_train_step, train_key,
-                                          worker_grads)
-    from repro_torch.models import ModelConfig, apply_train, init_params
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step, train_loss)
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.model import gather_params
 
     torch.set_num_threads(1)
     cfg = ModelConfig(**ROBUST_TINY)
@@ -3950,10 +4002,12 @@ def _robust_job(rank, devices):
         if dev == "cuda":
             ops.reset_launch_counts()
             reset_collective_counts()
-        for agg in ("cm", "mean"):
-            if agg == "cm":  # the default plan: sharded CM, alpha = 2
+        for agg in ROBUST_PLANS:
+            before = ops.launch_counts()
+            if agg != "mean":  # the default plan: sharded CM, alpha = 2
                 tc = ByzTrainConfig(gamma=0.3, n_byz=1, attack="gauss",
-                                    p=0.125)
+                                    p=0.125, shard_mode="zero3" if
+                                    agg == "cm-zero3" else "tp")
             else:
                 tc = ByzTrainConfig.from_plan(
                     ServerPlan(aggregate=AggregatorSpec("mean"),
@@ -3966,12 +4020,8 @@ def _robust_job(rank, devices):
                 cfg, 8, 64, seed=3, device="cpu"))
             params = _to(init_params(0, cfg, device="cpu"), dev)
             batch0 = next(it)
-            g0 = tree_unflatten(tree_flatten(params)[1],
-                                worker_grads(params, cfg, batch0))
-            state = MeshTrainState(params, g0, train_key(tc.seed),
-                                   torch.zeros((), dtype=torch.int32))
-            with torch.no_grad():
-                start = float(apply_train(params, cfg, batch0)[0])
+            state = initial_state(params, cfg, mesh, tc, batch0)
+            start = train_loss(state.params, cfg, batch0, mesh, tc.shard_mode)
             losses, spent = [], 0.0
             for k in range(ROBUST_STEPS):
                 t = time.perf_counter()
@@ -3982,18 +4032,21 @@ def _robust_job(rank, devices):
                 if k == 0:
                     g1[(dev, agg)] = [x.cpu() for x in
                                       tree_flatten(state.g)[0]]
-                with torch.no_grad():
-                    losses.append(float(apply_train(state.params, cfg,
-                                                    batch0)[0]))
+                losses.append(train_loss(state.params, cfg, batch0, mesh,
+                                         tc.shard_mode))
             digest = hashlib.sha256()
-            for leaf in tree_flatten(state.params)[0]:
+            for leaf in tree_flatten(gather_params(state.params, mesh, cfg,
+                                                   tc.shard_mode))[0]:
                 digest.update(leaf.cpu().numpy().tobytes())
             out[(dev, agg)] = (start, losses, digest.hexdigest(),
                                spent * 1e3 / ROBUST_STEPS)
+            if dev == "cuda":
+                out["launches " + agg] = {k: v - before.get(k, 0) for k, v in
+                                          ops.launch_counts().items()}
         if dev == "cuda":
             out["launches"] = ops.launch_counts()
             out["collectives"] = collective_counts()
-    for agg in ("cm", "mean"):  # g after the first step, card against CPU
+    for agg in ROBUST_PLANS:  # g after the first step, card against CPU
         out["g1 " + agg] = max(
             float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
             for a, b in zip(g1[(devices[0], agg)], g1[(devices[1], agg)]))
@@ -4003,7 +4056,7 @@ def _robust_job(rank, devices):
 def train_robust(card):
     """train-robust-8rank: eight gloo ranks on cuda:0, then the same job on
     the CPU in the same ranks; returns the card run's launches summed over
-    the ranks."""
+    the ranks: of cm and mean (the split), and of cm-zero3 (replicated)."""
     from repro_torch.launch.mesh import spawn
 
     t0 = _run_header(
@@ -4021,19 +4074,21 @@ def train_robust(card):
         _check_routes(f"train-robust-8rank rank {rank}", rep["collectives"],
                       "host")
     for dev in ("cuda", "cpu"):
-        (cm0, cm, _, cm_ms), (_, mean, _, mean_ms) = (first[(dev, "cm")],
-                                                      first[(dev, "mean")])
-        if not (cm[-1] < cm0 and cm[-1] < mean[-1] - ROBUST_MARGIN):
-            raise AssertionError(f"train-robust-8rank on {dev}: cm {cm0} -> "
-                                 f"{cm[-1]}, mean {mean[-1]}")
-        print(f"    {dev}: cm {cm0:.6f} -> {cm[-1]:.6f} ({cm_ms:.1f} ms a "
-              f"step), mean -> {mean[-1]:.6f} ({mean_ms:.1f} ms a step); "
-              "every rank's params equal bit for bit")
+        (_, mean, _, mean_ms) = first[(dev, "mean")]
+        for agg in ("cm", "cm-zero3"):
+            cm0, cm, _, cm_ms = first[(dev, agg)]
+            if not (cm[-1] < cm0 and cm[-1] < mean[-1] - ROBUST_MARGIN):
+                raise AssertionError(f"train-robust-8rank on {dev}: {agg} "
+                                     f"{cm0} -> {cm[-1]}, mean {mean[-1]}")
+            print(f"    {dev}: {agg} {cm0:.6f} -> {cm[-1]:.6f} ({cm_ms:.1f} "
+                  "ms a step)")
+        print(f"    {dev}: mean -> {mean[-1]:.6f} ({mean_ms:.1f} ms a step); "
+              "every rank's params (gathered whole) equal bit for bit")
     # the card against the CPU, step by step: CM at every step, mean after
-    # its first ROBUST_MEAN_HELD steps; g after the first step for both
-    for agg in ("cm", "mean"):
+    # its first ROBUST_MEAN_HELD steps; g after the first step for all
+    for agg in ROBUST_PLANS:
         card, cpu = first[("cuda", agg)][1], first[("cpu", agg)][1]
-        held = len(card) if agg == "cm" else ROBUST_MEAN_HELD
+        held = len(card) if agg != "mean" else ROBUST_MEAN_HELD
         rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
         bad = [k for k in range(held) if not rel[k] <= ROBUST_RTOL]
         if bad:
@@ -4051,19 +4106,23 @@ def train_robust(card):
               f"most {max(rel[:held]):.2e} [rtol {ROBUST_RTOL:g}], over all "
               f"{len(rel)} steps {max(rel):.2e} (first beyond the rtol: "
               f"{parted}); final card {card[-1]:.6f}, CPU {cpu[-1]:.6f}")
-    total = {}
+    split, zero3 = {}, {}
     for rank, rep in enumerate(reports):
-        launched = {k: v for k, v in rep["launches"].items() if v}
-        print(f"    rank {rank}: launches {launched}; collectives "
-              f"{rep['collectives']}")
+        zero = rep["launches cm-zero3"]
+        print(f"    rank {rank}: launches "
+              f"{ {k: v for k, v in rep['launches'].items() if v} } "
+              f"(cm-zero3's { {k: v for k, v in zero.items() if v} }); "
+              f"collectives {rep['collectives']}")
         for k, v in rep["launches"].items():
-            total[k] = total.get(k, 0) + v
-    print(f"    checks: cm below its start and below mean - {ROBUST_MARGIN:g}"
-          f" on both, the card's loss vs the CPU's [rtol {ROBUST_RTOL:g}] "
-          f"after every step for cm and the first {ROBUST_MEAN_HELD} for "
-          f"mean, g after the first step [{ROBUST_G_REL:g} of max-abs], "
-          f"gloo's host route; wall {time.perf_counter() - t0:.3f} s")
-    return total
+            split[k] = split.get(k, 0) + v - zero[k]
+            zero3[k] = zero3.get(k, 0) + zero[k]
+    print(f"    checks: cm and cm-zero3 below their start and below mean - "
+          f"{ROBUST_MARGIN:g} on both, the card's loss vs the CPU's [rtol "
+          f"{ROBUST_RTOL:g}] after every step for cm and cm-zero3 and the "
+          f"first {ROBUST_MEAN_HELD} for mean, g after the first step "
+          f"[{ROBUST_G_REL:g} of max-abs], gloo's host route; wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    return split, zero3
 
 
 def train_example(card, work, src):
@@ -4235,7 +4294,8 @@ def train_path(card):
     torch.cuda.set_device(0)
     torch.cuda.empty_cache()
     counts = {"train-minitron-wide": train_minitron_wide(card, work)}
-    counts["train-robust-8rank"] = train_robust(card)
+    counts["train-robust-8rank"], counts["train-robust-zero3"] = \
+        train_robust(card)
     for run, c in counts.items():
         missing = [k for k in TRAINER_KERNELS if not c.get(k)]
         if missing:
@@ -4245,6 +4305,389 @@ def train_path(card):
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"  phase 10 wall {time.perf_counter() - t0:.3f} s")
+    return counts
+
+# ---------------------------------------------------------------------------
+# phase 11: the tensor-parallel split and the dry run
+# ---------------------------------------------------------------------------
+
+# train-tp-small: the trainer's test model in f32, the default config
+# (plan and gamma; one worker, no byzantine), a full round then three
+# difference rounds
+TP_TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+               d_ff=128, vocab=256, remat=False, dtype="float32")
+TP_COINS = (True, False, False, False)
+TP_SMALL_MESHES = ((1, 2), (1, 4))
+TP_REL = 1e-5  # of each leaf's max-abs, against the one-rank card run
+# train-tp-wide: a difference round, then a full round
+TP_WIDE_COINS = (False, True)
+# the step-0 loss against train-minitron-wide's: the split read 1.29e-5 on
+# the card; a rehearsal on the CPU at reduced width (d_model 256, vocab
+# 4,096, seq 256, bf16) read 3.65e-6, and 1.70e-3 with the MLP's row-split
+# all-reduce left out (PERF.md, phase 11)
+TP_WIDE_LOSS_RTOL = 1e-3
+# each rank's g^0 pieces against the slices of train-minitron-wide's g^0
+# on the same weights and batch, of each leaf's max-abs: bf16 products
+# summed in other orders (the row splits' partial sums rounded to bf16
+# before their all-reduce); that rehearsal read at most 1.77e-2 of a
+# leaf's max-abs, and 0.72-1.62 a leaf with the all-reduce left out
+TP_WIDE_G0_REL = 5e-2
+DRYRUN_STATE_RTOL = 0.01  # the dry run's state bytes against the allocator
+
+
+def _tp_tape(coins):
+    import numpy as np
+
+    from repro_torch.launch.train import TrainTape
+
+    n = len(coins)
+    return TrainTape(c=np.array(coins), sampled=np.ones((n, 1), bool),
+                     order=np.zeros((n, 1), np.int64))
+
+
+def _tp_small_run(mesh_shape):
+    """TINY on ``mesh_shape`` (its ranks on cuda:0, or one rank): per step
+    this rank's params and g leaves (numpy), its launches and
+    collectives, and its "model" coordinate."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step)
+    from repro_torch.models import ModelConfig, init_params
+
+    cfg = ModelConfig(**TP_TINY)
+    mesh = make_debug_mesh(*mesh_shape)
+    tc = ByzTrainConfig()  # the default plan and gamma; one honest worker
+    # weights and batches from the CPU's generator, the same on every run
+    it = (_to(b, "cuda") for b in make_batch_iterator(cfg, 2, 32, seed=3,
+                                                      device="cpu"))
+    state = initial_state(_to(init_params(0, cfg, device="cpu"), "cuda"),
+                          cfg, mesh, tc, next(it))
+    step = make_train_step(cfg, mesh, tc)
+    tape = _tp_tape(TP_COINS)
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    steps = []
+    for _ in TP_COINS:
+        state = step(state, next(it), tape)
+        # numpy: a spawned rank's tensors would cross by shared memory
+        steps.append([[x.cpu().numpy() for x in
+                       tree_flatten(getattr(state, w))[0]]
+                      for w in ("params", "g")])
+    torch.cuda.synchronize()
+    return {"steps": steps, "model": mesh.get_local_rank("model"),
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "collectives": collective_counts()}
+
+
+def _rel_err(got, want, chunk=1 << 26):
+    """max |got - want| / max |want| in f32, in chunks of ``chunk`` values
+    (a 1.05e9-value leaf in f32 would take 4.2 GB at once)."""
+    import torch
+
+    a, b = got.reshape(-1), want.reshape(-1)
+    err = scale = torch.zeros((), device=a.device)
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].float(), b[i:i + chunk].float()
+        err = torch.maximum(err, (x - y).abs().max())
+        scale = torch.maximum(scale, y.abs().max())
+    return float(err / scale.clamp(min=1e-30))
+
+
+def _tp_wide_run(g0_path):
+    """train-tp-wide on this rank of the (1, 2) mesh: its held bytes and
+    their ``param_specs`` sum, the step-0 loss, the worst leaf error of
+    its g^0 pieces against the slices of train-minitron-wide's g^0 (the
+    file ``g0_path``), per round ms, peak GB, launches and collectives."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import P, make_debug_mesh
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step, train_loss)
+    from repro_torch.models import init_params
+    from repro_torch.models.model import shard_params
+    from repro_torch.sharding.rules import local_shape, param_specs
+
+    torch.cuda.empty_cache()
+    cfg = get_config("minitron_8b", n_layers=2)
+    mesh = make_debug_mesh(1, 2)
+    tc = ByzTrainConfig(n_byz=0)  # the default plan; gamma 3e-4
+    # train-minitron-wide's weights and batches: the card's generator
+    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
+               for k in range(len(TP_WIDE_COINS) + 1)]
+    whole = init_params(MODEL_SEED, cfg)
+    specs = tree_flatten(param_specs(mesh, cfg, whole),
+                         is_leaf=lambda x: isinstance(x, P))[0]
+    want = sum(math.prod(local_shape(mesh, x.shape, sp)) * x.element_size()
+               for x, sp in zip(tree_flatten(whole)[0], specs))
+    treedef = tree_flatten(whole)[1]
+    state = initial_state(whole, cfg, mesh, tc, batches[0])
+    del whole
+    torch.cuda.empty_cache()
+    held = {w: sum(x.numel() * x.element_size()
+                   for x in tree_flatten(getattr(state, w))[0])
+            for w in ("params", "g")}
+    # g^0's pieces against the same cut of the one-rank g^0, leaf by leaf
+    ref = tree_unflatten(treedef, torch.load(g0_path, mmap=True,
+                                             weights_only=True))
+    g0_errs = [_rel_err(got, want.to(got.device)) for got, want in zip(
+        tree_flatten(state.g)[0], tree_flatten(shard_params(ref, mesh,
+                                                            cfg))[0])]
+    del ref
+    loss0 = train_loss(state.params, cfg, batches[1], mesh)
+    step = make_train_step(cfg, mesh, tc)
+    tape = _tp_tape(TP_WIDE_COINS)
+    rounds = []
+    for k, full in enumerate(TP_WIDE_COINS):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        state, ms = _timed(lambda: step(state, batches[k + 1], tape))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_flatten(state.g)[0])
+        rounds.append({"full": full, "ms": ms, "peak_gb": _peak_gb(),
+                       "finite": finite,
+                       "launches": {a: b for a, b in
+                                    ops.launch_counts().items() if b},
+                       "collectives": collective_counts()})
+    return {"held": held, "want": want, "loss0": loss0, "g0_errs": g0_errs,
+            "rounds": rounds}
+
+
+def _tp_job(rank, mesh_shape, g0_path):
+    """One rank of a phase-11 spawn: train-tp-small on ``mesh_shape``,
+    then, given train-minitron-wide's g^0 file, train-tp-wide."""
+    import torch
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    out = {"small": _tp_small_run(mesh_shape)}
+    if g0_path:
+        out["wide"] = _tp_wide_run(g0_path)
+    return out
+
+
+def _held_slice(whole, mesh_shape, model_rank):
+    """The pieces a rank at ``model_rank`` of ``mesh_shape`` holds of the
+    whole leaves (``held_specs`` on an abstract mesh)."""
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import held_specs
+
+    cfg = ModelConfig(**TP_TINY)
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    specs = tree_flatten(held_specs(mesh, cfg, init_params(
+        0, cfg, device="meta")), is_leaf=lambda x: isinstance(x, P))[0]
+    out = []
+    for x, sp in zip(whole, specs):
+        for j, entry in enumerate(sp):
+            if entry == "model":
+                w = x.shape[j] // mesh_shape[1]
+                x = x.take(range(model_rank * w, (model_rank + 1) * w),
+                           axis=j)
+        out.append(x)
+    return out
+
+
+def train_tp_small(card, work):
+    """train-tp-small and train-tp-wide: the one-rank NCCL run of TINY,
+    then spawns of 2 and 4 gloo ranks on cuda:0 (the 2-rank one also runs
+    train-tp-wide); returns the launches of both runs, summed over the
+    ranks, and train-tp-wide's ranks' reports."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn
+
+    t0 = _run_header(
+        "train-tp-small", card,
+        "none (the mesh trainer's test model: 2 layers, d_model 64, 4 heads, "
+        f"2 kv heads, vocab 256, f32; batch 2 x 32, {len(TP_COINS)} steps on "
+        f"a tape, coins {TP_COINS})")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous_tp"), rank=0, world_size=1)
+    try:
+        whole = _tp_small_run((1, 1))
+    finally:
+        dist.destroy_process_group()
+    jobs = {shape: spawn(_tp_job, shape[1], (
+        shape, PHASE10["g0"] if shape == (1, 2) else None),
+        timeout=TRAIN_TIMEOUT) for shape in TP_SMALL_MESHES}
+    # every kernel's count, launched or not: the kernels line reads them
+    counts = {run: dict.fromkeys(ops.launch_counts(), 0)
+              for run in ("train-tp-small", "train-tp-wide")}
+    for shape, reports in jobs.items():
+        worst = 0.0
+        for rank, rep in enumerate(reports):
+            r = rep["small"]
+            for k, (got, ref) in enumerate(zip(r["steps"], whole["steps"])):
+                for what, g, w in zip(("params", "g"), got, ref):
+                    for i, (a, b) in enumerate(zip(g, _held_slice(
+                            w, shape, r["model"]))):
+                        if a.shape != b.shape:
+                            raise AssertionError(
+                                f"train-tp-small {shape} rank {rank} {what} "
+                                f"leaf {i}: {tuple(a.shape)}, not the "
+                                f"piece {tuple(b.shape)}")
+                        err = float(abs(a - b).max() /
+                                    max(abs(b).max(), 1e-30))
+                        worst = max(worst, err)
+                        if not err <= TP_REL:
+                            raise AssertionError(
+                                f"train-tp-small {shape} rank {rank} step {k} "
+                                f"{what} leaf {i}: {err:.3e} of max-abs "
+                                f"[{TP_REL:g}]")
+            _check_routes(f"train-tp-small {shape} rank {rank}",
+                          r["collectives"], "host")
+            for a, b in r["launches"].items():
+                counts["train-tp-small"][a] += b
+            print(f"    {shape} rank {rank} (model {r['model']}): launches "
+                  f"{r['launches']}; collectives {r['collectives']}")
+        print(f"    {shape}: every rank's pieces of params and g within "
+              f"{worst:.3e} of max-abs of the one-rank card run's slices "
+              f"after each of {len(TP_COINS)} steps [{TP_REL:g}]")
+    print(f"    one-rank run: launches {whole['launches']}; train-tp-small "
+          f"wall {time.perf_counter() - t0:.3f} s")
+    wide = [rep["wide"] for rep in jobs[(1, 2)]]
+    for rep in wide:
+        for rnd in rep["rounds"]:
+            for a, b in rnd["launches"].items():
+                counts["train-tp-wide"][a] += b
+    return counts, wide
+
+
+def train_tp_wide(card, wide):
+    """train-tp-wide's checks and readings (its ranks ran in
+    ``train_tp_small``'s 2-rank spawn)."""
+    print(f"  train-tp-wide on {card}; reduced: n_layers 32 -> 2, train_4k's "
+          f"batch 256 -> 1 (seq {TRAIN_SEQ}), one worker on the (1, 2) "
+          f"mesh, 2 gloo ranks on cuda:0, rounds {TP_WIDE_COINS} (True: "
+          "full)")
+    want_loss = PHASE10["loss0"]
+    for rank, rep in enumerate(wide):
+        held = rep["held"]["params"] + rep["held"]["g"]
+        if rep["held"]["params"] != rep["want"] or \
+                rep["held"]["g"] != rep["want"]:
+            raise AssertionError(
+                f"train-tp-wide rank {rank}: held {rep['held']} bytes, its "
+                f"param_specs pieces {rep['want']} each")
+        rel = abs(rep["loss0"] - want_loss) / abs(want_loss)
+        if not rel <= TP_WIDE_LOSS_RTOL:
+            raise AssertionError(
+                f"train-tp-wide rank {rank}: step-0 loss {rep['loss0']:.6f}, "
+                f"train-minitron-wide's {want_loss:.6f} (rtol "
+                f"{TP_WIDE_LOSS_RTOL:g})")
+        g0 = max(rep["g0_errs"])
+        if not g0 <= TP_WIDE_G0_REL:
+            worst = rep["g0_errs"].index(g0)
+            raise AssertionError(
+                f"train-tp-wide rank {rank}: g^0 leaf {worst} {g0:.3e} of "
+                f"max-abs from train-minitron-wide's [{TP_WIDE_G0_REL:g}]")
+        print(f"    rank {rank}: params {rep['held']['params']:,} B and g "
+              f"{rep['held']['g']:,} B held (= its param_specs pieces, "
+              f"{held / 1e9:.3f} GB); step-0 loss {rep['loss0']:.6f} "
+              f"(train-minitron-wide {want_loss:.6f}, {rel:.2e} relative "
+              f"[{TP_WIDE_LOSS_RTOL:g}]); g^0 pieces within {g0:.3e} of "
+              f"max-abs of train-minitron-wide's [{TP_WIDE_G0_REL:g}] (by "
+              f"leaf {', '.join(f'{e:.1e}' for e in rep['g0_errs'])})")
+        for rnd in rep["rounds"]:
+            if not rnd["finite"]:
+                raise AssertionError(f"train-tp-wide rank {rank}: g not "
+                                     "finite")
+            _check_routes(f"train-tp-wide rank {rank}", rnd["collectives"],
+                          "host")
+            kind = "full round" if rnd["full"] else "difference round"
+            print(f"      {kind}: {rnd['ms']:.1f} ms, peak "
+                  f"{rnd['peak_gb']:.2f} GB; launches {rnd['launches']}; "
+                  f"collectives {rnd['collectives']}")
+
+
+def dryrun_vs_card(card):
+    """dryrun-vs-card: the dry run of train-minitron-wide's config, batch
+    and plan on the (1, 1) mesh against what the card allocated, and on
+    (16, 16)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.train import ByzTrainConfig, train_key
+
+    t0 = _run_header("dryrun-vs-card", card,
+                     "train-minitron-wide's config (2 of 32 layers) and batch "
+                     "(1 x 4,096) on meta tensors")
+    cfg = get_config("minitron_8b", n_layers=2)
+    shape = dc.replace(SHAPES["train_4k"], global_batch=1)
+    tc = ByzTrainConfig(n_byz=0)
+    host = train_key(0).numel() + 4  # the key and the step stay on the host
+    recs = {mesh: run_one("minitron_8b", shape, multi_pod=False, mesh=mesh,
+                          cfg=cfg, train_cfg=tc, out_dir="", verbose=False)
+            for mesh in ("1x1", "16x16")}
+    one = recs["1x1"]
+    dry = one["state_bytes"] - host
+    got = PHASE10["state_bytes"]
+    rel = abs(dry - got) / got
+    if not rel <= DRYRUN_STATE_RTOL:
+        raise AssertionError(f"dryrun-vs-card: the dry run's state {dry:,} B,"
+                             f" the allocator's {got:,} B ({rel:.2e})")
+    print(f"    (1, 1): params and g {dry:,} B on meta, the allocator grew by "
+          f"{got:,} B when phase 10 built them ({rel:.2e} relative "
+          f"[{DRYRUN_STATE_RTOL:g}]); temp {one['memory']['temp_size_in_bytes'] / 1e9:.2f} GB "
+          f"on meta beside train-minitron-wide's measured peak "
+          f"{PHASE10['peak_gb']:.2f} GB; flops "
+          f"{one['cost']['flops']:.4e}; traced in {one['trace_s']} s")
+    big = recs["16x16"]
+    print(f"    (16, 16): the rank's params and g {big['state_bytes'] - host:,} "
+          f"B ({(big['state_bytes'] - host) / dry:.4f} of (1, 1)'s), temp "
+          f"{big['memory']['temp_size_in_bytes'] / 1e9:.2f} GB, model split "
+          f"{big['model_split']}, collectives {big['collectives']['bytes']} "
+          f"B; traced in {big['trace_s']} s; wall "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
+def tp_path(card):
+    """Phase 11: the tensor-parallel split and the dry run; returns the
+    split runs' launch counts."""
+    import shutil
+
+    import torch
+
+    print("tensor-parallel split and dry run")
+    t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_phase11"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    try:
+        counts, wide = train_tp_small(card, work)
+    finally:  # train-minitron-wide's g^0, 5.17 GB on disk
+        Path(PHASE10["g0"]).unlink(missing_ok=True)
+    train_tp_wide(card, wide)
+    for run, c in counts.items():
+        missing = [k for k in TRAINER_KERNELS if not c.get(k)]
+        if missing:
+            raise AssertionError(f"{run}: {missing} not launched")
+    dryrun_vs_card(card)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"  phase 11 wall {time.perf_counter() - t0:.3f} s")
     return counts
 
 
@@ -4339,7 +4782,10 @@ def main():
     # 10. the mesh trainer and the decode launcher
     counts.update(train_path(card))
 
-    # 11. the kernels line, the card, the result
+    # 11. the tensor-parallel split and the dry run
+    counts.update(tp_path(card))
+
+    # 12. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

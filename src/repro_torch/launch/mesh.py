@@ -36,6 +36,8 @@ __all__ = [
     "worker_axes",
     "num_workers",
     "axis_size",
+    "model_group",
+    "fake_world",
     "spawn",
 ]
 
@@ -54,7 +56,8 @@ class P(tuple):
 def _device_type() -> str:
     """"cuda" under NCCL, else "cpu": gloo's ranks may share one card, and
     the mesh's device type places no tensor (every collective here takes
-    the tensors it is given, on the card or not)."""
+    the tensors it is given, on the card or not; the fake world's, meta
+    tensors)."""
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
@@ -106,6 +109,34 @@ def set_mesh(mesh):
 
 def axis_size(mesh, axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def model_group(mesh):
+    """The process group of this rank's "model" axis (the ranks that
+    differ only along it), or None on a mesh without one."""
+    if "model" not in mesh.mesh_dim_names:
+        return None
+    return mesh.get_group("model")
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A default process group of ``world_size`` ranks in which this
+    process is rank 0 and no other rank exists: torch's "fake" backend
+    (``torch.testing._internal.distributed.fake_pg``), whose collectives
+    return at once and move nothing.  On "meta" tensors it traces one
+    rank's step of a mesh of any size in one process (the dry run)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started; the fake "
+                           "world needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def worker_axes(mesh) -> tuple:

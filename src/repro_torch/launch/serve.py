@@ -51,7 +51,7 @@ from ..serve.server import round_key
 
 __all__ = ["make_prefill_step", "make_serve_step", "abstract_serve_inputs",
            "decode_batch", "run_stream", "latency_ms", "make_scoring_step",
-           "main"]
+           "abstract_scoring_inputs", "main"]
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +204,18 @@ def make_scoring_step(plan: ServerPlan, device=None):
         return {name: torch.stack(v) for name, v in out.items()}
 
     return scoring_step
+
+
+def abstract_scoring_inputs(batch: int, n_clients: int, dim: int,
+                            dtype=torch.float32):
+    """(batch_xs, batch_mask, key) on "meta" tensors, with the shapes and
+    dtypes of the reference's scoring inputs: (batch, n_clients, dim) of
+    ``dtype``, (batch, n_clients) bool and a (2,) uint32 key.  The port's
+    ``scoring_step`` takes its Bucketing orders from an int seed or
+    per-request permutations instead of that key (``_request_keys``)."""
+    return (torch.empty((batch, n_clients, dim), dtype=dtype, device="meta"),
+            torch.empty((batch, n_clients), dtype=torch.bool, device="meta"),
+            torch.empty((2,), dtype=torch.uint32, device="meta"))
 
 
 def _main_score(args):

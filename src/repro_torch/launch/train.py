@@ -4,8 +4,13 @@ counterpart of ``repro.launch.train``.
 Mapping: a worker is a coordinate of the mesh's worker axes ("pod" and
 "data", or the plan's or config's override), ``W`` of them.  The port
 runs in manual SPMD, as ``repro_torch.api.mesh_exec`` does: every rank
-calls the step with the same whole state and the same global batch, and
-gets back the same whole new state.  Within a step, a rank
+calls the step with its held state and the same global batch, and gets
+back its held new state.  What a rank holds is ``sharding.rules.
+held_specs``: under the "tp" split (``model_split``: the dense decoders
+under "tp" or "fsdp_tp") on a "model" axis of M > 1 ranks, its "model"
+piece of every split leaf of params and g, and the norms and scalars
+whole; otherwise every leaf whole.  ``initial_state`` builds it from
+whole params.  Within a step, a rank
 
 1. draws the round's randomness (the coin c_k, the cohort, the attack's
    and the compressor's seeds, Bucketing's order) from one CPU
@@ -15,26 +20,40 @@ gets back the same whole new state.  Within a step, a rank
 2. takes x^{k+1} = x^k - gamma g^k (in f32, cast back) and its worker's
    gradient at x^{k+1} (and, on difference rounds, at x^k) on its
    worker's rows of the batch (worker i: rows i*b:(i+1)*b), by
-   ``torch.autograd.grad`` over the params tree's leaves, remat kept;
+   ``torch.autograd.grad`` over the held leaves, remat kept; under the
+   split inside a ``model_axis`` block, so that the ranks of a worker's
+   "model" axis compute its gradient once between them, each its pieces
+   (``models.tp``);
 3. forms its worker's message: the gradient (full rounds) or the
    gradient difference, leafwise RandK'd (``CompressSpec(kind=
    "rand_fraction")``), then corrupted by the attack if the worker is
    byzantine;
-4. cuts its piece out of the whole message per ``param_specs`` with the
-   worker axes stripped (``sharding.rules``), hands the pieces to the
-   plan's mesh step (``plan.build(mesh)``) as ``base_specs``, and
-   all-gathers the aggregated pieces over the axes that split them to
-   rebuild the whole aggregate; g^{k+1} = g^k + agg (difference rounds,
-   clipped at lambda = alpha gamma ||g^k||) or agg (full rounds, no clip).
+4. cuts its aggregation piece out of its held message per
+   ``param_specs`` with the worker axes stripped (``sharding.rules``):
+   under "tp" the held piece itself, under fsdp_tp with "data" not a
+   worker axis a further cut along "data", and where the compute is
+   replicated the piece of the whole leaf; hands the pieces to the plan's
+   mesh step (``plan.build(mesh)``) as ``base_specs``, and all-gathers the
+   aggregated pieces back to the held ones over the axes of that cut
+   only (none under "tp"); g^{k+1} = g^k + agg (difference rounds,
+   clipped at lambda = alpha gamma ||g^k||, the norm of the whole g: the
+   squares of the split leaves summed over "model", the whole leaves
+   counted once) or agg (full rounds, no clip).
 
 Differences from the reference, each for a reason:
 
-- **The model compute is replicated along "model".**  The reference's
-  GSPMD splits each worker's forward and backward pass over "model"; the
-  port's models have no tensor parallelism (``constraints.
-  maybe_constrain`` returns its input), so every rank holds params and
-  g whole and computes its worker's whole gradient, and the ranks along
-  "model" compute the same one.  Only the aggregation is split there.
+- **The split is Megatron's, written out, for the dense decoders only.**
+  The reference's GSPMD splits every family's forward and backward pass
+  over "model"; the port splits the dense decoders (``models.tp``) and
+  runs MLA, MoE, SSM, cross-attention and frame inputs replicated along
+  "model" (``model_split`` says "replicated"): there every rank holds
+  params and g whole, computes its worker's whole gradient, cuts its
+  piece for the aggregation and all-gathers the aggregate back.  zero3
+  splits no model compute either.  Where a rank's heads reach past its
+  pieces (fewer kv heads than ranks) it all-gathers those weights.
+- **Draws are of whole leaves.**  RandK's uniforms and gauss's noise are
+  drawn per whole leaf, as before, and a rank keeps its piece of them,
+  so that the split replays the whole run's draws exactly.
 - **The key is a generator state.**  ``MeshTrainState.key`` is the uint8
   state of a CPU ``torch.Generator`` seeded from ``cfg.seed``, so that
   the state stays a plain tree that checkpoints; draws on the CPU make a
@@ -59,12 +78,15 @@ import torch
 
 from ..api import AggregatorSpec, ClipSpec, PlanError, ScheduleSpec
 from ..api import ServerPlan
-from ..api.mesh_exec import _all_gather, _gather_leaf, leaf_agg_of
+from ..api.mesh_exec import _all_gather, _count, _gather_leaf, leaf_agg_of
 from ..core.tree_utils import tree_flatten, tree_map, tree_norm
 from ..core.tree_utils import tree_unflatten
 from ..models.model import ModelConfig, apply_train, init_params
-from ..sharding.rules import LocalShard, param_specs, state_sharding
-from .mesh import P, axis_size, num_workers, worker_axes
+from ..models.model import shard_params
+from ..sharding.constraints import ModelAxis, model_axis
+from ..sharding.rules import (LocalShard, held_specs, local_shape,
+                              model_split, param_specs, state_sharding)
+from .mesh import P, axis_size, model_group, num_workers, worker_axes
 
 __all__ = [
     "ByzTrainConfig",
@@ -77,6 +99,9 @@ __all__ = [
     "resolve_plan",
     "train_key",
     "worker_grads",
+    "model_axis_of",
+    "initial_state",
+    "train_loss",
     "main",
 ]
 
@@ -177,16 +202,19 @@ def robust_aggregate(tree_w, mask, key, *, mesh, cfg: ByzTrainConfig,
 # worker-side messages
 # ---------------------------------------------------------------------------
 
-def _leafwise_randk(key, tree, frac):
+def _leafwise_randk(key, tree, frac, shapes=None, cuts=None):
     """Unbiased leafwise RandK: keep the coordinates whose uniform score
     is among the ``max(1, int(frac * size))`` largest (ties at the
     threshold kept), scaled by size / kept.  ``key``: a
     ``torch.Generator`` (each leaf's uniforms drawn in leaf order) or one
-    uniform array a leaf."""
+    uniform array a leaf.  With ``shapes`` and ``cuts`` the leaves are
+    pieces: the mask is drawn over each whole leaf (``shapes[i]``) and
+    ``cuts[i]`` cuts this rank's piece of it."""
     leaves, treedef = tree_flatten(tree)
     out = []
     for i, leaf in enumerate(leaves):
-        d = leaf.numel()
+        shape = leaf.shape if shapes is None else shapes[i]
+        d = math.prod(shape)
         kk = max(1, int(frac * d))
         if isinstance(key, torch.Generator):
             scores = torch.rand(d, generator=key, device=key.device)
@@ -194,7 +222,9 @@ def _leafwise_randk(key, tree, frac):
             scores = torch.as_tensor(np.array(key[i], np.float32)).reshape(-1)
         scores = scores.to(device=leaf.device, dtype=F32)
         thresh = torch.topk(scores, kk).values[-1]
-        mask = (scores >= thresh).reshape(leaf.shape)
+        mask = (scores >= thresh).reshape(shape)
+        if cuts is not None:
+            mask = cuts[i](mask)
         scale = torch.tensor(d / kk, dtype=leaf.dtype, device=leaf.device)
         out.append(leaf * mask.to(leaf.dtype) * scale)
     return tree_unflatten(treedef, out)
@@ -216,15 +246,63 @@ def _attack_stage(cfg: ByzTrainConfig):
     return stage
 
 
-def worker_grads(params, model_cfg: ModelConfig, batch) -> list:
+def worker_grads(params, model_cfg: ModelConfig, batch,
+                 axis: Optional[ModelAxis] = None) -> list:
     """The gradient of ``apply_train``'s loss on ``batch`` at ``params``,
-    as a list of leaves in flatten order (``torch.autograd.grad``)."""
+    as a list of leaves in flatten order (``torch.autograd.grad``).  With
+    ``axis`` (``model_axis_of``), ``params`` are this rank's held pieces
+    and the pass is split over it: the gradient of each piece."""
     leaves, treedef = tree_flatten(params)
     leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
-    loss, _ = apply_train(tree_unflatten(treedef, leaves), model_cfg, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with model_axis(axis):
+        loss, _ = apply_train(tree_unflatten(treedef, leaves), model_cfg,
+                              batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return [torch.zeros_like(x) if gr is None else gr
             for gr, x in zip(grads, leaves)]
+
+
+def model_axis_of(mesh, model_cfg: ModelConfig,
+                  shard_mode: str = "tp") -> Optional[ModelAxis]:
+    """The "model" axis a worker's pass splits over on ``mesh``: a
+    ``ModelAxis`` (with this rank's ``held_specs``) when
+    ``model_split(model_cfg, shard_mode)`` is "tp" and the axis has more
+    than one rank, else None (the pass runs whole)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names or model_split(model_cfg, shard_mode) != "tp":
+        return None
+    size = axis_size(mesh, "model")
+    if size == 1:
+        return None
+    held = held_specs(mesh, model_cfg, init_params(0, model_cfg,
+                                                   device="meta"), shard_mode)
+    return ModelAxis(model_group(mesh), mesh.get_local_rank("model"), size,
+                     held)
+
+
+def initial_state(params, model_cfg: ModelConfig, mesh, cfg: "ByzTrainConfig",
+                  batch) -> "MeshTrainState":
+    """The state a rank starts from: its held pieces of the whole
+    ``params`` (``models.model.shard_params``), g^0 its worker's gradient
+    of them on ``batch`` (split as the steps are), the key of
+    ``cfg.seed`` and step 0."""
+    held = shard_params(params, mesh, model_cfg, cfg.shard_mode)
+    axis = model_axis_of(mesh, model_cfg, cfg.shard_mode)
+    g0 = tree_unflatten(tree_flatten(held)[1],
+                        worker_grads(held, model_cfg, batch, axis))
+    return MeshTrainState(params=held, g=g0, key=train_key(cfg.seed),
+                          step=torch.zeros((), dtype=torch.int32))
+
+
+def train_loss(params, model_cfg: ModelConfig, batch, mesh=None,
+               shard_mode: str = "tp") -> float:
+    """``apply_train``'s loss at a rank's held ``params`` (split over the
+    mesh's "model" axis where ``model_axis_of`` says so: a collective),
+    without gradients."""
+    axis = None if mesh is None else model_axis_of(mesh, model_cfg,
+                                                   shard_mode)
+    with torch.no_grad(), model_axis(axis):
+        return float(apply_train(params, model_cfg, batch)[0])
 
 
 def _sub_seed(seed: int, *ids) -> int:
@@ -259,13 +337,14 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
     The aggregation composition is the config's resolved ServerPlan,
     built once by ``plan.build(mesh)``; the plan also gives the clip
     stage (lambda = alpha * gamma * ||g||, or its static radius) and the
-    compression fraction.  ``batch`` is the global batch (leaves with a
+    compression fraction.  ``state`` holds this rank's pieces
+    (``initial_state``); ``batch`` is the global batch (leaves with a
     leading W * b), the same on every rank; ``tape`` replaces the step's
     draws (module docstring).  ``on_aggregate(full, leaves)``, when
-    given, sees each step's whole aggregate (its leaves in flatten order,
-    in the server's dtype) before it is added to g: a probe for checks,
-    since the cast of g + agg to g's dtype rounds most of a small
-    aggregate away."""
+    given, sees each step's aggregate of the held pieces (its leaves in
+    flatten order, in the server's dtype; whole where the rank holds
+    leaves whole) before it is added to g: a probe for checks, since the
+    cast of g + agg to g's dtype rounds most of a small aggregate away."""
     plan = resolve_plan(cfg)
     server = plan.build(mesh)
     attack_stage = _attack_stage(cfg)
@@ -291,20 +370,47 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
                 f"frac=...), got kind={plan.compress.kind!r}")
         compress_frac = plan.compress.frac
 
-    specs_cache = {}
+    axis = model_axis_of(mesh, model_cfg, cfg.shard_mode)
+    whole = init_params(0, model_cfg, device="meta")
+    shapes = [tuple(x.shape) for x in tree_flatten(whole)[0]]
 
-    def base_specs(leaves, treedef):
-        """Each leaf's P with the worker axes stripped, and the rule that
-        cuts this rank's piece of the whole leaf under it (built once)."""
-        if "base" not in specs_cache:
-            full = param_specs(mesh, model_cfg,
-                               tree_unflatten(treedef, leaves),
-                               mode=cfg.shard_mode)
-            specs = [_strip(sp, waxes) for sp in
-                     tree_flatten(full, is_leaf=lambda x: isinstance(x, P))[0]]
-            specs_cache["base"] = (specs, tree_flatten(state_sharding(
-                mesh, specs), is_leaf=lambda x: isinstance(x, LocalShard))[0])
-        return specs_cache["base"]
+    def flat_specs(tree):
+        return tree_flatten(tree, is_leaf=lambda x: isinstance(x, P))[0]
+
+    # each leaf's aggregation spec (param_specs, worker axes stripped),
+    # the piece the rank holds, and the rest of the cut: the axes of the
+    # aggregation spec that the held piece does not split
+    specs = [_strip(sp, waxes) for sp in flat_specs(param_specs(
+        mesh, model_cfg, whole, mode=cfg.shard_mode))]
+    held = flat_specs(held_specs(mesh, model_cfg, whole, cfg.shard_mode))
+    rests = [P(*(e if h is None else None for e, h in zip(sp, hp)))
+             for sp, hp in zip(specs, held)]
+    cuts = tree_flatten(state_sharding(mesh, rests),
+                        is_leaf=lambda x: isinstance(x, LocalShard))[0]
+    held_cuts = tree_flatten(state_sharding(mesh, held),
+                             is_leaf=lambda x: isinstance(x, LocalShard))[0]
+    split = [any(hp) for hp in held]
+    del whole
+
+    def held_norm(g_leaves):
+        """||g|| of the whole g from this rank's pieces: the split leaves'
+        squares summed over "model", the whole leaves' counted once."""
+        if axis is None:
+            return tree_norm(g_leaves)
+        parts = torch.stack([
+            sum((g.float().square().sum() for g, s in zip(g_leaves, split)
+                 if s == want), torch.zeros((), device=g_leaves[0].device))
+            for want in (True, False)])
+        ssq = parts[0].clone()
+        torch.distributed.all_reduce(ssq, group=axis.group)
+        _count("all_reduce", ssq, axis.group)
+        return torch.sqrt(ssq + parts[1])
+
+    def noise_pieces(noise):
+        """gauss's noise of each whole leaf (1, size), cut to the held
+        piece (1, piece size)."""
+        return [cut(nz.reshape(1, *shp)[0]).reshape(1, -1)
+                for nz, shp, cut in zip(noise, shapes, held_cuts)]
 
     def draws(state, tape):
         """(c, sampled, order, attack key, RandK key) of this step, and
@@ -358,6 +464,12 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
         if byzantine:  # the other attacks read only their own row
             key = att_key if isinstance(att_key, torch.Generator) else [
                 nz[w:w + 1] for nz in att_key]
+            if axis is not None and attack_stage.attack.name == "gauss" \
+                    and isinstance(key, torch.Generator):  # whole leaves
+                key = [torch.randn((1, math.prod(shp)), generator=key,
+                                   device=key.device) for shp in shapes]
+            if axis is not None and not isinstance(key, torch.Generator):
+                key = noise_pieces(key)
             msgs = attack_stage.corrupt_tree(
                 [m[None] for m in msgs], good_mask=good[w:w + 1],
                 sampled=sampled[w:w + 1], key=key)
@@ -370,7 +482,6 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
         g_leaves = tree_flatten(state.g)[0]
         dev = p_leaves[0].device
         sampled, order = sampled.to(dev), order.to(dev)
-        specs, cuts = base_specs(g_leaves, treedef)
 
         # x^{k+1} = x^k - gamma g^k, in f32; lambda = alpha*gamma*||g||
         params_new = []
@@ -382,20 +493,22 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
         if server.clips and plan.clip.radius is not None:
             radius = float(plan.clip.radius)
         elif server.clips:
-            radius = plan.clip.alpha * cfg.gamma * tree_norm(g_leaves)
+            radius = plan.clip.alpha * cfg.gamma * held_norm(g_leaves)
 
         # this worker's rows of the global batch
         b = next(iter(batch.values())).shape[0] // W
         wbatch = {k: v[w * b:(w + 1) * b] for k, v in batch.items()}
         msgs = worker_grads(tree_unflatten(treedef, params_new), model_cfg,
-                            wbatch)
+                            wbatch, axis)
         if not c:
-            old = worker_grads(state.params, model_cfg, wbatch)
+            old = worker_grads(state.params, model_cfg, wbatch, axis)
             for m, o in zip(msgs, old):
                 m.sub_(o)  # g_i(x^{k+1}) - g_i(x^k), in the gradient dtype
             del old
             if compress_frac > 0.0:
-                msgs = _leafwise_randk(q_key, msgs, compress_frac)
+                msgs = _leafwise_randk(
+                    q_key, msgs, compress_frac, *(
+                        (shapes, held_cuts) if axis is not None else ()))
         pieces = corrupt(msgs, dev, sampled, att_key, cuts)
         del msgs
         tree_w = tree_unflatten(treedef, pieces)
@@ -407,17 +520,18 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
             agg = server(tree_w, mask=sampled, key=order, radius=radius,
                          base_specs=spec_tree)
         del tree_w, pieces
-        wholes = (_gather_leaf(a[None], sp, mesh, ())[0]
-                  for a, sp in zip(tree_flatten(agg)[0], specs))
+        # back to the held pieces: over the rest of the cut only
+        aggs = (_gather_leaf(a[None], rest, mesh, ())[0]
+                for a, rest in zip(tree_flatten(agg)[0], rests))
         if on_aggregate is not None:
-            wholes = list(wholes)
-            on_aggregate(c, wholes)
+            aggs = list(aggs)
+            on_aggregate(c, aggs)
         g_new = []
-        for whole, g in zip(wholes, g_leaves):
+        for a, g in zip(aggs, g_leaves):
             if c:
-                g_new.append(whole.to(g.dtype))
+                g_new.append(a.to(g.dtype))
             else:
-                g_new.append(g.to(F32, copy=True).add_(whole).to(g.dtype))
+                g_new.append(g.to(F32, copy=True).add_(a).to(g.dtype))
         return MeshTrainState(
             params=tree_unflatten(treedef, params_new),
             g=tree_unflatten(treedef, g_new), key=next_key,
@@ -430,9 +544,19 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
 # state construction
 # ---------------------------------------------------------------------------
 
-def abstract_state(model_cfg: ModelConfig, cfg: ByzTrainConfig):
-    """The state on "meta" tensors (nothing allocated), for dry runs."""
+def abstract_state(model_cfg: ModelConfig, cfg: ByzTrainConfig, mesh=None):
+    """The state on "meta" tensors (nothing allocated), for dry runs: the
+    whole leaves, or with ``mesh`` this rank's held pieces of them
+    (``held_specs``)."""
     params = init_params(0, model_cfg, device="meta")
+    if mesh is not None:
+        leaves, treedef = tree_flatten(params)
+        held = tree_flatten(held_specs(mesh, model_cfg, params,
+                                       cfg.shard_mode),
+                            is_leaf=lambda x: isinstance(x, P))[0]
+        params = tree_unflatten(treedef, [
+            torch.empty(local_shape(mesh, x.shape, sp), dtype=x.dtype,
+                        device="meta") for x, sp in zip(leaves, held)])
     return MeshTrainState(
         params=params,
         g=tree_map(torch.empty_like, params),
@@ -442,7 +566,13 @@ def abstract_state(model_cfg: ModelConfig, cfg: ByzTrainConfig):
 
 
 def state_specs(mesh, model_cfg: ModelConfig, state, cfg: ByzTrainConfig):
-    ps = param_specs(mesh, model_cfg, state.params, mode=cfg.shard_mode)
+    """The whole state's specs (``param_specs`` of the whole leaves, as
+    the reference places its state).  ``state`` only gives the tree: a
+    rank holds the pieces of ``held_specs`` (``abstract_state(...,
+    mesh)``)."""
+    ps = param_specs(mesh, model_cfg, init_params(0, model_cfg,
+                                                  device="meta"),
+                     mode=cfg.shard_mode)
     return MeshTrainState(params=ps, g=ps, key=P(), step=P())
 
 
@@ -546,30 +676,32 @@ def main(argv=None):
             print(f"[train] {model_cfg.name} on mesh "
                   f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({W} "
                   f"workers, {tc.n_byz} byzantine, agg="
-                  f"{plan.aggregate.rule}, device={dev})")
+                  f"{plan.aggregate.rule}, model split "
+                  f"{model_split(model_cfg, tc.shard_mode)}, device={dev})")
         step_fn = make_train_step(model_cfg, mesh, tc)
         it = make_batch_iterator(model_cfg, W * args.per_worker_batch,
                                  args.seq, device=dev)
-        params = init_params(0, model_cfg, device=dev)
         batch0 = next(it)
-        g0 = tree_unflatten(tree_flatten(params)[1],
-                            worker_grads(params, model_cfg, batch0))
-        state = MeshTrainState(params=params, g=g0, key=train_key(tc.seed),
-                               step=torch.zeros((), dtype=torch.int32))
+        state = initial_state(init_params(0, model_cfg, device=dev),
+                              model_cfg, mesh, tc, batch0)
         t0 = time.time()
         for k in range(args.steps):
             state = step_fn(state, next(it))
-            if lead and (k % 10 == 0 or k == args.steps - 1):
-                with torch.no_grad():
-                    loss = float(apply_train(state.params, model_cfg,
-                                             batch0)[0])
-                print(f"[train] step {k:4d} loss {loss:.4f} "
-                      f"({(time.time() - t0) / (k + 1):.2f}s/step)")
-        if args.ckpt_dir and lead:
+            if k % 10 == 0 or k == args.steps - 1:
+                loss = train_loss(state.params, model_cfg, batch0, mesh,
+                                  tc.shard_mode)
+                if lead:
+                    print(f"[train] step {k:4d} loss {loss:.4f} "
+                          f"({(time.time() - t0) / (k + 1):.2f}s/step)")
+        if args.ckpt_dir:
             from ..checkpoint import save
+            from ..models.model import gather_params
 
-            print("[train] checkpoint:", save(args.ckpt_dir, args.steps,
-                                              state.params))
+            whole = gather_params(state.params, mesh, model_cfg,
+                                  tc.shard_mode)
+            if lead:
+                print("[train] checkpoint:", save(args.ckpt_dir, args.steps,
+                                                  whole))
 
 
 if __name__ == "__main__":

@@ -15,6 +15,11 @@ target device and a leading shape, so that a layer's leaves are drawn
 stacked over the layers that share it (``Draw.stacked``), as the
 reference stacks its per-layer trees.  On ``device="meta"`` nothing is
 drawn or allocated (``param_count``).
+
+``gqa_forward`` and ``swiglu_forward`` take ``tp``, a
+``sharding.constraints.ModelAxis``, and ``held``, their leaves' held
+specs: with them they run this rank's part of Megatron's column and row
+split on the pieces it holds (``models.tp``); without them, whole.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.sharding.constraints import maybe_constrain
+
+from . import tp as tp_mod
 
 F32 = torch.float32
 
@@ -273,10 +280,20 @@ def gqa_forward(
     window=0,
     cache=None,
     cache_index=None,
+    tp=None,
+    held=None,
 ):
     """Self-attention.  If ``cache`` is given (dict with 'k','v' of shape
     (B, L, KV, hd)) run incremental decode: write x's k/v at ``cache_index``
-    and attend over the cache.  Returns (out, new_cache)."""
+    and attend over the cache.  Returns (out, new_cache).  With ``tp`` (a
+    ``ModelAxis``) and ``held`` (the leaves' held specs), this rank's heads
+    on its pieces (``_gqa_split``)."""
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("the tensor-parallel split trains: it takes "
+                             "no decode cache")
+        return _gqa_split(params, held, cfg, x, positions, causal, window,
+                          tp), None
     B, T, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, T, H, hd)
@@ -301,6 +318,42 @@ def gqa_forward(
         out = attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, T, H * hd)
     return out @ params["wo"], new_cache
+
+
+def _gqa_split(params, held, cfg, x, positions, causal, window, tp):
+    """This rank's part of the attention: the columns [lo, hi) of the
+    heads' output that its ``wo`` rows take (equal blocks, as
+    ``param_specs`` splits ``wo``), from the query heads that cover them
+    and the kv heads those read; the row-split product all-reduced.
+
+    When the range is whole heads of whole kv groups (heads and kv heads
+    divisible by the axis) each rank computes its own heads on its own
+    pieces; otherwise the heads it needs reach past its pieces (fewer kv
+    heads than ranks: half a head a piece; or heads the axis does not
+    divide) and ``tp.take`` all-gathers them, each query head reading its
+    kv head by index."""
+    B, T, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = H // KV
+    lo, hi = tp_mod.split_range(H * hd, tp)
+    h0, h1 = lo // hd, -(-hi // hd)  # the query heads that cover [lo, hi)
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1  # the kv heads they read
+    xin = tp_mod.copy_to_model(x, tp)
+    wq, wk, wv = (tp_mod.take(params[n], 1, held[n], a * hd, b * hd, tp)
+                  for n, a, b in (("wq", h0, h1), ("wk", g0, g1),
+                                  ("wv", g0, g1)))
+    q = (xin @ wq).reshape(B, T, h1 - h0, hd)
+    k = (xin @ wk).reshape(B, T, g1 - g0, hd)
+    v = (xin @ wv).reshape(B, T, g1 - g0, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if h0 % rep or h1 % rep:  # not whole kv groups: one kv head a query head
+        idx = torch.arange(h0, h1, device=x.device) // rep - g0
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    out = attention(q, k, v, causal=causal, window=window)
+    out = out.reshape(B, T, (h1 - h0) * hd).narrow(2, lo - h0 * hd, hi - lo)
+    wo = tp_mod.take(params["wo"], 0, held["wo"], lo, hi, tp)
+    return tp_mod.reduce_from_model(out @ wo, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +486,19 @@ def init_swiglu(rng: Draw, d, f, dtype):
     }
 
 
-def swiglu_forward(params, x):
+def swiglu_forward(params, x, tp=None, d_ff=0, held=None):
+    """SwiGLU; with ``tp`` (a ``ModelAxis``) and ``held`` (the leaves'
+    held specs), this rank's block of the hidden dimension ``d_ff``
+    (column-split ``w_gate``/``w_up``, row-split ``w_down``) and one
+    all-reduce."""
+    if tp is not None:
+        lo, hi = tp_mod.split_range(int(d_ff), tp)
+        xin = tp_mod.copy_to_model(x, tp)
+        wg, wu, wd = (tp_mod.take(params[n], dim, held[n], lo, hi, tp)
+                      for n, dim in (("w_gate", 1), ("w_up", 1),
+                                     ("w_down", 0)))
+        h = F.silu((xin @ wg).to(F32)).to(x.dtype) * (xin @ wu)
+        return tp_mod.reduce_from_model(h @ wd, tp)
     h = F.silu((x @ params["w_gate"]).to(F32)).to(x.dtype) * (
         x @ params["w_up"]
     )

@@ -20,6 +20,16 @@ Entry points:
   apply_decode(params, cfg, batch, cache, i) -> (logits, cache)  (decode; cache updated in place)
   params_from_numpy(tree, device)            -> the reference's weights as a params tree
   params_to_numpy(tree)                      -> and back
+  shard_params(params, mesh, cfg, mode)      -> this rank's held pieces of whole params
+  gather_params(pieces, mesh, cfg, mode)     -> and the whole tree back
+
+Inside a ``sharding.constraints.model_axis`` block on a "model" axis of
+more than one rank, ``apply_train`` runs the tensor-parallel split of a
+dense decoder (``models.tp``) on this rank's pieces (``shard_params``):
+the embedding and unembedding split on the vocabulary, the attention
+heads and the MLP's hidden dimension column- then row-split.  It reads
+the axis once and hands it to every layer, so that a layer recomputed
+under ``torch.utils.checkpoint`` splits as its forward pass did.
 
 Gradients are taken with ``torch.autograd.grad`` over the tree's leaves.
 Modality stubs: hubert consumes precomputed frame embeddings, the VLM
@@ -37,9 +47,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.tree_utils import tree_flatten, tree_map, tree_unflatten
-from repro_torch.sharding.constraints import maybe_constrain
+from repro_torch.launch.mesh import P
+from repro_torch.sharding.constraints import current_model_axis, maybe_constrain
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from . import tp as tp_mod
 from .layers import (
     F32,
     Draw,
@@ -66,6 +78,8 @@ __all__ = [
     "param_count",
     "params_from_numpy",
     "params_to_numpy",
+    "shard_params",
+    "gather_params",
 ]
 
 
@@ -185,8 +199,12 @@ def _apply_layer(
     cache=None,
     cache_index=None,
     window=0,
+    tp=None,
+    held=None,
 ):
-    """Returns (x, new_cache, aux) where aux = (lb_loss, z_loss)."""
+    """Returns (x, new_cache, aux) where aux = (lb_loss, z_loss).  ``tp``:
+    the ``ModelAxis`` of the split (dense layers only), or None; ``held``:
+    the layer's held specs under it."""
     h = rmsnorm(layer["norm1"], x)
     new_cache = cache
     if mixer == "attn":
@@ -198,7 +216,8 @@ def _apply_layer(
         else:
             out, new_cache = gqa_forward(
                 layer["mixer"], cfg, h, positions=positions, causal=cfg.causal,
-                window=window, cache=cache, cache_index=cache_index,
+                window=window, cache=cache, cache_index=cache_index, tp=tp,
+                held=held and held["mixer"],
             )
     elif mixer == "cross":
         out = cross_attn_forward(layer["mixer"], cfg, h, vision)
@@ -217,7 +236,8 @@ def _apply_layer(
         return x, new_cache, aux
     h = rmsnorm(layer["norm2"], x)
     if mlp == "dense":
-        x = x + swiglu_forward(layer["mlp"], h)
+        x = x + swiglu_forward(layer["mlp"], h, tp=tp, d_ff=cfg.d_ff,
+                               held=held and held["mlp"])
     else:
         mo = moe_mod.moe_forward(layer["mlp"], cfg, h, capacity_factor=cfg.capacity_factor)
         x = x + mo.out
@@ -313,26 +333,85 @@ def params_to_numpy(tree):
     return tree_map(_leaf_to_numpy, tree)
 
 
+def shard_params(params, mesh, cfg: ModelConfig, mode: str = "tp"):
+    """This rank's pieces of the whole tree ``params`` on ``mesh``, per
+    ``sharding.rules.held_specs`` (under the "tp" split on a "model" axis
+    of more than one rank, each split leaf's "model" piece; otherwise the
+    leaves themselves)."""
+    from repro_torch.api.mesh_exec import _local_piece
+    from repro_torch.sharding.rules import held_specs
+
+    specs = _specs(held_specs(mesh, cfg, params, mode))[0]
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [
+        leaf if not any(sp) else _local_piece(leaf, sp, mesh)
+        for leaf, sp in zip(leaves, specs)])
+
+
+def gather_params(pieces, mesh, cfg: ModelConfig, mode: str = "tp"):
+    """The whole tree from every rank's ``shard_params`` pieces: each
+    split leaf all-gathered over the axes that split it (a collective:
+    every rank of the mesh calls it)."""
+    from repro_torch.api.mesh_exec import _gather_leaf
+    from repro_torch.sharding.rules import held_specs
+
+    whole = init_params(0, cfg, device="meta")
+    specs = _specs(held_specs(mesh, cfg, whole, mode))[0]
+    leaves, treedef = tree_flatten(pieces)
+    return tree_unflatten(treedef, [
+        leaf if not any(sp) else _gather_leaf(leaf[None], sp, mesh, ())[0]
+        for leaf, sp in zip(leaves, specs)])
+
+
 # ---------------------------------------------------------------------------
 # embedding / stack runner
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, cfg: ModelConfig, batch):
+def _embed_inputs(params, cfg: ModelConfig, batch, tp=None):
+    """The input embedding; ``tp``: the axis the embedding's vocabulary
+    is split over, or None."""
     if cfg.input_kind == "frames":
         x = batch["frames"].to(cfg.jdtype) @ params["frontend"]
+    elif tp is not None:
+        x = tp_mod.vocab_parallel_embed(params["embed"], batch["tokens"], tp)
     else:
         x = params["embed"][batch["tokens"].long()]
     return maybe_constrain(x, "data", None, None)
 
 
-def _unstack(tree, n: int) -> list:
+def _unstack(tree, n: int, tp=None, held=None) -> list:
     """The ``n`` slices along the leading axis of a stacked tree, as
     views (``unbind``: one backward node a leaf, which stacks the
-    slices' gradients once)."""
+    slices' gradients once).  Under the split (``tp``, ``held`` the
+    tree's held specs) a leaf whose layer dimension is split (this rank
+    holds n / M layers) gives a ``tp.LayerSlice`` a layer, fetched from
+    its owner where it is used."""
     leaves, treedef = tree_flatten(tree)
     per_leaf = [leaf.unbind(0) for leaf in leaves]
-    return [tree_unflatten(treedef, [p[i] for p in per_leaf])
+    splits = ([None] * len(leaves) if held is None else
+              [tp_mod.split_on(sp, 0) for sp in _specs(held)[0]])
+
+    def layer(views, split, i):
+        if split is None:
+            return views[i]
+        owner = i // len(views)
+        return tp_mod.LayerSlice(
+            views[i % len(views)] if owner == tp.rank else views[0], owner)
+
+    return [tree_unflatten(treedef, [layer(v, sp, i)
+                                     for v, sp in zip(per_leaf, splits)])
             for i in range(n)]
+
+
+def _specs(held):
+    return tree_flatten(held, is_leaf=lambda x: isinstance(x, P))
+
+
+def _layer_held(held):
+    """A stacked tree's held specs without the layer dimension: those of
+    each of its layers."""
+    leaves, treedef = _specs(held)
+    return tree_unflatten(treedef, [P(*sp[1:]) for sp in leaves])
 
 
 def _store(stacked, trees: list):
@@ -357,8 +436,9 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 
 def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
-               caches=None, cache_index=None, window=0):
-    """Run the prefix layers then the periodic body.
+               caches=None, cache_index=None, window=0, tp=None):
+    """Run the prefix layers then the periodic body (``tp``: the split's
+    axis, or None).
 
     ``caches``: None (training/prefill without cache) or a dict
     {"prefix": stacked, "body": tuple of stacked per position} matching
@@ -380,7 +460,8 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
             h, nc, (lb, zl) = _apply_layer(
                 layers[pos], cfg, cfg.mixer_pattern[pos], cfg.mlp_pattern[pos], h,
                 positions=positions, vision=vision, cache=cache,
-                cache_index=cache_index, window=window,
+                cache_index=cache_index, window=window, tp=tp,
+                held=layer_held[pos],
             )
             aux = aux + torch.stack([lb, zl])
             new_slices.append(nc)
@@ -402,7 +483,10 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
             new_caches["prefix"] = _store(caches["prefix"], out)
 
     n = cfg.n_periods
-    per_pos = [_unstack(p, n) for p in params["body"]]
+    body_held = (None,) * cfg.period if tp is None else tp.held["body"]
+    layer_held = [h and _layer_held(h) for h in body_held]
+    per_pos = [_unstack(p, n, tp, h)
+               for p, h in zip(params["body"], body_held)]
     per_pos_caches = (None if caches is None
                       else [_unstack(c, n) for c in caches["body"]])
     out = []
@@ -433,10 +517,22 @@ def _chunk_loss(hq, tq, vq, unembed):
     return torch.sum(nll), torch.sum(valid)
 
 
-def _chunked_ce(cfg, h, unembed, targets, valid):
+def _chunk_loss_split(tp, hq, tq, vq, unembed):
+    """``_chunk_loss`` on this rank's vocabulary columns of the
+    unembedding: the vocabulary-parallel cross-entropy."""
+    logits = (tp_mod.copy_to_model(hq, tp) @ unembed).to(F32)
+    valid = vq.to(F32)
+    nll = tp_mod.vocab_parallel_ce(logits, tq, tp) * valid
+    return torch.sum(nll), torch.sum(valid)
+
+
+def _chunked_ce(cfg, h, unembed, targets, valid, tp=None):
     """Memory-bounded cross-entropy: a loop over sequence chunks, each
     chunk's logits recomputed in the backward pass (checkpointed) so the
-    (B, S, vocab) tensor never exists at once."""
+    (B, S, vocab) tensor never exists at once.  With ``tp``, the axis the
+    unembedding's vocabulary is split over, each chunk's cross-entropy is
+    the vocabulary-parallel one (its all-reduces run again when the chunk
+    is recomputed)."""
     B, S, D = h.shape
     Q = min(cfg.logit_chunk, S)
     n_chunks = -(-S // Q)
@@ -446,8 +542,11 @@ def _chunked_ce(cfg, h, unembed, targets, valid):
         targets = torch.nn.functional.pad(targets, (0, pad))
         valid = torch.nn.functional.pad(valid, (0, pad))
     loss_fn = _chunk_loss
+    if tp is not None:
+        loss_fn = lambda *a: _chunk_loss_split(tp, *a)  # noqa: E731
     if torch.is_grad_enabled():
-        loss_fn = lambda *a: checkpoint(_chunk_loss, *a, use_reentrant=False)  # noqa: E731
+        plain_fn = loss_fn
+        loss_fn = lambda *a: checkpoint(plain_fn, *a, use_reentrant=False)  # noqa: E731
     total = torch.zeros((), dtype=F32, device=h.device)
     count = torch.zeros((), dtype=F32, device=h.device)
     for c in range(n_chunks):
@@ -464,14 +563,30 @@ def _positions(B, S, device):
 
 def apply_train(params, cfg: ModelConfig, batch):
     """Next-token (or masked-prediction) training loss.  Returns (loss, aux
-    dict)."""
-    x = _embed_inputs(params, cfg, batch)
+    dict).  Inside a ``model_axis`` block of more than one rank, the
+    tensor-parallel split on this rank's pieces (module docstring): the
+    same loss on every rank of the axis."""
+    tp = current_model_axis()
+    held = None
+    if tp is not None:
+        from repro_torch.sharding.rules import model_split
+
+        if model_split(cfg) != "tp":
+            raise ValueError(
+                f"{cfg.name}: the tensor-parallel split covers the dense "
+                "decoders only (sharding.rules.model_split is "
+                f"{model_split(cfg)!r}); run it whole, outside a "
+                "model_axis block")
+        held = tp.held
+    x = _embed_inputs(params, cfg, batch,
+                      tp if held and tp_mod.split_on(held["embed"], 0)
+                      else None)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
     x, _, aux = _run_stack(
         params, cfg, x, positions=positions, vision=vision,
-        window=cfg.sliding_window,
+        window=cfg.sliding_window, tp=tp,
     )
     h = rmsnorm(params["final_norm"], x)
 
@@ -487,7 +602,9 @@ def apply_train(params, cfg: ModelConfig, batch):
         pad = torch.nn.functional.pad
         targets = pad(tokens[:, 1:], (0, 1))
         valid = (torch.arange(S, device=x.device)[None] < S - 1).expand(B, S)
-        loss = _chunked_ce(cfg, h, params["unembed"], targets, valid)
+        loss = _chunked_ce(cfg, h, params["unembed"], targets, valid,
+                           tp if held and tp_mod.split_on(held["unembed"], 1)
+                           else None)
         if cfg.mtp_depth and "mtp" in params:
             # simplified DeepSeek-V3 MTP: one extra block predicts t+2
             mtp = params["mtp"]

@@ -1,0 +1,294 @@
+"""Megatron's tensor-parallel split along the mesh's "model" axis, for the
+dense decoders (GQA or MHA attention, the SwiGLU MLP, the token embedding
+and the unembedding).
+
+The reference's GSPMD splits each worker's forward and backward pass
+over "model" from ``param_specs`` and the activation constraints; here
+the split is written out.  Each rank of the axis holds its piece of a
+split leaf (``sharding.rules.held_specs``) and computes with it:
+
+* a **column split** (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``:
+  output dim) takes the replicated activation through
+  :func:`copy_to_model` (identity forward, all-reduce of the gradient
+  backward, Megatron's f);
+* a **row split** (``wo``, ``w_down``: input dim) is followed by
+  :func:`reduce_from_model` (all-reduce forward, identity backward,
+  Megatron's g);
+* the **embedding** is split on the vocabulary:
+  :func:`vocab_parallel_embed` looks up the tokens of this rank's rows,
+  zeroes the others and all-reduces;
+* the **unembedding** is split on the vocabulary:
+  :func:`vocab_parallel_ce` is the cross-entropy over the split logits
+  (the max and the sum of exponentials all-reduced over "model", the gold
+  logit from the rank that holds it), the same loss on every rank.
+
+``param_specs`` also splits the stacked layer dimension of the dense
+MLP's leaves (the reference's rules take a stacked ``w_gate``/``w_up``/
+``w_down`` of rank 3 for an expert stack) when the axis divides the
+number of layers: a rank then holds whole layers of them.  Each layer's
+weights come from the rank that holds them (:class:`LayerSlice`: a
+broadcast forward, the gradient reduced to that rank backward), and the
+hidden dimension is split as above.
+
+A leaf that ``param_specs`` leaves whole (a dimension the axis does not
+divide) is used through :func:`take`, which narrows it to this rank's
+range and all-reduces its gradient; a piece that does not cover the range
+a rank computes (fewer kv heads than ranks: half a head a piece) is
+all-gathered first (:func:`gather_from_model`, whose backward all-reduces
+the gradient and keeps this rank's piece).  Norms, scalars and the
+residual stream stay whole and are computed alike on every rank, so their
+gradients are the same on every rank.
+
+Every function has a plain one-process twin (``*_plain``: the whole
+computation on the whole tensors), against which the split is checked.
+Collectives are counted in ``api.mesh_exec.collective_counts()``,
+recomputed ones (activation checkpointing) included.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.constraints import ModelAxis
+
+__all__ = [
+    "split_range",
+    "split_on",
+    "copy_to_model",
+    "reduce_from_model",
+    "gather_from_model",
+    "take",
+    "LayerSlice",
+    "vocab_parallel_embed",
+    "vocab_parallel_ce",
+    "copy_to_model_plain",
+    "reduce_from_model_plain",
+    "gather_from_model_plain",
+    "vocab_parallel_embed_plain",
+    "vocab_parallel_ce_plain",
+]
+
+
+def _count(op: str, out: torch.Tensor, group) -> None:
+    from repro_torch.api.mesh_exec import _count as count
+
+    count(op, out, group)
+
+
+def _all_reduce(x: torch.Tensor, axis: ModelAxis, op=dist.ReduceOp.SUM):
+    """The reduction over the axis of a contiguous copy of ``x``."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=axis.group)
+    _count("all_reduce", out, axis.group)
+    return out
+
+
+def split_range(n: int, axis: ModelAxis) -> tuple:
+    """This rank's range [lo, hi) of a dimension of size ``n``: equal
+    blocks in coordinate order (as ``param_specs`` splits) when the axis
+    divides ``n``, else the nearest integer bounds."""
+    return axis.rank * n // axis.size, (axis.rank + 1) * n // axis.size
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.width = axis, dim, x.shape[dim]
+        xt = x.movedim(dim, 0).contiguous()
+        out = torch.empty((axis.size * xt.shape[0], *xt.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        from repro_torch.api.mesh_exec import _ALL_GATHER
+
+        _ALL_GATHER(out, xt, group=axis.group)
+        _count("all_gather", out, axis.group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = _all_reduce(grad, ctx.axis)
+        return (whole.narrow(ctx.dim, ctx.axis.rank * ctx.width, ctx.width),
+                None, None)
+
+
+def copy_to_model(x, axis: ModelAxis):
+    """``x`` (replicated on the axis) entering a split region: identity
+    forward, the gradient summed over the axis backward."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x, axis: ModelAxis):
+    """The sum over the axis of the ranks' partial ``x`` (a row split's
+    product): all-reduce forward, identity backward."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_from_model(x, axis: ModelAxis, dim: int):
+    """The ranks' pieces of ``x`` concatenated along ``dim`` in coordinate
+    order; backward, the gradient summed over the axis, this rank's piece
+    kept."""
+    return _GatherFromModel.apply(x, axis, dim)
+
+
+class _FromOwner(torch.autograd.Function):
+    """A layer's weights from the rank that holds them: broadcast forward;
+    backward, the ranks' gradients summed on that rank (the others get
+    zeros for their anchor)."""
+
+    @staticmethod
+    def forward(ctx, local, owner, axis):
+        ctx.owner, ctx.axis = owner, axis
+        src = dist.get_global_rank(axis.group, owner)
+        buf = (local.contiguous().clone() if axis.rank == owner
+               else torch.empty_like(local))
+        dist.broadcast(buf, src=src, group=axis.group)
+        _count("broadcast", buf, axis.group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis = ctx.axis
+        out = grad.contiguous().clone()
+        dist.reduce(out, dst=dist.get_global_rank(axis.group, ctx.owner),
+                    group=axis.group)
+        _count("reduce", out, axis.group)
+        if axis.rank != ctx.owner:
+            out = torch.zeros_like(out)
+        return out, None, None
+
+
+class LayerSlice:
+    """Layer i of a stacked leaf whose layer dimension is split over the
+    axis: ``local`` is this rank's slice of it when this rank is
+    ``owner``, else any slice of the same shape of its own piece (an
+    anchor that carries the backward pass).  :meth:`whole` gives the
+    layer's weights on every rank."""
+
+    def __init__(self, local, owner: int):
+        self.local, self.owner = local, owner
+
+    def whole(self, axis: ModelAxis):
+        return _FromOwner.apply(self.local, self.owner, axis)
+
+
+def split_on(spec, dim: int):
+    """The entry of a held spec (``sharding.rules.held_specs``) for
+    ``dim``: "model" where the leaf is split on it, else None (a ``P``
+    leaves its trailing whole dims out)."""
+    return spec[dim] if dim < len(spec) else None
+
+
+def take(w, dim: int, spec, lo: int, hi: int, axis: ModelAxis):
+    """Entries [lo, hi) along ``dim`` of a held leaf, ``spec`` its held
+    spec (``split_on``): a piece that covers them
+    is narrowed; a piece that does not is all-gathered first; a whole leaf
+    (one ``param_specs`` does not split) is narrowed with its gradient
+    summed over the axis, since every rank uses it for a part of the
+    product; a :class:`LayerSlice` is fetched from its owner, whose
+    backward sums the gradient there."""
+    if isinstance(w, LayerSlice):
+        return w.whole(axis).narrow(dim, lo, hi - lo)
+    if split_on(spec, dim) is None:
+        return copy_to_model(w, axis).narrow(dim, lo, hi - lo)
+    held = w.shape[dim]
+    start = axis.rank * held
+    if start <= lo and hi <= start + held:
+        return w.narrow(dim, lo - start, hi - lo)
+    return gather_from_model(w, axis, dim).narrow(dim, lo, hi - lo)
+
+
+def vocab_parallel_embed(piece, tokens, axis: ModelAxis):
+    """The rows of ``tokens`` in the embedding whose vocabulary rows this
+    rank holds (``piece``: rows [r * V/M, (r+1) * V/M)): the tokens out of
+    that range look up nothing (zeros), and the all-reduce over the axis
+    puts every token's row together, the same on every rank."""
+    rows = piece.shape[0]
+    local = tokens.long() - axis.rank * rows
+    inside = (local >= 0) & (local < rows)
+    looked = piece[local.clamp(0, rows - 1)]
+    looked = torch.where(inside[..., None], looked,
+                         torch.zeros((), dtype=piece.dtype,
+                                     device=piece.device))
+    return reduce_from_model(looked, axis)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, target, axis):
+        cols = logits.shape[-1]
+        local = target.long() - axis.rank * cols
+        inside = (local >= 0) & (local < cols)
+        local = local.clamp(0, cols - 1)
+        m = _all_reduce(logits.amax(dim=-1), axis, dist.ReduceOp.MAX)
+        e = torch.exp(logits - m[..., None])
+        gold = torch.gather(logits, -1, local[..., None])[..., 0]
+        gold = torch.where(inside, gold, torch.zeros_like(gold))
+        # the sum of exponentials and the gold logit in one all-reduce
+        sums = _all_reduce(torch.stack([e.sum(dim=-1), gold]), axis)
+        ctx.axis = axis
+        ctx.save_for_backward(e.div_(sums[0][..., None]), local, inside)
+        return torch.log(sums[0]) + m - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        soft, local, inside = ctx.saved_tensors
+        out = soft * grad[..., None]
+        out.scatter_add_(-1, local[..., None],
+                         -(grad * inside.to(grad.dtype))[..., None])
+        return out, None, None
+
+
+def vocab_parallel_ce(logits, target, axis: ModelAxis):
+    """Per-position -log softmax(logits)[target] over the whole
+    vocabulary, from this rank's columns ``logits`` (..., V/M) (columns
+    [r * V/M, (r+1) * V/M)); the same values on every rank."""
+    return _VocabParallelCE.apply(logits, target, axis)
+
+
+# ---------------------------------------------------------------------------
+# plain one-process twins: the whole computation
+# ---------------------------------------------------------------------------
+
+def copy_to_model_plain(x):
+    return x
+
+
+def reduce_from_model_plain(parts):
+    """The sum of every rank's partial tensor."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def gather_from_model_plain(pieces, dim: int):
+    return torch.cat(list(pieces), dim=dim)
+
+
+def vocab_parallel_embed_plain(embed, tokens):
+    return embed[tokens.long()]
+
+
+def vocab_parallel_ce_plain(logits, target):
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, target.long()[..., None])[..., 0]

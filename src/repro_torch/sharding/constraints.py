@@ -8,6 +8,16 @@ physical mesh axes lives here.  The port has no ambient mesh
 rules themselves (``logical_to_spec``, ``axis_size``) resolve over any
 mesh's axis names and sizes, and the trainer uses them to place a leaf.
 
+The tensor-parallel split is explicit too: :class:`model_axis` is a
+context that carries the "model" group, this rank's coordinate on it, its
+size and the pieces this rank holds (a :class:`ModelAxis`).  The trainer
+enters it around a worker's forward and backward pass;
+``models.model.apply_train`` reads it once (:func:`current_model_axis`)
+and hands it down, so that a layer recomputed under activation
+checkpointing (in the backward pass, maybe on another thread) splits as
+its forward pass did.  With no context, or an
+axis of size 1, the models run whole, exactly as before.
+
 Logical names:
   "data"   -> batch-like dims      -> ("pod","data") if pod axis else "data"
   "model"  -> TP dims              -> "model"
@@ -31,6 +41,9 @@ from repro_torch.launch.mesh import P
 
 __all__ = [
     "AbstractMesh",
+    "ModelAxis",
+    "model_axis",
+    "current_model_axis",
     "maybe_constrain",
     "logical_to_spec",
     "axis_size",
@@ -47,6 +60,45 @@ __all__ = [
 _SUSPENDED = contextvars.ContextVar("suspended_data_axes",
                                     default=frozenset())
 _DATA_OVERRIDE = contextvars.ContextVar("data_axes_override", default=None)
+_MODEL_AXIS = contextvars.ContextVar("model_axis", default=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The "model" axis a forward and backward pass is split over:
+    ``group`` (a ``torch.distributed`` process group of the ranks that
+    differ only along "model", in coordinate order), this rank's
+    coordinate ``rank`` on it, its ``size``, and ``held``: the params
+    tree's ``P`` of the pieces this rank holds (``sharding.rules.
+    held_specs``), from which the models read which leaves are split."""
+
+    group: object
+    rank: int
+    size: int
+    held: object = dataclasses.field(compare=False)
+
+
+class model_axis:
+    """Split the models' forward and backward passes over ``axis`` (a
+    :class:`ModelAxis`, or None: whole) inside the block."""
+
+    def __init__(self, axis: Optional[ModelAxis]):
+        self._axis = axis
+
+    def __enter__(self):
+        self._token = _MODEL_AXIS.set(self._axis)
+        return self._axis
+
+    def __exit__(self, *exc):
+        _MODEL_AXIS.reset(self._token)
+        return False
+
+
+def current_model_axis() -> Optional[ModelAxis]:
+    """The :class:`ModelAxis` of the enclosing :class:`model_axis` block,
+    or None when there is none or its size is 1 (nothing is split)."""
+    axis = _MODEL_AXIS.get()
+    return axis if axis is not None and axis.size > 1 else None
 
 
 @dataclasses.dataclass(frozen=True)

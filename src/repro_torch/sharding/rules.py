@@ -24,6 +24,13 @@ holds plain local tensors.  :func:`state_sharding` therefore gives, for
 each leaf, a :class:`LocalShard`: the rule that cuts this rank's piece
 out of a whole tensor (the trainer cuts its worker's whole gradient with
 it before the mesh aggregation, ``repro_torch.launch.train``).
+
+Which part of that the model compute follows is :func:`model_split`:
+"tp" for the dense decoders (GQA or MHA attention, the SwiGLU MLP, token
+inputs), whose forward and backward passes split over "model" as
+``models.tp`` writes out, so that a rank holds only its pieces
+(:func:`held_specs`); "replicated" for the other families and for zero3,
+whose ranks hold every leaf whole and compute it whole.
 """
 from __future__ import annotations
 
@@ -41,6 +48,9 @@ __all__ = [
     "state_sharding",
     "needs_fsdp",
     "LocalShard",
+    "model_split",
+    "held_specs",
+    "local_shape",
 ]
 
 # (core_rank, spec over the trailing core dims); "col" = output-dim split,
@@ -80,6 +90,20 @@ _MOE_RULES: Dict[str, tuple] = {
 
 # parameter-count threshold above which fsdp_tp is selected automatically
 _FSDP_THRESHOLD = 60e9
+
+
+def model_split(cfg, mode: str = "tp") -> str:
+    """How a worker's forward and backward pass runs over "model": "tp"
+    (Megatron's column and row split, ``models.tp``) for the dense
+    decoders under "tp" or "fsdp_tp"; "replicated" (every rank computes
+    the whole pass) for MLA, MoE, SSM, cross-attention and frame inputs,
+    which the split does not cover yet, and under zero3, which by
+    definition splits no model compute."""
+    dense = (cfg.attn_kind == "gqa" and set(cfg.mixer_pattern) == {"attn"}
+             and set(cfg.mlp_pattern) == {"dense"}
+             and cfg.input_kind == "tokens" and not cfg.first_dense_layers
+             and not cfg.mtp_depth)
+    return "tp" if dense and mode in ("tp", "fsdp_tp") else "replicated"
 
 
 def needs_fsdp(cfg, param_count: Optional[int] = None) -> bool:
@@ -149,6 +173,36 @@ def param_specs(mesh, cfg, params_shape, mode: str = "tp"):
     return _map_with_name(
         lambda name, leaf: _leaf_spec(sizes, name, tuple(leaf.shape), mode),
         params_shape)
+
+
+def held_specs(mesh, cfg, params_shape, mode: str = "tp"):
+    """Tree of ``P``: the piece of each leaf a rank holds and computes
+    with.  Under the "tp" split on a mesh whose "model" axis has more than
+    one rank, the "model" entries of ``param_specs`` (the "data" of
+    fsdp_tp is the aggregation's cut, not the model's); otherwise every
+    leaf whole.  ``params_shape``: the whole tree (meta tensors do)."""
+    split = (model_split(cfg, mode) == "tp"
+             and _sizes(mesh).get("model", 1) > 1)
+
+    def held(spec):
+        return P(*(("model" if e == "model" or (isinstance(e, tuple)
+                                                and "model" in e) else None)
+                   if split else None for e in spec))
+
+    leaves, treedef = tree_flatten(
+        param_specs(mesh, cfg, params_shape, mode=mode),
+        is_leaf=lambda x: isinstance(x, P))
+    return tree_unflatten(treedef, [held(sp) for sp in leaves])
+
+
+def local_shape(mesh, shape, spec) -> tuple:
+    """The shape of a rank's piece of a ``shape`` leaf under ``spec``."""
+    sizes = _sizes(mesh)
+    out = list(shape)
+    for j, entry in enumerate(spec):
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        out[j] //= math.prod(sizes[a] for a in axes if a is not None)
+    return tuple(out)
 
 
 def batch_specs(mesh, batch_shape, worker_axes=("data",)):

@@ -6,7 +6,11 @@ It runs the full path (``make_train_step``, the sharding rules, the
 plan's robust-aggregation collective schedule) on the reference's
 (data=4, model=2) mesh as eight ranks of ``launch.mesh.spawn`` joined in
 one gloo group: four workers, one of them bit-flipping, trained on the
-synthetic token pipeline.  With ``--device cpu`` the ranks run on the
+synthetic token pipeline.  Each worker's forward and backward pass is
+split over its two "model" ranks (the tensor-parallel split of
+``repro_torch.models.tp``), as the reference's GSPMD splits it: a rank
+holds its pieces of params and g; the final params are gathered whole
+for the digest and the checkpoint.  With ``--device cpu`` the ranks run on the
 CPU; otherwise every rank runs on cuda:0 (gloo stages the card's
 tensors through host memory).
 
@@ -56,11 +60,11 @@ def _rank(rank, args):
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.launch.cli import plan_from_args
     from repro_torch.launch.mesh import make_debug_mesh, num_workers
-    from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
-                                          make_train_step, train_key,
-                                          worker_grads)
-    from repro_torch.models import apply_train, init_params
-    from repro_torch.core.tree_utils import tree_map, tree_unflatten
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step, train_loss)
+    from repro_torch.models import init_params
+    from repro_torch.models.model import gather_params
+    from repro_torch.core.tree_utils import tree_map
 
     dev = torch.device(args.device)
     # the ranks share the host's cores
@@ -84,30 +88,27 @@ def _rank(rank, args):
         cfg, W * args.per_worker_batch, args.seq, device="cpu"))
     params = tree_map(lambda t: t.to(dev), init_params(0, cfg, device="cpu"))
     batch0 = next(it)
-    g0 = tree_unflatten(tree_flatten(params)[1],
-                        worker_grads(params, cfg, batch0))
-    state = MeshTrainState(params=params, g=g0, key=train_key(tc.seed),
-                           step=torch.zeros((), dtype=torch.int32))
+    state = initial_state(params, cfg, mesh, tc, batch0)
     losses = []
     t0 = time.time()
     for k in range(args.steps):
         state = step_fn(state, next(it))
         if k % 10 == 0 or k == args.steps - 1:
-            with torch.no_grad():
-                loss = float(apply_train(state.params, cfg, batch0)[0])
+            loss = train_loss(state.params, cfg, batch0, mesh)
             losses.append(loss)
             if lead:
                 print(f"step {k:4d}  loss {loss:.4f}  "
                       f"({(time.time() - t0) / (k + 1):.2f}s/step)",
                       flush=True)
+    final = gather_params(state.params, mesh, cfg)  # every rank takes part
     if not lead:
         return None
     if args.ckpt_dir:
         from repro_torch.checkpoint import save
 
-        print("checkpoint:", save(args.ckpt_dir, args.steps, state.params),
+        print("checkpoint:", save(args.ckpt_dir, args.steps, final),
               flush=True)
-    return losses, params_digest(state.params)
+    return losses, params_digest(final)
 
 
 def main(argv=None):

@@ -1,0 +1,211 @@
+"""The dry run (``repro_torch.launch.dryrun``) and
+``abstract_scoring_inputs`` on the CPU, with no card.
+
+Two subprocesses run the CLI as the README gives it, ``--smoke --arch
+all --shape all`` on the (2, 2) and on the (2, 2, 2) mesh (about two
+minutes each; they start with the module and run side by side), and
+must exit 0 with a JSON of the reference's keys for every combination
+but hubert's decode, which is skipped.  A reference subprocess computes,
+from the reference's own ``param_specs`` on a ``jax.sharding.
+AbstractMesh`` and its ``init_params`` shapes, the bytes of a rank's
+pieces of every leaf; the dry run's held state must be twice that (params
+and g) plus the key and the step for the split (dense) architectures, and
+the whole leaves' for the replicated ones.  The reference also gives
+``abstract_scoring_inputs``'s shapes and dtypes.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+           JAX_PLATFORMS="cpu")
+MESHES = ("2x2", "2x2x2")
+KEYS = ("arch", "shape", "multi_pod", "mode", "smoke", "mesh", "n_chips",
+        "shard_mode", "agg_schedule", "params", "memory", "cost",
+        "collectives", "model_split", "rank")
+DENSE = ("minitron_8b", "stablelm_12b", "deepseek_7b", "yi_34b")
+TIMEOUT = 900
+
+REF_SCRIPT = r"""
+import json, sys
+from functools import partial
+import jax, numpy as np
+from repro.configs.registry import get_smoke_config, list_archs
+from repro.launch.serve import abstract_scoring_inputs
+from repro.models.model import init_params
+from repro.sharding.rules import param_specs
+
+out = {"pieces": {}, "whole": {}}
+for mesh_name, sizes, names in (("2x2", (2, 2), ("data", "model")),
+                                ("2x2x2", (2, 2, 2), ("pod", "data", "model"))):
+    mesh = jax.sharding.AbstractMesh(sizes, names)
+    shape = dict(zip(names, sizes))
+    for arch in list_archs():
+        cfg = get_smoke_config(arch)
+        shapes = jax.eval_shape(partial(init_params, cfg=cfg),
+                                jax.random.PRNGKey(0))
+        specs = param_specs(mesh, cfg, shapes, mode="tp")
+        piece = whole = 0
+        for leaf, sp in zip(jax.tree_util.tree_leaves(shapes),
+                            jax.tree_util.tree_leaves(
+                                specs, is_leaf=lambda x: isinstance(
+                                    x, jax.sharding.PartitionSpec))):
+            n = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+            whole += n
+            for entry in sp:
+                for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                    if ax is not None:
+                        n //= shape[ax]
+            piece += n
+        out["pieces"][f"{arch}@{mesh_name}"] = piece
+        out["whole"][f"{arch}@{mesh_name}"] = whole
+out["scoring"] = [[list(s.shape), str(s.dtype)]
+                  for s in abstract_scoring_inputs(3, 5, 7)]
+print(json.dumps(out))
+"""
+
+
+def _start(args, cwd):
+    return subprocess.Popen([sys.executable, *args], env=ENV, cwd=cwd,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The two CLI runs and the reference subprocess, started together;
+    yields a function that waits for them: ({mesh: (rc, stdout, stderr,
+    out dir)}, the reference's JSON)."""
+    procs = {}
+    for mesh in MESHES:
+        out = str(tmp_path_factory.mktemp(f"dryrun_{mesh}"))
+        procs[mesh] = (_start(["-m", "repro_torch.launch.dryrun", "--smoke",
+                               "--arch", "all", "--shape", "all", "--mesh",
+                               mesh, "--out-dir", out], REPO), out)
+    ref = _start(["-c", REF_SCRIPT], REPO)
+    done = {}
+
+    def wait():
+        if not done:
+            for mesh, (p, out) in procs.items():
+                so, se = p.communicate(timeout=TIMEOUT)
+                done[mesh] = (p.returncode, so, se, out)
+            so, se = ref.communicate(timeout=TIMEOUT)
+            assert ref.returncode == 0, se[-3000:]
+            done["ref"] = json.loads(so.strip().splitlines()[-1])
+        return {m: done[m] for m in MESHES}, done["ref"]
+
+    try:
+        yield wait
+    finally:
+        for p in [p for p, _ in procs.values()] + [ref]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _records(out_dir):
+    recs = {}
+    for name in os.listdir(out_dir):
+        with open(os.path.join(out_dir, name)) as f:
+            rec = json.load(f)
+        recs[(rec["arch"], rec["shape"])] = rec
+    return recs
+
+
+def test_hubert_decode_is_skipped():
+    from repro_torch.launch.dryrun import run_one
+
+    for shape in ("decode_32k", "long_500k"):
+        rec = run_one("hubert_xlarge", shape, multi_pod=False, smoke=True,
+                      mesh="2x2", out_dir="", verbose=False)
+        assert rec["mode"] is None and "skipped" in rec
+
+
+def test_scoring_inputs_match_the_reference(runs):
+    from repro_torch.launch.serve import abstract_scoring_inputs
+
+    _, ref = runs()
+    got = [[list(t.shape), str(t.dtype).replace("torch.", "")]
+           for t in abstract_scoring_inputs(3, 5, 7)]
+    assert got == ref["scoring"]
+    assert all(t.device.type == "meta"
+               for t in abstract_scoring_inputs(3, 5, 7))
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_smoke_sweep_writes_every_combination(runs, mesh):
+    from repro_torch.configs.registry import list_archs
+    from repro_torch.configs.shapes import SHAPES
+
+    results, _ = runs()
+    rc, so, se, out = results[mesh]
+    assert rc == 0, (so[-3000:], se[-3000:])
+    assert "every combination traced" in so
+    recs = _records(out)
+    for arch in list_archs():
+        for shape in SHAPES:
+            if arch == "hubert_xlarge" and SHAPES[shape].kind == "decode":
+                assert (arch, shape) not in recs
+                continue
+            rec = recs[(arch, shape)]
+            assert set(KEYS) <= set(rec), (arch, shape)
+            assert "not_traced" not in rec, rec
+            assert rec["mesh"] == mesh and rec["rank"] == 0
+            assert rec["n_chips"] == (4 if mesh == "2x2" else 8)
+            assert rec["cost"]["flops"] > 0, (arch, shape)
+            assert rec["memory"]["temp_size_in_bytes"] > 0, (arch, shape)
+            want = ("tp" if arch in DENSE else "replicated") \
+                if rec["mode"] == "train" else "none"
+            assert rec["model_split"] == want, (arch, shape)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_held_state_bytes_follow_the_reference_specs(runs, mesh):
+    from repro_torch.launch.train import train_key
+
+    results, ref = runs()
+    recs = _records(results[mesh][3])
+    extra = train_key(0).numel() + 4  # the generator's state, the step
+    for (arch, shape), rec in recs.items():
+        if rec["mode"] != "train":
+            continue
+        key = f"{arch}@{mesh}"
+        params = ref["pieces"][key] if arch in DENSE else ref["whole"][key]
+        assert rec["state_bytes"] == 2 * params + extra, (arch, rec)
+        if arch in DENSE:  # the split's collectives ran
+            assert rec["collectives"]["bytes"]["all-reduce"] > 0
+
+
+def test_full_size_minitron_holds_a_sixteenth_of_the_split_leaves():
+    """minitron-8b's train state on (16, 16), from ``abstract_state``
+    (the dry run's held state): each split leaf 1/16 of its whole, every
+    other leaf whole."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.train import ByzTrainConfig, abstract_state
+    from repro_torch.sharding.constraints import AbstractMesh
+
+    cfg = get_config("minitron_8b")
+    tc = ByzTrainConfig()
+    whole = tree_flatten(abstract_state(cfg, tc).params)[0]
+    held = tree_flatten(abstract_state(
+        cfg, tc, AbstractMesh((16, 16), ("data", "model"))).params)[0]
+    split = kept = 0
+    for w, h in zip(whole, held):
+        n_w, n_h = math.prod(w.shape), math.prod(h.shape)
+        assert n_h in (n_w, n_w // 16), (w.shape, h.shape)
+        if n_h != n_w:
+            split += n_w
+        else:
+            kept += n_w
+    held_n = sum(math.prod(h.shape) for h in held)
+    assert held_n == split // 16 + kept
+    # the norms alone stay whole: 65 vectors of 4,096
+    assert kept == 65 * 4096

@@ -1,6 +1,6 @@
 """The port's mesh trainer (``repro_torch.launch.train``) on eight gloo
-ranks of a (data=4, model=2) mesh on the CPU, against the reference's
-trainer on eight faked devices.
+ranks of a (data=4, model=2) and a (data=2, model=4) mesh on the CPU,
+against the reference's trainer on eight faked devices.
 
 One reference subprocess runs the reference's ``make_train_step`` for 4
 steps (p = 0.5: a full round, then three difference rounds) in three
@@ -13,14 +13,23 @@ file: the default plan (sharded CM, alpha = 2) under bf; alie with
 placement; gauss with mean on the sharded placement and ``fsdp_tp``, at
 gamma 1e-3 (at 0.3 the full round's unclipped mean of the 10-sigma noise
 moves every weight by ~0.75, and from there the two packages' rounding
-differences grow to 0.3 of a leaf in one step).  The
+differences grow to 0.3 of a leaf in one step); the default plan under
+``zero3``, which splits no model compute (the trainer's replicated
+branch: whole gradients, cut for the aggregation and all-gathered back);
+and the default plan again on (2, 4), two workers, where the "model"
+axis of 4 cuts ``wk`` and ``wv`` into half kv heads and leaves the
+stacked MLP leaves whole.  The
 reference's state is placed per its ``state_specs`` and the step's
 output shardings pinned to them, as examples/train_marina_pp.py places
 it, so that its step compiles once.  One spawn of 8 ranks replays them
-on a ``TrainTape``: every rank's params and g within 1e-5 of each
-leaf's max-abs of the reference's after every step (the port's f32
-arithmetic differs from XLA's by reduction order), and the ranks equal
-to each other bit for bit.
+on a ``TrainTape``.  Each rank holds its pieces under the
+tensor-parallel split (``held_specs``: the "model" entries of
+``param_specs``) and computes its worker's gradient of them only; its
+params and g must have exactly ``param_specs``'s local shapes (the "tp"
+runs) and lie within 1e-5 of each leaf's max-abs of the matching slices
+of the reference's after every step (the port's f32 arithmetic differs
+from XLA's by reduction order), and the ranks along "data" (the same
+pieces) must equal each other bit for bit.
 
 The port's own draws: the example module (``repro_torch.train_marina_pp
 --smoke --steps 8 --device cpu``) prints OK, and the reference's
@@ -47,7 +56,12 @@ ENV = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
            XLA_FLAGS="--xla_force_host_platform_device_count=8")
 W, STEPS = 4, 4
 REL = 1e-5  # of each leaf's max-abs
-CONFIGS = ("default-bf", "alie-randk-naive", "gauss-mean-fsdp")
+CONFIGS = ("default-bf", "alie-randk-naive", "gauss-mean-fsdp",
+           "default-zero3")
+# (run, its configuration, its mesh): the four on (4, 2), and the default
+# plan on (2, 4)
+RUNS = (*((name, name, (4, 2)) for name in CONFIGS),
+        ("default-bf-2x4", "default-bf", (2, 4)))
 TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
             d_ff=128, vocab=256, remat=False, dtype="float32")
 # the robustness job's checks (chip_smoke.py phase 10 uses the same): the
@@ -68,9 +82,9 @@ from repro.launch.train import (ByzTrainConfig, MeshTrainState,
                                 make_train_step, state_specs)
 from repro.models import ModelConfig, apply_train, init_params
 
-W, STEPS = 4, 4
+STEPS = 4
 cfg = ModelConfig(**%(tiny)r)
-mesh = make_debug_mesh(4, 2)
+MESHES = {(4, 2): make_debug_mesh(4, 2), (2, 4): make_debug_mesh(2, 4)}
 CONFIGS = {
     "default-bf": ByzTrainConfig(gamma=0.3, n_byz=1, attack="bf", p=0.5),
     "alie-randk-naive": ByzTrainConfig.from_plan(ServerPlan(
@@ -83,20 +97,22 @@ CONFIGS = {
         schedule=ScheduleSpec(placement="sharded")),
         gamma=1e-3, n_byz=1, attack="gauss", p=0.5,
             shard_mode="fsdp_tp"),
+    "default-zero3": ByzTrainConfig(gamma=0.3, n_byz=1, attack="bf", p=0.5,
+                                    shard_mode="zero3"),
 }
 it = make_batch_iterator(cfg, 8, 32, seed=3)
 batches = [jax.tree_util.tree_map(np.asarray, next(it))
            for _ in range(STEPS + 1)]
 out = {f"batch_{k}_{n}": v for k, b in enumerate(batches)
        for n, v in b.items()}
-with set_mesh(mesh):
-    params = init_params(jax.random.PRNGKey(0), cfg)
-    g0 = jax.jit(jax.grad(lambda p: apply_train(p, cfg, batches[0])[0]))(
-        params)
-    leaves = jax.tree_util.tree_leaves(params)
-    for i, (x, g) in enumerate(zip(leaves, jax.tree_util.tree_leaves(g0))):
-        out[f"params0_{i}"], out[f"g0_{i}"] = np.asarray(x), np.asarray(g)
-    for name, tc in CONFIGS.items():
+params = init_params(jax.random.PRNGKey(0), cfg)
+g0 = jax.jit(jax.grad(lambda p: apply_train(p, cfg, batches[0])[0]))(params)
+leaves = jax.tree_util.tree_leaves(params)
+for i, (x, g) in enumerate(zip(leaves, jax.tree_util.tree_leaves(g0))):
+    out[f"params0_{i}"], out[f"g0_{i}"] = np.asarray(x), np.asarray(g)
+for name, config, shape in %(runs)r:
+    tc, mesh, W = CONFIGS[config], MESHES[shape], shape[0]
+    with set_mesh(mesh):
         C = tc.C or W
         key = jax.random.PRNGKey(1)
         for k in range(STEPS):  # the step's key chain
@@ -134,7 +150,7 @@ with set_mesh(mesh):
                 out[f"{name}_g_{k}_{i}"] = np.asarray(g)
 np.savez(sys.argv[1], **out)
 print("REF_OK")
-""" % {"tiny": TINY}
+""" % {"tiny": TINY, "runs": RUNS}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -178,37 +194,56 @@ def _port_configs():
             schedule=ScheduleSpec(placement="sharded")),
             gamma=1e-3, n_byz=1, attack="gauss", p=0.5,
             shard_mode="fsdp_tp"),
+        "default-zero3": ByzTrainConfig(gamma=0.3, n_byz=1, attack="bf",
+                                        p=0.5, shard_mode="zero3"),
     }
 
 
 def _replay_job(rank, ref_path):
-    """One rank's replay of the three configurations on the reference's
-    tape: per configuration and step, the worst leaf error (of the leaf's
-    max-abs) and the raw bytes of params and g."""
+    """One rank's replay of the runs on the reference's tape: per run and
+    step, the worst leaf error (of the leaf's max-abs) of its pieces
+    against the reference's slices, the raw bytes of params and g, and
+    whether every leaf has ``param_specs``'s local shape; with the run's
+    "model" coordinate, the collectives of its first difference round and
+    whether its model compute was replicated (no ``model_axis_of``)."""
     import hashlib
 
     from repro_torch.api.mesh_exec import collective_counts
     from repro_torch.api.mesh_exec import reset_collective_counts
     from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import P, make_debug_mesh
     from repro_torch.launch.train import (MeshTrainState, TrainTape,
-                                          make_train_step, train_key)
+                                          make_train_step, model_axis_of,
+                                          train_key)
     from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.model import shard_params
+    from repro_torch.sharding.rules import local_shape, param_specs
 
     torch.set_num_threads(1)
     ref = np.load(ref_path)
     cfg = ModelConfig(**TINY)
-    mesh = make_debug_mesh(4, 2)
-    treedef = tree_flatten(init_params(0, cfg, device="meta"))[1]
-    n = len(tree_flatten(init_params(0, cfg, device="meta"))[0])
+    whole = init_params(0, cfg, device="meta")
+    treedef = tree_flatten(whole)[1]
+    n = len(tree_flatten(whole)[0])
+    meshes = {shape: make_debug_mesh(*shape) for shape in ((4, 2), (2, 4))}
+    configs = _port_configs()
 
     def tree(prefix):
         return tree_unflatten(treedef, [torch.from_numpy(ref[f"{prefix}_{i}"])
                                         for i in range(n)])
 
     out = {}
-    reset_collective_counts()
-    for name, tc in _port_configs().items():
+    for name, config, shape in RUNS:
+        tc, mesh, W = configs[config], meshes[shape], shape[0]
+        specs = tree_flatten(param_specs(mesh, cfg, whole, tc.shard_mode),
+                             is_leaf=lambda x: isinstance(x, P))[0]
+        want_shapes = [local_shape(mesh, x.shape, sp)
+                       for x, sp in zip(tree_flatten(whole)[0], specs)]
+
+        def pieces(prefix):
+            return tree_flatten(shard_params(tree(prefix), mesh, cfg,
+                                             tc.shard_mode))[0]
+
         tape = TrainTape(
             c=np.array([ref[f"{name}_c_{k}"] for k in range(STEPS)]),
             sampled=np.array([ref[f"{name}_sampled_{k}"]
@@ -218,37 +253,43 @@ def _replay_job(rank, ref_path):
                           for k in range(STEPS)],
             randk=[[[ref[f"{name}_randk_{k}_{w}_{i}"] for i in range(n)]
                     for w in range(W)] for k in range(STEPS)])
-        state = MeshTrainState(tree("params0"), tree("g0"), train_key(0),
+        held = [tree_unflatten(treedef, pieces(p)) for p in ("params0", "g0")]
+        state = MeshTrainState(*held, train_key(0),
                                torch.zeros((), dtype=torch.int32))
         step = make_train_step(cfg, mesh, tc)
-        rows = []
+        rows, counts = [], None
         for k in range(STEPS):
             batch = {"tokens": torch.from_numpy(ref[f"batch_{k + 1}_tokens"])}
+            reset_collective_counts()
             state = step(state, batch, tape)
-            worst, digest = 0.0, hashlib.sha256()
+            if k == 1:  # the first difference round
+                counts = collective_counts()
+            worst, digest, shaped = 0.0, hashlib.sha256(), True
             for what in ("params", "g"):
-                for i, got in enumerate(tree_flatten(getattr(state, what))[0]):
-                    want = ref[f"{name}_{what}_{k}_{i}"]
+                wants = pieces(f"{name}_{what}_{k}")
+                got_leaves = tree_flatten(getattr(state, what))[0]
+                for got, want, shp in zip(got_leaves, wants, want_shapes):
+                    want = want.numpy()
                     err = np.abs(got.numpy() - want).max()
                     worst = max(worst, float(err / max(np.abs(want).max(),
                                                        1e-30)))
                     digest.update(got.numpy().tobytes())
-            rows.append((worst, digest.hexdigest()))
-        out[name] = rows
-    return out, collective_counts()
+                    shaped &= tuple(got.shape) == shp
+            rows.append((worst, digest.hexdigest(), shaped))
+        out[name] = (mesh.get_local_rank("model"), rows, counts,
+                     model_axis_of(mesh, cfg, tc.shard_mode) is None)
+    return out
 
 
 def _robust_job(rank, device):
     """The reference's robustness job on the port's own draws: the losses
     on batch 0 before and after 25 steps, per plan."""
     from repro_torch.api import AggregatorSpec, ScheduleSpec, ServerPlan
-    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.launch.train import (ByzTrainConfig, MeshTrainState,
-                                          make_train_step, train_key,
-                                          worker_grads)
-    from repro_torch.models import ModelConfig, apply_train, init_params
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step, train_loss)
+    from repro_torch.models import ModelConfig, init_params
 
     torch.set_num_threads(1)
     cfg = ModelConfig(**TINY)
@@ -266,17 +307,11 @@ def _robust_job(rank, device):
         it = make_batch_iterator(cfg, 8, 64, seed=3, device=device)
         params = init_params(0, cfg, device=device)
         batch0 = next(it)
-        g0 = tree_unflatten(tree_flatten(params)[1],
-                            worker_grads(params, cfg, batch0))
-        state = MeshTrainState(params, g0, train_key(tc.seed),
-                               torch.zeros((), dtype=torch.int32))
-        with torch.no_grad():
-            start = float(apply_train(params, cfg, batch0)[0])
+        state = initial_state(params, cfg, mesh, tc, batch0)
+        start = train_loss(state.params, cfg, batch0, mesh)
         for _ in range(ROBUST_STEPS):
             state = step(state, next(it))
-        with torch.no_grad():
-            out[agg] = (start, float(apply_train(state.params, cfg,
-                                                 batch0)[0]))
+        out[agg] = (start, train_loss(state.params, cfg, batch0, mesh))
     return out
 
 
@@ -305,18 +340,99 @@ def test_example_prints_ok(tmp_path):
     assert f"final params sha256 {got}" in r.stdout
 
 
-def test_trainer_follows_the_reference_on_eight_ranks(reference):
+@pytest.fixture(scope="module")
+def replay(reference):
+    """The 8-rank replay of every run, and the reference's npz."""
     ref_path = reference()
-    ref = np.load(ref_path)
-    for name in CONFIGS:  # both branches: a full round, then differences
+    return np.load(ref_path), spawn(_replay_job, 8, (ref_path,),
+                                    timeout=SPAWN_TIMEOUT)
+
+
+def test_trainer_follows_the_reference_on_eight_ranks(replay):
+    ref, results = replay
+    for name, _, _ in RUNS:  # both branches: a full round, then differences
         assert [bool(ref[f"{name}_c_{k}"]) for k in range(STEPS)] == \
             [True, False, False, False]
-    results = spawn(_replay_job, 8, (ref_path,), timeout=SPAWN_TIMEOUT)
-    for rank, (out, counts) in enumerate(results):
-        for name in CONFIGS:
-            for k, (worst, digest) in enumerate(out[name]):
+    for rank, out in enumerate(results):
+        for name, _, _ in RUNS:
+            coord, rows, _, replicated = out[name]
+            for k, (worst, digest, _) in enumerate(rows):
                 assert worst <= REL, (rank, name, k, worst)
-                assert digest == results[0][0][name][k][1], (rank, name, k)
-        # the sharded scatter, the gathers (alie's honest pieces among
-        # them) and the whole-tree norms' all-reduces
+                # the ranks along "data" hold the same pieces; where the
+                # compute is replicated, every rank holds the same whole g
+                same = [o[name][1][k][1] for o in results
+                        if replicated or o[name][0] == coord]
+                assert len(same) > 1 and set(same) == {digest}, \
+                    (rank, name, k)
+
+
+@pytest.mark.parametrize("run", ["default-bf", "alie-randk-naive",
+                                 "default-bf-2x4"])
+def test_trainer_ranks_hold_param_specs_pieces(replay, run):
+    _, results = replay
+    for rank, out in enumerate(results):
+        assert all(shaped for _, _, shaped in out[run][1]), (rank, run)
+
+
+def test_trainer_collectives_of_the_split(replay):
+    """The sharded scatter, the gathers (alie's honest pieces among them)
+    and the all-reduces (the norms, the split's), and no all-gather of the
+    aggregate back to whole leaves: in a difference round of the default
+    plan a rank all-gathers only the W clip factors and, per leaf, the
+    sharded placement's aggregated chunks of its own piece (padded to a
+    multiple of W), nothing else."""
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import local_shape, param_specs
+
+    cfg = ModelConfig(**TINY)
+    whole = tree_flatten(init_params(0, cfg, device="meta"))[0]
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    specs = tree_flatten(param_specs(mesh, cfg, init_params(
+        0, cfg, device="meta")), is_leaf=lambda x: isinstance(x, P))[0]
+    sizes = [int(np.prod(local_shape(mesh, x.shape, sp)))
+             for x, sp in zip(whole, specs)]
+    want = 4 * W + sum(4 * (-(-n // W)) * W for n in sizes)
+    _, results = replay
+    for rank, out in enumerate(results):
+        counts = out["default-bf"][2]
         assert {"all_to_all", "all_gather", "all_reduce"} <= set(counts)
+        assert counts["all_gather"]["bytes"] == want, (rank, counts)
+        # the naive placement gathers the rows: no all_to_all
+        assert {"all_gather", "all_reduce"} <= set(out["alie-randk-naive"][2])
+
+
+def test_trainer_replicated_branch_gathers_the_aggregate_back(replay):
+    """zero3 splits no model compute (``model_split`` "replicated"): each
+    rank computes its worker's whole gradient, cuts its piece per
+    ``param_specs`` (the "fsdp" slots on "model"), and all-gathers the
+    aggregated pieces back to whole leaves over "model"; its replay
+    against the reference (whole g, every rank the same) is
+    ``test_trainer_follows_the_reference_on_eight_ranks``.  In a
+    difference round a rank all-gathers the W clip factors, per leaf the
+    sharded placement's chunks of its piece, and each split leaf whole."""
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import local_shape, param_specs
+
+    cfg = ModelConfig(**TINY)
+    whole = tree_flatten(init_params(0, cfg, device="meta"))[0]
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    specs = tree_flatten(param_specs(mesh, cfg, init_params(
+        0, cfg, device="meta"), "zero3"), is_leaf=lambda x: isinstance(x, P))[0]
+    pieces = [int(np.prod(local_shape(mesh, x.shape, sp)))
+              for x, sp in zip(whole, specs)]
+    back = sum(4 * x.numel() for x, sp in zip(whole, specs) if any(sp))
+    assert back > 0
+    want = 4 * W + sum(4 * (-(-n // W)) * W for n in pieces) + back
+    _, results = replay
+    for rank, out in enumerate(results):
+        assert out["default-zero3"][3], rank
+        assert not any(out[name][3] for name, _, _ in RUNS
+                       if name != "default-zero3"), rank
+        counts = out["default-zero3"][2]
+        assert counts["all_gather"]["bytes"] == want, (rank, counts)
