@@ -307,7 +307,36 @@ Phases (any failure raises, prints no result and exits non-zero):
     what ``torch.cuda.memory_allocated`` grew by when phase 10 built that
     state; its temp figure beside phase 10's measured peak; the same
     config's held state on (16, 16)).
-12. A ``{"kernels": [...]}`` line, then the card line, then the result.
+12. The split of the MoE and MLA decoders (``models.moe``'s experts over
+    "model", ``layers._mla_split``, the dense prefix and the MTP head):
+    train-tp-moe-small (arctic-480b's and deepseek-v3-671b's smoke configs
+    in f32, remat on, the default plan, a full round and two difference
+    rounds on one ``TrainTape``, on 2 gloo ranks of a (1, 2) and 4 of a
+    (1, 4) mesh on cuda:0; each rank's pieces of params and g within 1e-5
+    of each leaf's max-abs of the slices of a one-rank NCCL run on the
+    card after every round; held bytes exactly the ``param_specs``
+    pieces; choices dropped over capacity counted, above 0; rows 1-3
+    launched on every rank); train-tp-v3-wide (deepseek-v3-671b at full
+    width, 2 layers: the dense prefix layer and one MoE layer of 32 of
+    its 256 experts, MTP on, bf16, remat, seq 4,096, batch 1: first the
+    whole one-rank run's step-0 loss and g^0 and their routings, g^0
+    written to disk; then the trainer on 2 gloo ranks of a (1, 2) mesh on
+    cuda:0: held bytes exactly the pieces; routed by the whole run's
+    expert ids (``moe.record_routing``: top-k on bf16 activations sends a
+    few tokens elsewhere when the split's sums round otherwise), the
+    step-0 loss within 5e-5 relative and each g^0 piece within 5e-2 of
+    its leaf's max-abs of the whole run's; on the split's own routing, the
+    (token, choice) pairs routed elsewhere counted and the loss within
+    5e-5; a full and two difference rounds' ms, peak GB, launches and
+    collectives); moe-v3-full-experts (the same 2 layers with all 256
+    experts, 14.28 G values: ``apply_train``'s loss and gradient whole on
+    one rank, then split on the (1, 2) mesh, the ranks making the whole
+    params one after another and keeping their pieces; the loss on its
+    own routing within 5e-5 relative, its choices routed elsewhere
+    counted; routed as the whole run, the loss within 5e-5 and the
+    gradient of every non-expert leaf and of experts 0, 127, 128 and 255
+    within 5e-2 of max-abs; peak GB of both runs).
+13. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
@@ -4386,6 +4415,21 @@ def _tp_small_run(mesh_shape):
             "collectives": collective_counts()}
 
 
+def _rms_err(got, want, chunk=1 << 26):
+    """||got - want|| / ||want|| (the root-mean-square error over the
+    root-mean-square value), in f64 sums over chunks of ``chunk``
+    values."""
+    import torch
+
+    a, b = got.reshape(-1), want.reshape(-1)
+    num = den = torch.zeros((), dtype=torch.float64, device=a.device)
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        num = num + (x - y).square().sum()
+        den = den + y.square().sum()
+    return float((num / den.clamp(min=1e-300)).sqrt())
+
+
 def _rel_err(got, want, chunk=1 << 26):
     """max |got - want| / max |want| in f32, in chunks of ``chunk`` values
     (a 1.05e9-value leaf in f32 would take 4.2 GB at once)."""
@@ -4400,11 +4444,19 @@ def _rel_err(got, want, chunk=1 << 26):
     return float(err / scale.clamp(min=1e-30))
 
 
-def _tp_wide_run(g0_path):
-    """train-tp-wide on this rank of the (1, 2) mesh: its held bytes and
-    their ``param_specs`` sum, the step-0 loss, the worst leaf error of
-    its g^0 pieces against the slices of train-minitron-wide's g^0 (the
-    file ``g0_path``), per round ms, peak GB, launches and collectives."""
+def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None):
+    """train-tp-wide (``cfg``: minitron-8b with 2 layers by default) on
+    this rank of the (1, 2) mesh: its held bytes and their
+    ``param_specs`` sum, the step-0 loss, each leaf's error of its g^0
+    pieces against the slices of the one-rank g^0 (the file ``g0_path``),
+    per round (``coins``) ms, peak GB, launches and collectives.  With
+    ``routes`` (a model of one MoE layer: the one-rank run's expert ids on
+    step 0's batch, "g0", and on step 1's, "loss0"), g^0 and the step-0
+    loss route as the one-rank run did (``moe.record_routing``), and the
+    step-0 loss is also taken on the split's own routing, whose choices
+    that differ from the one-rank run's are counted."""
+    import contextlib
+
     import torch
 
     from repro_torch.api.mesh_exec import (collective_counts,
@@ -4416,24 +4468,29 @@ def _tp_wide_run(g0_path):
     from repro_torch.launch.mesh import P, make_debug_mesh
     from repro_torch.launch.train import (ByzTrainConfig, initial_state,
                                           make_train_step, train_loss)
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, moe
     from repro_torch.models.model import shard_params
     from repro_torch.sharding.rules import local_shape, param_specs
 
+    def pinned(name):
+        return (moe.record_routing(torch.from_numpy(routes[name]))
+                if routes else contextlib.nullcontext())
+
     torch.cuda.empty_cache()
-    cfg = get_config("minitron_8b", n_layers=2)
+    cfg = cfg or get_config("minitron_8b", n_layers=2)
     mesh = make_debug_mesh(1, 2)
     tc = ByzTrainConfig(n_byz=0)  # the default plan; gamma 3e-4
-    # train-minitron-wide's weights and batches: the card's generator
+    # the one-rank run's weights and batches: the card's generator
     batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
-               for k in range(len(TP_WIDE_COINS) + 1)]
+               for k in range(len(coins) + 1)]
     whole = init_params(MODEL_SEED, cfg)
     specs = tree_flatten(param_specs(mesh, cfg, whole),
                          is_leaf=lambda x: isinstance(x, P))[0]
     want = sum(math.prod(local_shape(mesh, x.shape, sp)) * x.element_size()
                for x, sp in zip(tree_flatten(whole)[0], specs))
     treedef = tree_flatten(whole)[1]
-    state = initial_state(whole, cfg, mesh, tc, batches[0])
+    with pinned("g0"):
+        state = initial_state(whole, cfg, mesh, tc, batches[0])
     del whole
     torch.cuda.empty_cache()
     held = {w: sum(x.numel() * x.element_size()
@@ -4442,15 +4499,24 @@ def _tp_wide_run(g0_path):
     # g^0's pieces against the same cut of the one-rank g^0, leaf by leaf
     ref = tree_unflatten(treedef, torch.load(g0_path, mmap=True,
                                              weights_only=True))
-    g0_errs = [_rel_err(got, want.to(got.device)) for got, want in zip(
-        tree_flatten(state.g)[0], tree_flatten(shard_params(ref, mesh,
-                                                            cfg))[0])]
+    g0_errs, g0_rms = [], []
+    for got, piece in zip(tree_flatten(state.g)[0],
+                          tree_flatten(shard_params(ref, mesh, cfg))[0]):
+        piece = piece.to(got.device)
+        g0_errs.append(_rel_err(got, piece))
+        g0_rms.append(_rms_err(got, piece))
     del ref
-    loss0 = train_loss(state.params, cfg, batches[1], mesh)
+    with pinned("loss0"):
+        loss0 = train_loss(state.params, cfg, batches[1], mesh)
+    own = {}
+    if routes:  # the split's own routing
+        with moe.record_routing() as seen:
+            own["loss0_own"] = train_loss(state.params, cfg, batches[1], mesh)
+        own["flips"] = _flips(seen, routes["loss0"], "train-tp-v3-wide")
     step = make_train_step(cfg, mesh, tc)
-    tape = _tp_tape(TP_WIDE_COINS)
+    tape = _tp_tape(coins)
     rounds = []
-    for k, full in enumerate(TP_WIDE_COINS):
+    for k, full in enumerate(coins):
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         reset_collective_counts()
@@ -4463,7 +4529,7 @@ def _tp_wide_run(g0_path):
                                     ops.launch_counts().items() if b},
                        "collectives": collective_counts()})
     return {"held": held, "want": want, "loss0": loss0, "g0_errs": g0_errs,
-            "rounds": rounds}
+            "g0_rms": g0_rms, "rounds": rounds, **own}
 
 
 def _tp_job(rank, mesh_shape, g0_path):
@@ -4479,16 +4545,17 @@ def _tp_job(rank, mesh_shape, g0_path):
     return out
 
 
-def _held_slice(whole, mesh_shape, model_rank):
+def _held_slice(whole, mesh_shape, model_rank, cfg=None):
     """The pieces a rank at ``model_rank`` of ``mesh_shape`` holds of the
-    whole leaves (``held_specs`` on an abstract mesh)."""
+    whole leaves of ``cfg`` (TP_TINY by default; ``held_specs`` on an
+    abstract mesh)."""
     from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.launch.mesh import P
     from repro_torch.models import ModelConfig, init_params
     from repro_torch.sharding.constraints import AbstractMesh
     from repro_torch.sharding.rules import held_specs
 
-    cfg = ModelConfig(**TP_TINY)
+    cfg = cfg or ModelConfig(**TP_TINY)
     mesh = AbstractMesh(mesh_shape, ("data", "model"))
     specs = tree_flatten(held_specs(mesh, cfg, init_params(
         0, cfg, device="meta")), is_leaf=lambda x: isinstance(x, P))[0]
@@ -4580,39 +4647,59 @@ def train_tp_wide(card, wide):
           f"batch 256 -> 1 (seq {TRAIN_SEQ}), one worker on the (1, 2) "
           f"mesh, 2 gloo ranks on cuda:0, rounds {TP_WIDE_COINS} (True: "
           "full)")
-    want_loss = PHASE10["loss0"]
+    _check_wide("train-tp-wide", wide, PHASE10["loss0"],
+                "train-minitron-wide", TP_WIDE_LOSS_RTOL, TP_WIDE_G0_REL)
+
+
+def _check_wide(name, wide, want_loss, whole, loss_rtol, g0_rel):
+    """The checks and readings of a wide split run's ranks (``wide``:
+    their ``_tp_wide_run`` reports) against the one-rank run ``whole``:
+    held bytes, step-0 loss (and, where the run was pinned to the whole
+    run's routing, the loss on its own routing, with the choices that
+    differ counted), each g^0 piece's max error of its leaf's max-abs
+    (root-mean-square error of its root-mean-square printed beside),
+    finite rounds on the host route."""
     for rank, rep in enumerate(wide):
         held = rep["held"]["params"] + rep["held"]["g"]
         if rep["held"]["params"] != rep["want"] or \
                 rep["held"]["g"] != rep["want"]:
             raise AssertionError(
-                f"train-tp-wide rank {rank}: held {rep['held']} bytes, its "
+                f"{name} rank {rank}: held {rep['held']} bytes, its "
                 f"param_specs pieces {rep['want']} each")
-        rel = abs(rep["loss0"] - want_loss) / abs(want_loss)
-        if not rel <= TP_WIDE_LOSS_RTOL:
-            raise AssertionError(
-                f"train-tp-wide rank {rank}: step-0 loss {rep['loss0']:.6f}, "
-                f"train-minitron-wide's {want_loss:.6f} (rtol "
-                f"{TP_WIDE_LOSS_RTOL:g})")
+        rels = {}
+        for key in ("loss0", "loss0_own"):
+            if key not in rep:
+                continue
+            rels[key] = abs(rep[key] - want_loss) / abs(want_loss)
+            if not rels[key] <= loss_rtol:
+                raise AssertionError(
+                    f"{name} rank {rank}: step-0 {key} {rep[key]:.6f}, "
+                    f"{whole}'s {want_loss:.6f} (rtol {loss_rtol:g})")
         g0 = max(rep["g0_errs"])
-        if not g0 <= TP_WIDE_G0_REL:
+        if not g0 <= g0_rel:
             worst = rep["g0_errs"].index(g0)
             raise AssertionError(
-                f"train-tp-wide rank {rank}: g^0 leaf {worst} {g0:.3e} of "
-                f"max-abs from train-minitron-wide's [{TP_WIDE_G0_REL:g}]")
+                f"{name} rank {rank}: g^0 leaf {worst} {g0:.3e} of "
+                f"max-abs from {whole}'s [{g0_rel:g}]")
+        own = ""
+        if "flips" in rep:
+            own = (f"; on its own routing {rep['loss0_own']:.6f} "
+                   f"({rels['loss0_own']:.2e} relative), "
+                   f"{rep['flips'][0]:,} of {rep['flips'][1]:,} (token, "
+                   "choice) pairs routed to another expert than the "
+                   "one-rank run's")
         print(f"    rank {rank}: params {rep['held']['params']:,} B and g "
               f"{rep['held']['g']:,} B held (= its param_specs pieces, "
               f"{held / 1e9:.3f} GB); step-0 loss {rep['loss0']:.6f} "
-              f"(train-minitron-wide {want_loss:.6f}, {rel:.2e} relative "
-              f"[{TP_WIDE_LOSS_RTOL:g}]); g^0 pieces within {g0:.3e} of "
-              f"max-abs of train-minitron-wide's [{TP_WIDE_G0_REL:g}] (by "
-              f"leaf {', '.join(f'{e:.1e}' for e in rep['g0_errs'])})")
+              f"({whole} {want_loss:.6f}, {rels['loss0']:.2e} relative "
+              f"[{loss_rtol:g}]){own}; g^0 pieces within {g0:.3e} of "
+              f"max-abs of {whole}'s [{g0_rel:g}] (by leaf "
+              f"{', '.join(f'{e:.1e}' for e in rep['g0_errs'])}; of rms "
+              f"{', '.join(f'{e:.1e}' for e in rep['g0_rms'])})")
         for rnd in rep["rounds"]:
             if not rnd["finite"]:
-                raise AssertionError(f"train-tp-wide rank {rank}: g not "
-                                     "finite")
-            _check_routes(f"train-tp-wide rank {rank}", rnd["collectives"],
-                          "host")
+                raise AssertionError(f"{name} rank {rank}: g not finite")
+            _check_routes(f"{name} rank {rank}", rnd["collectives"], "host")
             kind = "full round" if rnd["full"] else "difference round"
             print(f"      {kind}: {rnd['ms']:.1f} ms, peak "
                   f"{rnd['peak_gb']:.2f} GB; launches {rnd['launches']}; "
@@ -4688,6 +4775,493 @@ def tp_path(card):
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"  phase 11 wall {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the split of the MoE and MLA decoders
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("arctic_480b", "deepseek_v3_671b")
+# train-tp-moe-small: the smoke configs in f32 (remat on), the default
+# config (plan and gamma; one honest worker), a full round then two
+# difference rounds
+MOE_COINS = (True, False, False)
+MOE_SMALL_MESHES = ((1, 2), (1, 4))
+MOE_REL = 1e-5  # of each leaf's max-abs, against the one-rank card run
+# train-tp-v3-wide: deepseek-v3-671b at full width, 2 layers (the dense
+# prefix layer and one MoE layer) and 32 of its 256 experts, bf16, remat
+V3_WIDE = dict(n_layers=2, first_dense_layers=1, n_experts=32)
+V3_WIDE_COINS = (True, False, False)
+# the step-0 loss and the gradient pieces against the one-rank run's: the
+# split routes by the one-rank run's expert ids (``moe.record_routing``),
+# since the top-k on bf16 activations picks other experts for a few
+# tokens when the split's sums round otherwise (counted, and the loss on
+# the split's own routing held too); limits set between the sound
+# reading and a planted fault (the MoE combine's all-reduce left out), in
+# PERF.md, phase 12
+V3_LOSS_RTOL = 5e-5
+V3_G_REL = 5e-2  # of each leaf's max-abs, as train-tp-wide's
+# moe-v3-full-experts: the same 2 layers with all 256 experts; the
+# experts held against the whole run's: each rank's first and last
+V3_FULL = dict(n_layers=2, first_dense_layers=1)
+V3_KEPT_EXPERTS = (0, 127, 128, 255)
+MOE_TIMEOUT = 900  # seconds for a spawned job
+
+
+def _moe_small_run(arch, mesh_shape):
+    """The smoke config of ``arch`` on ``mesh_shape`` (its ranks on
+    cuda:0, or one rank): per step this rank's params and g leaves
+    (numpy), its held bytes and their ``param_specs`` sum, the choices
+    its MoE layers dropped, its launches, collectives and "model"
+    coordinate."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import P, make_debug_mesh
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step)
+    from repro_torch.models import init_params, moe
+    from repro_torch.sharding.rules import local_shape, param_specs
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    mesh = make_debug_mesh(*mesh_shape)
+    tc = ByzTrainConfig()  # the default plan and gamma; one honest worker
+    it = (_to(b, "cuda") for b in make_batch_iterator(cfg, 2, 32, seed=3,
+                                                      device="cpu"))
+    whole = init_params(0, cfg, device="cpu")
+    specs = tree_flatten(param_specs(mesh, cfg, whole),
+                         is_leaf=lambda x: isinstance(x, P))[0]
+    want = sum(math.prod(local_shape(mesh, x.shape, sp)) * x.element_size()
+               for x, sp in zip(tree_flatten(whole)[0], specs))
+    state = initial_state(_to(whole, "cuda"), cfg, mesh, tc, next(it))
+    step = make_train_step(cfg, mesh, tc)
+    tape = _tp_tape(MOE_COINS)
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    steps = []
+    with moe.count_drops() as drops:
+        for _ in MOE_COINS:
+            state = step(state, next(it), tape)
+            steps.append([[x.cpu().numpy() for x in
+                           tree_flatten(getattr(state, w))[0]]
+                          for w in ("params", "g")])
+    torch.cuda.synchronize()
+    held = {w: sum(x.numel() * x.element_size()
+                   for x in tree_flatten(getattr(state, w))[0])
+            for w in ("params", "g")}
+    return {"steps": steps, "model": mesh.get_local_rank("model"),
+            "held": held, "want": want, "drops": int(drops[0]),
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "collectives": collective_counts()}
+
+
+def _one_routing(log, what):
+    """The routing of a model with one MoE layer, whose passes (recomputed
+    ones too) recorded in ``log`` (``moe.record_routing``) must all have
+    chosen alike: its (T, K) expert ids, numpy."""
+    import torch
+
+    if not log or any(not torch.equal(x, log[0]) for x in log[1:]):
+        raise AssertionError(f"{what}: {len(log)} MoE passes, not one "
+                             "routing")
+    return log[0].cpu().numpy()
+
+
+def _flips(log, want, what):
+    """(the (token, choice) pairs whose expert in the routing recorded in
+    ``log`` differs from ``want``'s, all pairs)."""
+    got = _one_routing(log, what)
+    return int((got != want).sum()), int(want.size)
+
+
+def _v3_full_split(ref_path):
+    """moe-v3-full-experts on this rank of the (1, 2) mesh: the ranks make
+    the whole params one after another and keep their pieces; the loss on
+    the split's own routing, with the choices that differ from the one-rank
+    run's counted; the loss and the gradient of the pieces routed as the
+    one-rank run (the file ``ref_path``) was (``apply_train`` split, no
+    trainer); the error of every non-expert leaf and of this rank's first
+    and last expert against the one-rank run's, its values and peak GB."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api.mesh_exec import _local_piece
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten, tree_map
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.mesh import P, make_debug_mesh
+    from repro_torch.launch.train import (model_axis_of, train_loss,
+                                          worker_grads)
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.model import shard_params
+    from repro_torch.sharding.rules import held_specs
+
+    cfg = get_config("deepseek_v3_671b", **V3_FULL)
+    mesh = make_debug_mesh(1, 2)
+    r = mesh.get_local_rank("model")
+    batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, TRAIN_SEQ)
+    held = None
+    for owner in range(2):  # one whole tree on the card at a time
+        if r == owner:
+            whole = init_params(MODEL_SEED, cfg)
+            # storage of their own: a piece may be a view of the whole
+            held = tree_map(torch.clone, shard_params(whole, mesh, cfg))
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    with moe.record_routing() as seen:
+        own_loss = train_loss(held, cfg, batch, mesh)
+    flips = _flips(seen, ref["routing"].numpy(), "moe-v3-full-experts")
+    with moe.record_routing(ref["routing"]):
+        loss = train_loss(held, cfg, batch, mesh)
+        grads, ms = _timed(lambda: worker_grads(held, cfg, batch,
+                                                model_axis_of(mesh, cfg)))
+    peak = _peak_gb()
+    n_values = sum(x.numel() for x in tree_flatten(held)[0])
+    specs = tree_flatten(held_specs(mesh, cfg, init_params(
+        0, cfg, device="meta")), is_leaf=lambda x: isinstance(x, P))[0]
+    errs, rms = {}, {}
+    for i, g in enumerate(grads):
+        if i in ref["experts"]:  # (1, 4, ...): experts 0, 127, 128, 255
+            for j, local in enumerate((0, g.shape[1] - 1)):
+                want = ref["experts"][i][:, 2 * r + j].to(g.device)
+                at = (i, V3_KEPT_EXPERTS[2 * r + j])
+                errs[at] = _rel_err(g[:, local], want)
+                rms[at] = _rms_err(g[:, local], want)
+        else:
+            piece = _local_piece(ref["leaves"][i], specs[i],
+                                 mesh).to(g.device)
+            errs[(i, None)] = _rel_err(g, piece)
+            rms[(i, None)] = _rms_err(g, piece)
+    return {"loss": loss, "own_loss": own_loss, "flips": flips,
+            "want_loss": ref["loss"], "errs": errs, "rms": rms,
+            "peak_gb": peak, "ms": ms, "values": n_values}
+
+
+def _moe_job(rank, mesh_shape, g0_path, ref_path, routes):
+    """One rank of a phase-12 spawn: train-tp-moe-small on ``mesh_shape``
+    for both configs; given the one-rank runs' files (and train-tp-v3-wide's
+    routings), train-tp-v3-wide and moe-v3-full-experts."""
+    import torch
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    out = {"small": {arch: _moe_small_run(arch, mesh_shape)
+                     for arch in MOE_ARCHS}}
+    if g0_path:
+        from repro_torch.configs import get_config
+
+        out["wide"] = _tp_wide_run(
+            g0_path, get_config("deepseek_v3_671b", **V3_WIDE), V3_WIDE_COINS,
+            routes)
+        torch.cuda.empty_cache()
+        out["full"] = _v3_full_split(ref_path)
+    return out
+
+
+def _v3_wide_whole(card, work):
+    """train-tp-v3-wide's one-rank whole run in this process: its step-0
+    loss and g^0 (written to disk) and the routings of both; returns the
+    file and the readings."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import worker_grads
+    from repro_torch.models import apply_train, init_params, moe, param_count
+
+    out = {}
+    t0 = _run_header(
+        "train-tp-v3-wide (one rank, whole)", card,
+        "n_layers 61 -> 2 (first_dense_layers 3 -> 1, one MoE layer), "
+        f"n_experts 256 -> 32, train_4k's batch 256 -> 1 (seq {TRAIN_SEQ}); "
+        "d_model 7,168, 128 heads, MLA ranks 1,536 / 512 / 64, 2,048 per "
+        "expert, top-8, one shared expert, vocab 129,280, MTP on, bf16, "
+        "remat on")
+    cfg = get_config("deepseek_v3_671b", **V3_WIDE)
+    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
+               for k in range(2)]
+    params = init_params(MODEL_SEED, cfg)
+    with torch.no_grad(), moe.record_routing() as seen:
+        out["wide_loss0"] = float(apply_train(params, cfg, batches[1])[0])
+    routes = {"loss0": _one_routing(seen, "train-tp-v3-wide")}
+    with moe.record_routing() as seen:
+        g0, ms = _timed(lambda: worker_grads(params, cfg, batches[0]))
+    routes["g0"] = _one_routing(seen, "train-tp-v3-wide")
+    out["wide_routes"] = routes
+    if not all(bool(torch.isfinite(g).all()) for g in g0):
+        raise AssertionError("train-tp-v3-wide: the whole g^0 not finite")
+    peak = _peak_gb()
+    out["g0"] = str(work / "v3_wide_g0.pt")
+    _save([g.cpu() for g in g0], out["g0"])
+    print(f"    {param_count(cfg):,} parameters; loss at x^0 on step 0's "
+          f"batch {out['wide_loss0']:.6f}; g^0 in {ms:.1f} ms, peak "
+          f"{peak:.2f} GB; wall {time.perf_counter() - t0:.3f} s")
+    del params, g0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _v3_full_whole(card, work):
+    """moe-v3-full-experts' one-rank whole run in this process: its loss,
+    routing and the gradient leaves its split is held to (written to
+    disk); returns the file and the readings."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import worker_grads
+    from repro_torch.models import apply_train, init_params, moe
+
+    out = {}
+    t0 = _run_header(
+        "moe-v3-full-experts (one rank, whole)", card,
+        "n_layers 61 -> 2 (first_dense_layers 3 -> 1, one MoE layer) with "
+        f"all 256 experts, train_4k's batch 256 -> 1 (seq {TRAIN_SEQ}); "
+        "bf16, remat on; apply_train's loss and gradient, no trainer")
+    cfg = get_config("deepseek_v3_671b", **V3_FULL)
+    batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, TRAIN_SEQ)
+    params = init_params(MODEL_SEED, cfg)
+    leaves, _ = tree_flatten(params)
+    n_values = sum(x.numel() for x in leaves)
+    with torch.no_grad(), moe.record_routing() as seen:
+        loss = float(apply_train(params, cfg, batch)[0])
+    routing = _one_routing(seen, "moe-v3-full-experts")
+    with moe.record_routing() as seen:
+        grads, ms = _timed(lambda: worker_grads(params, cfg, batch))
+    if _flips(seen, routing, "moe-v3-full-experts")[0]:
+        raise AssertionError("moe-v3-full-experts: the gradient's pass "
+                             "routed otherwise than the loss's")
+    peak = _peak_gb()
+    # the expert stacks: (1, 256, ...) leaves; kept, experts 0, 127, 128
+    # and 255 of them, and every other leaf, on the host
+    stacks = [i for i, x in enumerate(leaves)
+              if x.dim() == 4 and x.shape[1] == cfg.n_experts]
+    ref = {"loss": loss, "routing": torch.from_numpy(routing), "leaves": {},
+           "experts": {}}
+    for i, g in enumerate(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"moe-v3-full-experts: leaf {i} not finite")
+        if i in stacks:
+            ref["experts"][i] = g[:, list(V3_KEPT_EXPERTS)].cpu()
+        else:
+            ref["leaves"][i] = g.cpu()
+    del params, grads, leaves, g
+    out["ref"] = str(work / "v3_full_ref.pt")
+    _save(ref, out["ref"])
+    out["full_peak"], out["full_loss"] = peak, loss
+    print(f"    {n_values:,} parameters ({n_values * 2 / 1e9:.2f} GB bf16); "
+          f"loss {loss:.6f}; gradient in {ms:.1f} ms, peak {peak:.2f} GB; "
+          f"expert stacks {stacks} (experts {V3_KEPT_EXPERTS} kept); wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _v3_whole_job(rank, card, work):
+    """Phase 12's one-rank whole runs, in a process of their own: the
+    segments they leave the allocator (cuBLAS's workspaces pin two of
+    3.7 GB after the full-experts gradient) stay out of the way of the
+    split's ranks, which share the card."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {**_v3_wide_whole(card, Path(work)),
+            **_v3_full_whole(card, Path(work))}
+
+
+def _save(obj, path):
+    """``torch.save`` to ``path``, synced, so that no writeback runs under
+    a later timed step."""
+    import os
+
+    import torch
+
+    with open(path, "wb") as f:
+        torch.save(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _check_moe_small(whole, jobs, counts):
+    """train-tp-moe-small's checks: each rank's pieces against the slices
+    of the one-rank run's, held bytes, drops, the trainer's kernels on
+    every rank; adds the launches to ``counts``."""
+    from repro_torch.configs import get_smoke_config
+
+    for arch in MOE_ARCHS:
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        one = whole[arch]
+        for shape, reports in jobs.items():
+            worst = 0.0
+            for rank, rep in enumerate(reports):
+                r = rep["small"][arch]
+                what = f"train-tp-moe-small {arch} {shape} rank {rank}"
+                for k, (got, ref) in enumerate(zip(r["steps"],
+                                                   one["steps"])):
+                    for name, g, w in zip(("params", "g"), got, ref):
+                        for i, (a, b) in enumerate(zip(g, _held_slice(
+                                w, shape, r["model"], cfg))):
+                            if a.shape != b.shape:
+                                raise AssertionError(
+                                    f"{what} {name} leaf {i}: "
+                                    f"{tuple(a.shape)}, not the piece "
+                                    f"{tuple(b.shape)}")
+                            err = float(abs(a - b).max() /
+                                        max(abs(b).max(), 1e-30))
+                            worst = max(worst, err)
+                            if not err <= MOE_REL:
+                                raise AssertionError(
+                                    f"{what} step {k} {name} leaf {i}: "
+                                    f"{err:.3e} of max-abs [{MOE_REL:g}]")
+                if r["held"] != {"params": r["want"], "g": r["want"]}:
+                    raise AssertionError(f"{what}: held {r['held']} bytes, "
+                                         f"its pieces {r['want']} each")
+                if not r["drops"] > 0:
+                    raise AssertionError(f"{what}: no choice dropped")
+                missing = [k for k in TRAINER_KERNELS
+                           if not r["launches"].get(k)]
+                if missing:
+                    raise AssertionError(f"{what}: {missing} not launched")
+                _check_routes(what, r["collectives"], "host")
+                for a, b in r["launches"].items():
+                    counts[a] += b
+                print(f"    {arch} {shape} rank {rank} (model {r['model']}):"
+                      f" held {r['held']['params']:,} B of params and of g "
+                      f"(= its pieces); {r['drops']} choices dropped; "
+                      f"launches {r['launches']}; collectives "
+                      f"{r['collectives']}")
+            print(f"    {arch} {shape}: every rank's pieces of params and g "
+                  f"within {worst:.3e} of max-abs of the one-rank card "
+                  f"run's slices after each of {len(MOE_COINS)} rounds "
+                  f"[{MOE_REL:g}]")
+        print(f"    {arch} one-rank run: {one['drops']} choices dropped; "
+              f"launches {one['launches']}")
+
+
+def _check_v3_full(full, whole_peak):
+    """moe-v3-full-experts' checks on each rank of the split."""
+    for rank, rep in enumerate(full):
+        rels = {}
+        for key in ("loss", "own_loss"):
+            rels[key] = abs(rep[key] - rep["want_loss"]) / abs(
+                rep["want_loss"])
+            if not rels[key] <= V3_LOSS_RTOL:
+                raise AssertionError(
+                    f"moe-v3-full-experts rank {rank}: {key} "
+                    f"{rep[key]:.6f}, the whole run's "
+                    f"{rep['want_loss']:.6f} [{V3_LOSS_RTOL:g}]")
+        worst = max(rep["errs"].values())
+        if not worst <= V3_G_REL:
+            at = max(rep["errs"], key=rep["errs"].get)
+            raise AssertionError(
+                f"moe-v3-full-experts rank {rank}: leaf {at} {worst:.3e} of "
+                f"max-abs [{V3_G_REL:g}]")
+
+        def show(errs):
+            others = max(v for k, v in errs.items() if k[1] is None)
+            return f"non-expert leaves {others:.3e}, experts " + ", ".join(
+                f"{e} (leaf {i}) {v:.3e}" for (i, e), v in sorted(
+                    errs.items()) if e is not None)
+
+        print(f"    rank {rank}: {rep['values']:,} values held "
+              f"({rep['values'] * 2 / 1e9:.2f} GB bf16); on its own "
+              f"routing {rep['flips'][0]:,} of {rep['flips'][1]:,} (token, "
+              f"choice) pairs routed to another expert than the whole "
+              f"run's, loss {rep['own_loss']:.6f} ({rels['own_loss']:.2e} "
+              f"relative [{V3_LOSS_RTOL:g}]); routed as the whole run: "
+              f"loss {rep['loss']:.6f} ({rels['loss']:.2e} relative "
+              f"[{V3_LOSS_RTOL:g}]), gradient pieces within, of max-abs: "
+              f"{show(rep['errs'])} [{V3_G_REL:g}]; of rms: "
+              f"{show(rep['rms'])}; gradient {rep['ms']:.1f} ms; peak "
+              f"{rep['peak_gb']:.2f} GB (both ranks on one card; the "
+              f"whole run {whole_peak:.2f} GB)")
+
+
+def moe_tp_path(card):
+    """Phase 12: the split of the MoE and MLA decoders; returns the split
+    runs' launch counts."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn
+
+    print("tensor-parallel split of the MoE and MLA decoders")
+    t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_phase12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    counts = {run: dict.fromkeys(ops.launch_counts(), 0)
+              for run in ("train-tp-moe-small", "train-tp-v3-wide")}
+    t_small = _run_header(
+        "train-tp-moe-small", card,
+        "none (the smoke configs of arctic-480b and deepseek-v3-671b, f32, "
+        f"remat on; batch 2 x 32, {len(MOE_COINS)} rounds on a tape, coins "
+        f"{MOE_COINS})")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous"), rank=0, world_size=1)
+    try:
+        whole = {arch: _moe_small_run(arch, (1, 1)) for arch in MOE_ARCHS}
+    finally:
+        dist.destroy_process_group()
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    try:
+        sys.stdout.flush()  # ahead of the spawned process's lines
+        one = spawn(_v3_whole_job, 1, (card, str(work)),
+                    timeout=MOE_TIMEOUT)[0]
+        # the split's ranks' allocators grow their segments in place: the
+        # two ranks of moe-v3-full-experts share the card at some 36 GB each
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        jobs = {shape: spawn(_moe_job, shape[1], (
+            shape, *((one["g0"], one["ref"], one["wide_routes"])
+                     if shape == (1, 2) else (None, None, None))),
+            timeout=MOE_TIMEOUT)
+            for shape in MOE_SMALL_MESHES}
+    finally:  # the whole runs' files on disk
+        shutil.rmtree(work, ignore_errors=True)
+        if env is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    print("  train-tp-moe-small")
+    _check_moe_small(whole, {s: jobs[s] for s in MOE_SMALL_MESHES},
+                     counts["train-tp-moe-small"])
+    print(f"    train-tp-moe-small wall {time.perf_counter() - t_small:.3f} "
+          "s (with the spawns' other runs)")
+    wide = [rep["wide"] for rep in jobs[(1, 2)]]
+    print(f"  train-tp-v3-wide on {card}: the trainer on the (1, 2) mesh, 2 "
+          f"gloo ranks on cuda:0, rounds {V3_WIDE_COINS} (True: full)")
+    _check_wide("train-tp-v3-wide", wide, one["wide_loss0"],
+                "the one-rank run", V3_LOSS_RTOL, V3_G_REL)
+    for rep in wide:
+        for rnd in rep["rounds"]:
+            for a, b in rnd["launches"].items():
+                counts["train-tp-v3-wide"][a] += b
+    print(f"  moe-v3-full-experts on {card}: split on the (1, 2) mesh, 2 "
+          "gloo ranks on cuda:0")
+    _check_v3_full([rep["full"] for rep in jobs[(1, 2)]], one["full_peak"])
+    for run, c in counts.items():
+        missing = [k for k in TRAINER_KERNELS if not c.get(k)]
+        if missing:
+            raise AssertionError(f"{run}: {missing} not launched")
+    torch.cuda.empty_cache()
+    print(f"  phase 12 wall {time.perf_counter() - t0:.3f} s")
     return counts
 
 
@@ -4785,7 +5359,10 @@ def main():
     # 11. the tensor-parallel split and the dry run
     counts.update(tp_path(card))
 
-    # 12. the kernels line, the card, the result
+    # 12. the split of the MoE and MLA decoders
+    counts.update(moe_tp_path(card))
+
+    # 13. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

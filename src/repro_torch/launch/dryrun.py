@@ -152,9 +152,14 @@ class _Tally:
         self.live -= nbytes
 
 
-def _traced(fn):
-    """(output, flops, peak bytes allocated during ``fn``)."""
+def _traced(fn, inputs=()):
+    """(output, flops, peak bytes allocated during ``fn``); the storages
+    of the tensors of ``inputs`` (a tree) exist before it, so that a view
+    of them is not counted as an allocation."""
     tally = _Tally()
+    for t in tree_leaves(inputs):
+        if isinstance(t, torch.Tensor):
+            tally.alive.add(t.untyped_storage()._cdata)
     with tally.mode:
         out = fn()
     return out, tally.flops, tally.peak
@@ -198,7 +203,8 @@ def _train(cfg, shape, mesh, tc, result):
     tape = TrainTape(c=np.array([False]), sampled=np.ones((1, W), bool),
                      order=np.arange(W)[None])
     step = make_train_step(cfg, mesh, tc)
-    new, flops, peak = _traced(lambda: step(state, batch, tape))
+    new, flops, peak = _traced(lambda: step(state, batch, tape),
+                               (state, batch))
     held = _nbytes((state.params, state.g, state.key, state.step))
     result["round"] = "difference"
     result["state_bytes"] = held
@@ -240,7 +246,7 @@ def _serve(cfg, shape, mesh, mode, result):
             return step(params, rows, cache, cache_len - 1)
 
         args = (params, rows, cache)
-    out, flops, peak = _traced(run)
+    out, flops, peak = _traced(run, args)
     result["model_split"] = "none"
     result["state_bytes"] = _nbytes(params)
     result["memory"] = {

@@ -16,7 +16,7 @@ stacked over the layers that share it (``Draw.stacked``), as the
 reference stacks its per-layer trees.  On ``device="meta"`` nothing is
 drawn or allocated (``param_count``).
 
-``gqa_forward`` and ``swiglu_forward`` take ``tp``, a
+``gqa_forward``, ``mla_forward`` and ``swiglu_forward`` take ``tp``, a
 ``sharding.constraints.ModelAxis``, and ``held``, their leaves' held
 specs: with them they run this rank's part of Megatron's column and row
 split on the pieces it holds (``models.tp``); without them, whole.
@@ -27,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.constraints import maybe_constrain
 
@@ -51,6 +52,7 @@ __all__ = [
     "mla_forward",
     "init_swiglu",
     "swiglu_forward",
+    "swiglu_partial",
 ]
 
 
@@ -146,6 +148,7 @@ def apply_rope(x, positions, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 
 _NEG_INF = -1e30
+_KEEP_SCORES_BYTES = 8 << 30
 
 
 def _attend_chunk(q, k, v, mask):
@@ -185,7 +188,9 @@ def attention(
     ``window > 0``: sliding-window attention (each query sees the last
     ``window`` keys) — the sub-quadratic variant used for long_500k.
     A loop over KV chunks with a running log-sum-exp merge (flash-style)
-    whenever Tk > chunk, keeping peak activation memory O(B*H*Tq*chunk).
+    whenever Tk > chunk, keeping peak activation memory O(B*H*Tq*chunk),
+    in the backward pass too where the scores kept for it would be large
+    (each chunk's scores recomputed).
     """
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
@@ -232,10 +237,20 @@ def attention(
     m_run = torch.full((B, KV, rep, Tq), _NEG_INF, dtype=F32, device=dev)
     l_run = torch.zeros((B, KV, rep, Tq), dtype=F32, device=dev)
     o_run = torch.zeros((B, KV, rep, Tq, hd_v), dtype=F32, device=dev)
+    # each chunk's scores are recomputed in the backward pass where the
+    # backward pass would otherwise keep every chunk's, three f32 (Tq, Tk)
+    # tensors a head, beyond _KEEP_SCORES_BYTES (deepseek-v3's 128 heads
+    # at 4,096 tokens: 26 GB; minitron-8b's 32 keep their 6.4 GB, where
+    # the recompute cost a difference round 9%)
+    step = _attend_chunk
+    if (torch.is_grad_enabled()
+            and 12 * B * H * Tq * n_chunks * chunk > _KEEP_SCORES_BYTES):
+        step = lambda *a: checkpoint(_attend_chunk, *a,  # noqa: E731
+                                     use_reentrant=False)
     for idx in range(n_chunks):
         sl = slice(idx * chunk, (idx + 1) * chunk)
-        mc, lc, oc = _attend_chunk(qh, kh[:, :, sl], vh[:, :, sl],
-                                   mask_for(idx * chunk, chunk, Tk))
+        mc, lc, oc = step(qh, kh[:, :, sl], vh[:, :, sl],
+                          mask_for(idx * chunk, chunk, Tk))
         m_new = torch.maximum(m_run, mc)
         a = torch.exp(m_run - m_new)
         b = torch.exp(mc - m_new)
@@ -407,8 +422,16 @@ def init_mla(rng: Draw, cfg, dtype):
     }
 
 
-def mla_forward(params, cfg, x, *, positions, cache=None, cache_index=None, window=0):
-    """cache: {'ckv': (B, L, rkv), 'krope': (B, L, rd)}."""
+def mla_forward(params, cfg, x, *, positions, cache=None, cache_index=None,
+                window=0, tp=None, held=None):
+    """cache: {'ckv': (B, L, rkv), 'krope': (B, L, rd)}.  With ``tp`` and
+    ``held``, this rank's heads on its pieces (``_mla_split``); the
+    decode cache stays whole."""
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("the tensor-parallel split trains: it takes "
+                             "no decode cache")
+        return _mla_split(params, held, cfg, x, positions, window, tp), None
     B, T, d = x.shape
     H, hd, rd = cfg.n_heads, cfg.head_dim, cfg.qk_rope_dim
     rkv = cfg.kv_lora_rank
@@ -474,6 +497,58 @@ def mla_forward(params, cfg, x, *, positions, cache=None, cache_index=None, wind
     return out @ params["wo"], new_cache
 
 
+def _mla_split(params, held, cfg, x, positions, window, tp):
+    """This rank's part of MLA: the latents whole on every rank, then the
+    columns [lo, hi) of the heads' output that its ``wo`` rows take, from
+    the heads that cover them, the row-split product all-reduced.
+
+    ``wq_a`` and ``wkv_a`` are column-split: each rank computes its
+    columns of the latents, which are all-gathered whole
+    (``gather_replicated``), since ``q_norm`` and ``kv_norm`` read the
+    whole latent (and ``wkv_a``'s piece may straddle the latent and the
+    rope key); the norms and the rope key are computed alike on every
+    rank, and the three enter the heads' split through one
+    ``copy_to_model``.  A leaf ``param_specs`` leaves whole gives its
+    latent from the replicated ``x`` directly; heads that reach past a
+    rank's pieces (heads the axis does not divide) are gathered by
+    ``take``."""
+    B, T, d = x.shape
+    H, nope, rd = cfg.n_heads, cfg.head_dim, cfg.qk_rope_dim
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    xin = tp_mod.copy_to_model(x, tp)
+
+    def latent(name):
+        if tp_mod.split_on(held[name], 1) is None:
+            return x @ params[name]
+        return tp_mod.gather_replicated(xin @ params[name], tp, -1)
+
+    qa = rmsnorm(params["q_norm"], latent("wq_a"))
+    kv_a = latent("wkv_a")
+    ckv = rmsnorm(params["kv_norm"], kv_a[..., :rkv])
+    k_rope = apply_rope(kv_a[..., rkv:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    qa, ckv, k_rope = tp_mod.copy_to_model(
+        torch.cat([qa, ckv, k_rope], dim=-1), tp).split([rq, rkv, rd], -1)
+
+    lo, hi = tp_mod.split_range(H * nope, tp)
+    h0, h1 = lo // nope, -(-hi // nope)  # the heads that cover [lo, hi)
+    nh = h1 - h0
+    wq_b = tp_mod.take(params["wq_b"], 1, held["wq_b"], h0 * (nope + rd),
+                       h1 * (nope + rd), tp)
+    wkv_b = tp_mod.take(params["wkv_b"], 1, held["wkv_b"], h0 * 2 * nope,
+                        h1 * 2 * nope, tp)
+    q = (qa @ wq_b).reshape(B, T, nh, nope + rd)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kvb = (ckv @ wkv_b).reshape(B, T, nh, 2 * nope)
+    k = torch.cat([kvb[..., :nope],
+                   k_rope[:, :, None, :].expand(B, T, nh, rd)], dim=-1)
+    qf = torch.cat([q[..., :nope], q_rope], dim=-1)
+    out = attention(qf, k, kvb[..., nope:], causal=True, window=window)
+    out = out.reshape(B, T, nh * nope).narrow(2, lo - h0 * nope, hi - lo)
+    wo = tp_mod.take(params["wo"], 0, held["wo"], lo, hi, tp)
+    return tp_mod.reduce_from_model(out @ wo, tp)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -492,15 +567,25 @@ def swiglu_forward(params, x, tp=None, d_ff=0, held=None):
     (column-split ``w_gate``/``w_up``, row-split ``w_down``) and one
     all-reduce."""
     if tp is not None:
-        lo, hi = tp_mod.split_range(int(d_ff), tp)
-        xin = tp_mod.copy_to_model(x, tp)
-        wg, wu, wd = (tp_mod.take(params[n], dim, held[n], lo, hi, tp)
-                      for n, dim in (("w_gate", 1), ("w_up", 1),
-                                     ("w_down", 0)))
-        h = F.silu((xin @ wg).to(F32)).to(x.dtype) * (xin @ wu)
-        return tp_mod.reduce_from_model(h @ wd, tp)
+        return tp_mod.reduce_from_model(swiglu_partial(
+            params, tp_mod.copy_to_model(x, tp), tp, d_ff, held), tp)
     h = F.silu((x @ params["w_gate"]).to(F32)).to(x.dtype) * (
         x @ params["w_up"]
     )
     h = maybe_constrain(h, "data", None, "model")
     return h @ params["w_down"]
+
+
+def swiglu_partial(params, xin, tp=None, d_ff=0, held=None):
+    """The SwiGLU's product on ``xin``; with ``tp``, this rank's partial
+    of it (``xin`` has entered the split through ``copy_to_model``): the
+    hidden block [lo, hi) of ``d_ff``, whose row-split product the ranks
+    sum (``swiglu_forward``, or a caller that sums it with its own)."""
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if tp is not None:
+        lo, hi = tp_mod.split_range(int(d_ff), tp)
+        wg, wu, wd = (tp_mod.take(params[n], dim, held[n], lo, hi, tp)
+                      for n, dim in (("w_gate", 1), ("w_up", 1),
+                                     ("w_down", 0)))
+    h = F.silu((xin @ wg).to(F32)).to(xin.dtype) * (xin @ wu)
+    return h @ wd

@@ -24,10 +24,12 @@ Entry points:
   gather_params(pieces, mesh, cfg, mode)     -> and the whole tree back
 
 Inside a ``sharding.constraints.model_axis`` block on a "model" axis of
-more than one rank, ``apply_train`` runs the tensor-parallel split of a
-dense decoder (``models.tp``) on this rank's pieces (``shard_params``):
-the embedding and unembedding split on the vocabulary, the attention
-heads and the MLP's hidden dimension column- then row-split.  It reads
+more than one rank, ``apply_train`` runs the tensor-parallel split of an
+attention decoder (``models.tp``; ``sharding.rules.model_split``) on
+this rank's pieces (``shard_params``): the embedding and unembedding
+split on the vocabulary, the attention heads (GQA or MLA) and the MLP's
+hidden dimension column- then row-split, the MoE layer's experts split
+over the axis, the dense prefix and the MTP head split alike.  It reads
 the axis once and hands it to every layer, so that a layer recomputed
 under ``torch.utils.checkpoint`` splits as its forward pass did.
 
@@ -201,17 +203,19 @@ def _apply_layer(
     window=0,
     tp=None,
     held=None,
+    ff=0,
 ):
     """Returns (x, new_cache, aux) where aux = (lb_loss, z_loss).  ``tp``:
-    the ``ModelAxis`` of the split (dense layers only), or None; ``held``:
-    the layer's held specs under it."""
+    the ``ModelAxis`` of the split, or None; ``held``: the layer's held
+    specs under it; ``ff``: a dense MLP's hidden width (0: ``d_ff``)."""
     h = rmsnorm(layer["norm1"], x)
     new_cache = cache
     if mixer == "attn":
         if cfg.attn_kind == "mla":
             out, new_cache = mla_forward(
                 layer["mixer"], cfg, h, positions=positions, cache=cache,
-                cache_index=cache_index, window=window,
+                cache_index=cache_index, window=window, tp=tp,
+                held=held and held["mixer"],
             )
         else:
             out, new_cache = gqa_forward(
@@ -236,13 +240,17 @@ def _apply_layer(
         return x, new_cache, aux
     h = rmsnorm(layer["norm2"], x)
     if mlp == "dense":
-        x = x + swiglu_forward(layer["mlp"], h, tp=tp, d_ff=cfg.d_ff,
+        x = x + swiglu_forward(layer["mlp"], h, tp=tp, d_ff=ff or cfg.d_ff,
                                held=held and held["mlp"])
     else:
-        mo = moe_mod.moe_forward(layer["mlp"], cfg, h, capacity_factor=cfg.capacity_factor)
+        mo = moe_mod.moe_forward(layer["mlp"], cfg, h,
+                                 capacity_factor=cfg.capacity_factor, tp=tp,
+                                 held=held and held["mlp"])
         x = x + mo.out
         if "mlp_dense" in layer:
-            x = x + swiglu_forward(layer["mlp_dense"], h)
+            x = x + swiglu_forward(layer["mlp_dense"], h, tp=tp,
+                                   d_ff=cfg.d_ff,
+                                   held=held and held["mlp_dense"])
         aux = (mo.lb_loss, mo.z_loss)
     return x, new_cache, aux
 
@@ -382,12 +390,15 @@ def _embed_inputs(params, cfg: ModelConfig, batch, tp=None):
 def _unstack(tree, n: int, tp=None, held=None) -> list:
     """The ``n`` slices along the leading axis of a stacked tree, as
     views (``unbind``: one backward node a leaf, which stacks the
-    slices' gradients once).  Under the split (``tp``, ``held`` the
-    tree's held specs) a leaf whose layer dimension is split (this rank
-    holds n / M layers) gives a ``tp.LayerSlice`` a layer, fetched from
-    its owner where it is used."""
+    slices' gradients once; one slice: ``squeeze``).  Under the split
+    (``tp``, ``held`` the tree's held specs) a leaf whose layer dimension
+    is split (this rank holds n / M layers) gives a ``tp.LayerSlice`` a
+    layer, fetched from its owner where it is used."""
     leaves, treedef = tree_flatten(tree)
-    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    # one layer: a view whose backward is a view too (unbind's stacks a
+    # copy of the layer's gradient)
+    per_leaf = [(leaf.squeeze(0),) if leaf.shape[0] == 1 else leaf.unbind(0)
+                for leaf in leaves]
     splits = ([None] * len(leaves) if held is None else
               [tp_mod.split_on(sp, 0) for sp in _specs(held)[0]])
 
@@ -449,7 +460,8 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
     def prefix_step(h, aux, layer, cache):
         h, nc, (lb, zl) = _apply_layer(
             layer, cfg, "attn", "dense", h, positions=positions, vision=vision,
-            cache=cache, cache_index=cache_index, window=window,
+            cache=cache, cache_index=cache_index, window=window, tp=tp,
+            held=prefix_held, ff=cfg.first_dense_ff,
         )
         return h, aux + torch.stack([lb, zl]), nc
 
@@ -472,7 +484,9 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
 
     if cfg.first_dense_layers:
         n = cfg.first_dense_layers
-        layers = _unstack(params["prefix"], n)
+        held = None if tp is None else tp.held["prefix"]
+        prefix_held = held and _layer_held(held)
+        layers = _unstack(params["prefix"], n, tp, held)
         pc = None if caches is None else _unstack(caches["prefix"], n)
         out = []
         for i in range(n):
@@ -573,14 +587,16 @@ def apply_train(params, cfg: ModelConfig, batch):
 
         if model_split(cfg) != "tp":
             raise ValueError(
-                f"{cfg.name}: the tensor-parallel split covers the dense "
-                "decoders only (sharding.rules.model_split is "
-                f"{model_split(cfg)!r}); run it whole, outside a "
-                "model_axis block")
+                f"{cfg.name}: the tensor-parallel split covers the attention "
+                "decoders, the dense decoders only and those with MoE or "
+                "MLA layers, not SSM, cross-attention or frame inputs "
+                f"(sharding.rules.model_split is {model_split(cfg)!r}); run "
+                "it whole, outside a model_axis block")
         held = tp.held
-    x = _embed_inputs(params, cfg, batch,
-                      tp if held and tp_mod.split_on(held["embed"], 0)
-                      else None)
+    # the axes the embedding and the unembedding are split over, or None
+    tp_embed = tp if held and tp_mod.split_on(held["embed"], 0) else None
+    tp_unembed = tp if held and tp_mod.split_on(held["unembed"], 1) else None
+    x = _embed_inputs(params, cfg, batch, tp_embed)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
@@ -603,20 +619,32 @@ def apply_train(params, cfg: ModelConfig, batch):
         targets = pad(tokens[:, 1:], (0, 1))
         valid = (torch.arange(S, device=x.device)[None] < S - 1).expand(B, S)
         loss = _chunked_ce(cfg, h, params["unembed"], targets, valid,
-                           tp if held and tp_mod.split_on(held["unembed"], 1)
-                           else None)
+                           tp_unembed)
         if cfg.mtp_depth and "mtp" in params:
             # simplified DeepSeek-V3 MTP: one extra block predicts t+2
             mtp = params["mtp"]
-            nxt = params["embed"][targets.long()]  # emb of t+1
-            hm = torch.cat([h, nxt.to(h.dtype)], dim=-1) @ mtp["proj"]
+            mheld = held and held["mtp"]
+            if tp_embed is not None:
+                nxt = tp_mod.vocab_parallel_embed(params["embed"], targets,
+                                                  tp)
+            else:
+                nxt = params["embed"][targets.long()]  # emb of t+1
+            hm = torch.cat([h, nxt.to(h.dtype)], dim=-1)
+            if mheld and tp_mod.split_on(mheld["proj"], 1):
+                # a column split, gathered back to the whole residual
+                hm = tp_mod.gather_replicated(
+                    tp_mod.copy_to_model(hm, tp) @ mtp["proj"], tp, -1)
+            else:
+                hm = hm @ mtp["proj"]
             hm, _, _ = _apply_layer(
-                mtp["layer"], cfg, "attn", "dense", hm, positions=positions
+                mtp["layer"], cfg, "attn", "dense", hm, positions=positions,
+                tp=tp, held=mheld and mheld["layer"],
             )
             hm = rmsnorm(mtp["norm"], hm)
             t2 = pad(tokens[:, 2:], (0, 2))
             v2 = (torch.arange(S, device=x.device)[None] < S - 2).expand(B, S)
-            loss = loss + 0.3 * _chunked_ce(cfg, hm, params["unembed"], t2, v2)
+            loss = loss + 0.3 * _chunked_ce(cfg, hm, params["unembed"], t2,
+                                            v2, tp_unembed)
 
     lb, zl = aux[0], aux[1]
     n_moe = sum(1 for m in cfg.mlp_pattern if m == "moe") * cfg.n_periods

@@ -9,14 +9,32 @@ top-k routing with capacity-bounded scatter dispatch, shared experts
      exclusive cumulative count over the one-hot routing matrix, the K
      choices placed one after another on top of the running counts
   3. scatter tokens into (E, capacity, D) buffers — tokens over capacity
-     are dropped (standard capacity-factor semantics)
-  4. batched expert SwiGLU (E, cap, D) x (E, D, F), in f32 products
+     are dropped (standard capacity-factor semantics) into a trash row
+  4. batched expert SwiGLU (E, cap, D) x (E, D, F), in f32 products of
+     upcast operands, a group of experts at a time so that the f32
+     copies of the weights stay bounded (``_ExpertFFN``)
   5. gather back and combine weighted by the (renormalized) gates.
 
 Aux losses: switch-style load-balance loss + router z-loss.
+
+Under the tensor-parallel split (``tp``, ``models.tp``) the expert stacks
+are split over "model" (``param_specs``: rank r holds experts
+[r E/M, (r+1) E/M)) and the tokens are not: every rank has every token,
+so the split needs no all_to_all.  The routing runs on the replicated
+tokens, outside the split, the same on every rank (its capacity and
+slots are the whole layer's, so the dropped choices are too); the
+dispatched tokens and the gates enter the split through
+``copy_to_model``; each rank scatters the choices routed to its own
+experts into its own buffers, runs them, and combines those choices; the
+shared experts' row-split partial joins that combine, and one
+``reduce_from_model`` sums the ranks' partials.  An expert stack that
+``param_specs`` leaves whole (the axis does not divide E) is narrowed to
+the rank's ``split_range`` through ``take``; a rank with no expert adds a
+zero partial and runs the same collectives.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -24,9 +42,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.sharding.constraints import maybe_constrain
-from .layers import F32, Draw, dense_init
+from . import tp as tp_mod
+from .layers import F32, Draw, dense_init, swiglu_partial
 
-__all__ = ["init_moe", "moe_forward", "MoEOutput", "route", "top_k"]
+__all__ = ["init_moe", "moe_forward", "MoEOutput", "route", "top_k",
+           "count_drops", "record_routing"]
+
+_TALLIES: list = []  # the open tallies of ``count_drops``
+_ROUTINGS: list = []  # the open (log, pin) pairs of ``record_routing``
 
 
 class MoEOutput(NamedTuple):
@@ -60,15 +83,81 @@ def top_k(probs, k: int):
     return values[..., :k], indices[..., :k]
 
 
-def _expert_ffn(w, x):
-    """x: (E, cap, D) -> (E, cap, D), batched SwiGLU over experts."""
-    x32 = x.to(F32)
-    g = torch.einsum("ecd,edf->ecf", x32, w["w_gate"].to(F32))
-    u = torch.einsum("ecd,edf->ecf", x32, w["w_up"].to(F32))
+# the f32 copies of the expert weights that one group of experts takes at
+# once (the products are f32 products of upcast bf16 operands)
+_GROUP_BYTES = 1 << 29
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _ffn(x, wg, wu, wd):
+    """x: (e, cap, D) -> (e, cap, D), SwiGLU over e experts, in f32
+    products (f64 ones for f64 operands)."""
+    up = torch.promote_types(x.dtype, F32)
+    x32 = x.to(up)
+    g = torch.einsum("ecd,edf->ecf", x32, wg.to(up))
+    u = torch.einsum("ecd,edf->ecf", x32, wu.to(up))
     h = (F.silu(g) * u).to(x.dtype)
     h = maybe_constrain(h, "expert", None, None)
-    return torch.einsum("ecf,efd->ecd", h.to(F32),
-                        w["w_down"].to(F32)).to(x.dtype)
+    return torch.einsum("ecf,efd->ecd", h.to(up), wd.to(up)).to(x.dtype)
+
+
+class _ExpertFFN(torch.autograd.Function):
+    """The experts' SwiGLU on the flat buffer ``buf`` (n * cap + 1, D):
+    expert-major slots of ``cap`` rows, then one trash row, whose output
+    is 0.  ``_ffn`` runs one group of ``group`` experts at a time, so
+    that the f32 copies of the weights exist for one group only; the
+    backward pass saves the weights as they are (no f32 copy) and
+    recomputes each group's forward before its gradient, so that each
+    expert's products are ``_ffn``'s."""
+
+    @staticmethod
+    def forward(ctx, buf, wg, wu, wd, cap, group):
+        ctx.save_for_backward(buf, wg, wu, wd)
+        ctx.cap, ctx.group = cap, group
+        out = torch.empty_like(buf)
+        out[-1] = 0
+        for a, b in _groups(wg.shape[0], group):
+            rows = slice(a * cap, b * cap)
+            x = buf[rows].view(b - a, cap, buf.shape[1])
+            out[rows] = _ffn(x, wg[a:b], wu[a:b], wd[a:b]).flatten(0, 1)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        buf, *ws = ctx.saved_tensors
+        cap, D = ctx.cap, buf.shape[1]
+        need = ctx.needs_input_grad[:4]
+        outs = [torch.empty_like(t) if n else None
+                for t, n in zip((buf, *ws), need)]
+        if need[0]:
+            outs[0][-1] = 0  # the trash row's
+        for a, b in _groups(ws[0].shape[0], ctx.group):
+            rows = slice(a * cap, b * cap)
+            with torch.enable_grad():
+                part = [t.detach().requires_grad_(n) for t, n in zip(
+                    (buf[rows].view(b - a, cap, D), *(w[a:b] for w in ws)),
+                    need)]
+                got = iter(torch.autograd.grad(
+                    _ffn(*part), [t for t in part if t.requires_grad],
+                    grad[rows].view_as(part[0])))
+            for out, at in zip(outs, (rows, *[slice(a, b)] * 3)):
+                if out is not None:
+                    out[at] = next(got).reshape(out[at].shape)
+        return (*outs, None, None)
+
+
+def _groups(n: int, group: int):
+    return [(a, min(a + group, n)) for a in range(0, n, group)]
+
+
+def _expert_ffn(w, buf, cap: int):
+    """``buf`` (n * cap + 1, D) -> (n * cap + 1, D): the SwiGLU of the n
+    experts ``w`` (leaves (n, D, F), (n, D, F), (n, F, D)) on their slots,
+    0 on the trash row; a group of experts takes at most ``_GROUP_BYTES``
+    of f32 weights at once."""
+    per = 4 * sum(math.prod(w[k].shape[1:]) for k in _EXPERTS)
+    return _ExpertFFN.apply(buf, *(w[k] for k in _EXPERTS), cap,
+                            max(1, _GROUP_BYTES // per))
 
 
 def route(params, cfg, xt, capacity_factor: float):
@@ -78,9 +167,18 @@ def route(params, cfg, xt, capacity_factor: float):
     losses (lb, z)."""
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.experts_per_token
-    logits = xt.to(F32) @ params["router"].to(F32)  # (T, E)
+    up = torch.promote_types(xt.dtype, F32)  # f32 (f64 for f64 tokens)
+    logits = xt.to(up) @ params["router"].to(up)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = top_k(probs, K)  # (T, K)
+    for log, pin in _ROUTINGS:
+        if pin is not None:
+            if tuple(pin.shape) != tuple(expert_ids.shape):
+                raise ValueError(f"pinned routing {tuple(pin.shape)} for "
+                                 f"{tuple(expert_ids.shape)} choices")
+            expert_ids = pin.to(expert_ids.device)
+            gate_vals = torch.gather(probs, -1, expert_ids)
+        log.append(expert_ids.detach())
     gate_vals = gate_vals / torch.clamp(
         torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9
     )
@@ -113,37 +211,89 @@ def route(params, cfg, xt, capacity_factor: float):
             torch.stack(keeps, 1), capacity, (lb_loss, z_loss))
 
 
-def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25):
-    """x: (B, S, D).  Returns MoEOutput."""
+def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25, tp=None,
+                held=None):
+    """x: (B, S, D).  Returns MoEOutput.  With ``tp`` (a ``ModelAxis``)
+    and ``held`` (the layer's held specs), this rank's block of experts
+    (module docstring)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
     xt = x.reshape(T, D)
+    # the routing, on the replicated tokens under the split: the same on
+    # every rank, and so are its gradients (to the router and to x)
     gate_vals, expert_ids, positions, keeps, capacity, (lb_loss, z_loss) = \
         route(params, cfg, xt, capacity_factor)
+    for tally in _TALLIES:
+        tally[0] = tally[0] + torch.sum(~keeps).detach()
+    if tp is None:
+        lo, hi, experts, xin, gates = 0, E, params, xt, gate_vals
+    else:
+        lo, hi = tp_mod.split_range(E, tp)
+        experts = {k: tp_mod.take(params[k], 0, held[k], lo, hi, tp)
+                   for k in _EXPERTS}
+        xin = tp_mod.copy_to_model(xt, tp)
+        gates = tp_mod.copy_to_model(gate_vals, tp)
+
+    # each (token, choice)'s row in the flat buffers of experts [lo, hi):
+    # its expert's slot, or the trash row (dropped, or another rank's)
+    n = hi - lo
+    mine = keeps & (expert_ids >= lo) & (expert_ids < hi)
+    rows = torch.where(mine, (expert_ids - lo) * capacity + positions,
+                       n * capacity)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
 
     # Scatter the K choices one after another, so the transient working
-    # set stays O(T*D), never O(T*K*D); a dropped choice adds 0 to its
-    # expert's last slot.
-    buffers = torch.zeros((E, capacity, D), dtype=x.dtype, device=x.device)
+    # set stays O(T*D), never O(T*K*D).
+    buffers = torch.zeros((n * capacity + 1, D), dtype=x.dtype,
+                          device=x.device)
     for kk in range(K):
-        src = torch.where(keeps[:, kk, None], xt, zero)
-        buffers = buffers.index_put((expert_ids[:, kk], positions[:, kk]),
-                                    src, accumulate=True)
-    buffers = maybe_constrain(buffers, "expert", None, None)
+        src = torch.where(mine[:, kk, None], xin, zero)
+        buffers = buffers.index_put((rows[:, kk],), src, accumulate=True)
 
-    outputs = _expert_ffn(params, buffers)  # (E, cap, D)
+    outputs = _expert_ffn(experts, buffers, capacity)
 
     combined = torch.zeros((T, D), dtype=x.dtype, device=x.device)
     for kk in range(K):
-        gathered = outputs[expert_ids[:, kk], positions[:, kk]]  # (T, D)
-        gathered = torch.where(keeps[:, kk, None], gathered, zero)
-        combined = combined + gathered * gate_vals[:, kk][:, None].to(x.dtype)
+        gathered = outputs[rows[:, kk]]  # (T, D); the trash row's is 0
+        combined = combined + gathered * gates[:, kk][:, None].to(x.dtype)
 
     if cfg.n_shared_experts:
-        sh = params["shared"]
-        g = F.silu((xt @ sh["w_gate"]).to(F32)).to(x.dtype)
-        combined = combined + (g * (xt @ sh["w_up"])) @ sh["w_down"]
+        combined = combined + swiglu_partial(
+            params["shared"], xin, tp, cfg.d_ff * cfg.n_shared_experts,
+            held and held["shared"])
+    if tp is not None:  # the experts' and the shared expert's partials
+        combined = tp_mod.reduce_from_model(combined, tp)
 
     return MoEOutput(combined.reshape(B, S, D), lb_loss, z_loss)
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Inside the block, tally the (token, choice) pairs that every MoE
+    forward pass drops over its experts' capacity (recomputed forward
+    passes counted again): yields a one-entry list whose entry is the
+    count, a tensor on the tokens' device (0 until a layer runs)."""
+    tally = [0]
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+@contextlib.contextmanager
+def record_routing(pin=None):
+    """Inside the block, every MoE forward pass (recomputed ones too)
+    appends its choices, the (T, K) expert ids, to the yielded list.  With
+    ``pin`` ((T, K) expert ids), every pass routes by ``pin`` instead of
+    its own top-k, its gates the router's probabilities of those experts,
+    renormalized: a run held against another whose routing it takes, on a
+    model with one MoE layer (whose every pass sees the same tokens)."""
+    log = []
+    entry = (log, pin)
+    _ROUTINGS.append(entry)
+    try:
+        yield log
+    finally:
+        _ROUTINGS.remove(entry)

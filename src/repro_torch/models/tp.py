@@ -1,6 +1,6 @@
 """Megatron's tensor-parallel split along the mesh's "model" axis, for the
-dense decoders (GQA or MHA attention, the SwiGLU MLP, the token embedding
-and the unembedding).
+attention decoders (GQA, MHA or MLA attention, the SwiGLU MLP, the MoE
+layer, the token embedding and the unembedding).
 
 The reference's GSPMD splits each worker's forward and backward pass
 over "model" from ``param_specs`` and the activation constraints; here
@@ -14,6 +14,16 @@ split leaf (``sharding.rules.held_specs``) and computes with it:
 * a **row split** (``wo``, ``w_down``: input dim) is followed by
   :func:`reduce_from_model` (all-reduce forward, identity backward,
   Megatron's g);
+* a column split whose **whole output** every rank needs (MLA's latents
+  ahead of their norms, the MTP head's projection) is followed by
+  :func:`gather_replicated` (all-gather forward; backward, this rank's
+  piece of a gradient that is already the same on every rank), and the
+  whole result enters the split again through :func:`copy_to_model`;
+* the **MoE layer** routes on the replicated tokens, outside the split,
+  and each rank runs its own block of experts on the tokens routed to
+  them: the dispatched tokens and the gates enter through
+  :func:`copy_to_model`, the partial combine leaves through
+  :func:`reduce_from_model` (``models.moe``);
 * the **embedding** is split on the vocabulary:
   :func:`vocab_parallel_embed` looks up the tokens of this rank's rows,
   zeroes the others and all-reduces;
@@ -57,6 +67,7 @@ __all__ = [
     "copy_to_model",
     "reduce_from_model",
     "gather_from_model",
+    "gather_replicated",
     "take",
     "LayerSlice",
     "vocab_parallel_embed",
@@ -131,6 +142,13 @@ class _GatherFromModel(torch.autograd.Function):
                 None, None)
 
 
+class _GatherReplicated(_GatherFromModel):
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.axis.rank * ctx.width, ctx.width),
+                None, None)
+
+
 def copy_to_model(x, axis: ModelAxis):
     """``x`` (replicated on the axis) entering a split region: identity
     forward, the gradient summed over the axis backward."""
@@ -148,6 +166,15 @@ def gather_from_model(x, axis: ModelAxis, dim: int):
     order; backward, the gradient summed over the axis, this rank's piece
     kept."""
     return _GatherFromModel.apply(x, axis, dim)
+
+
+def gather_replicated(x, axis: ModelAxis, dim: int):
+    """The ranks' pieces of ``x`` concatenated along ``dim``, a whole
+    tensor that every rank then computes with alike (outside the split,
+    until it enters it again through :func:`copy_to_model`); backward,
+    this rank's piece of the gradient, which is the same on every rank,
+    with no collective."""
+    return _GatherReplicated.apply(x, axis, dim)
 
 
 class _FromOwner(torch.autograd.Function):
@@ -212,6 +239,8 @@ def take(w, dim: int, spec, lo: int, hi: int, axis: ModelAxis):
         return copy_to_model(w, axis).narrow(dim, lo, hi - lo)
     held = w.shape[dim]
     start = axis.rank * held
+    if start == lo and hi == start + held:
+        return w  # the piece itself (a narrow's backward would copy it)
     if start <= lo and hi <= start + held:
         return w.narrow(dim, lo - start, hi - lo)
     return gather_from_model(w, axis, dim).narrow(dim, lo, hi - lo)

@@ -26,11 +26,12 @@ out of a whole tensor (the trainer cuts its worker's whole gradient with
 it before the mesh aggregation, ``repro_torch.launch.train``).
 
 Which part of that the model compute follows is :func:`model_split`:
-"tp" for the dense decoders (GQA or MHA attention, the SwiGLU MLP, token
-inputs), whose forward and backward passes split over "model" as
-``models.tp`` writes out, so that a rank holds only its pieces
-(:func:`held_specs`); "replicated" for the other families and for zero3,
-whose ranks hold every leaf whole and compute it whole.
+"tp" for the attention decoders (GQA, MHA or MLA attention; the SwiGLU
+MLP or the MoE layer; token inputs), whose forward and backward passes
+split over "model" as ``models.tp`` writes out, so that a rank holds
+only its pieces (:func:`held_specs`); "replicated" for the other
+families (SSM, cross-attention, frame inputs) and for zero3, whose ranks
+hold every leaf whole and compute it whole.
 """
 from __future__ import annotations
 
@@ -94,16 +95,17 @@ _FSDP_THRESHOLD = 60e9
 
 def model_split(cfg, mode: str = "tp") -> str:
     """How a worker's forward and backward pass runs over "model": "tp"
-    (Megatron's column and row split, ``models.tp``) for the dense
-    decoders under "tp" or "fsdp_tp"; "replicated" (every rank computes
-    the whole pass) for MLA, MoE, SSM, cross-attention and frame inputs,
-    which the split does not cover yet, and under zero3, which by
-    definition splits no model compute."""
-    dense = (cfg.attn_kind == "gqa" and set(cfg.mixer_pattern) == {"attn"}
-             and set(cfg.mlp_pattern) == {"dense"}
-             and cfg.input_kind == "tokens" and not cfg.first_dense_layers
-             and not cfg.mtp_depth)
-    return "tp" if dense and mode in ("tp", "fsdp_tp") else "replicated"
+    (Megatron's column and row split, ``models.tp``) for the token
+    decoders whose mixers are all attention (GQA or MLA) and whose MLPs
+    are dense or MoE (a dense prefix and an MTP head included), under
+    "tp" or "fsdp_tp"; "replicated" (every rank computes the whole pass)
+    for SSM, cross-attention and frame inputs, which the split does not
+    cover yet, and under zero3, which by definition splits no model
+    compute."""
+    covered = (set(cfg.mixer_pattern) == {"attn"}
+               and set(cfg.mlp_pattern) <= {"dense", "moe"}
+               and cfg.input_kind == "tokens")
+    return "tp" if covered and mode in ("tp", "fsdp_tp") else "replicated"
 
 
 def needs_fsdp(cfg, param_count: Optional[int] = None) -> bool:

@@ -27,7 +27,8 @@ MESHES = ("2x2", "2x2x2")
 KEYS = ("arch", "shape", "multi_pod", "mode", "smoke", "mesh", "n_chips",
         "shard_mode", "agg_schedule", "params", "memory", "cost",
         "collectives", "model_split", "rank")
-DENSE = ("minitron_8b", "stablelm_12b", "deepseek_7b", "yi_34b")
+DENSE = ("minitron_8b", "stablelm_12b", "deepseek_7b", "yi_34b",
+         "arctic_480b", "deepseek_v3_671b")
 TIMEOUT = 900
 
 REF_SCRIPT = r"""
@@ -209,3 +210,77 @@ def test_full_size_minitron_holds_a_sixteenth_of_the_split_leaves():
     assert held_n == split // 16 + kept
     # the norms alone stay whole: 65 vectors of 4,096
     assert kept == 65 * 4096
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "arctic_480b"])
+def test_full_size_moe_decoders_hold_their_param_specs_pieces(arch):
+    """deepseek-v3-671b's and arctic-480b's train state on (16, 16), from
+    ``abstract_state`` (the dry run's held state): every leaf is exactly
+    its ``param_specs`` piece along "model" (the experts, MLA's and the
+    attention's heads, the vocabulary; the stacks "model" does not divide
+    stay whole), the count computed from the specs."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.mesh import P
+    from repro_torch.launch.train import ByzTrainConfig, abstract_state
+    from repro_torch.models import init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import model_split, param_specs
+
+    cfg = get_config(arch)
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    assert model_split(cfg) == model_split(cfg, "fsdp_tp") == "tp"
+    whole = tree_flatten(init_params(0, cfg, device="meta"))[0]
+    specs = tree_flatten(param_specs(mesh, cfg, init_params(
+        0, cfg, device="meta")), is_leaf=lambda x: isinstance(x, P))[0]
+    held = tree_flatten(abstract_state(cfg, ByzTrainConfig(), mesh).params)[0]
+    want = 0
+    for w, sp, h in zip(whole, specs, held):
+        shape = [n // 16 if e == "model" else n
+                 for n, e in zip(w.shape, tuple(sp) + (None,) * w.dim())]
+        assert tuple(h.shape) == tuple(shape), (w.shape, sp, h.shape)
+        want += math.prod(shape)
+    got = sum(math.prod(h.shape) for h in held)
+    total = sum(math.prod(w.shape) for w in whole)
+    assert got == want and got < total / 10, (got, total)
+
+
+@pytest.mark.parametrize("mesh", ["", "2x8"], ids=["16x16", "2x8"])
+@pytest.mark.parametrize("arch", ["arctic_480b", "deepseek_v3_671b"])
+def test_smoke_moe_decoders_trace_with_more_ranks_than_experts(arch, mesh):
+    """The smoke MoE decoders (4 experts) traced by the CLI's ``run_one``
+    on the default (16, 16) mesh and on (2, 8): the "model" axis has more
+    ranks than experts, so ``param_specs`` leaves the expert stacks whole
+    and rank 0 takes an empty ``split_range`` of them.  The step traces
+    (no ``not_traced``), splits, runs its collectives, and holds exactly
+    the ``held_specs`` pieces of params and g."""
+    import math
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.dryrun import mesh_shape, run_one
+    from repro_torch.launch.mesh import P
+    from repro_torch.launch.train import train_key
+    from repro_torch.models import init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import held_specs, local_shape
+
+    cfg = get_smoke_config(arch)
+    dims, names = mesh_shape(False, mesh)
+    assert cfg.n_experts < dims[-1]
+    rec = run_one(arch, "train_4k", multi_pod=False, smoke=True, mesh=mesh,
+                  out_dir="", verbose=False)
+    assert "not_traced" not in rec, rec
+    assert rec["model_split"] == "tp"
+    assert rec["collectives"]["bytes"]["all-reduce"] > 0
+    params = init_params(0, cfg, device="meta")
+    specs = tree_flatten(held_specs(AbstractMesh(dims, names), cfg, params),
+                         is_leaf=lambda x: isinstance(x, P))[0]
+    amesh = AbstractMesh(dims, names)
+    pieces = sum(math.prod(local_shape(amesh, w.shape, sp)) * w.element_size()
+                 for w, sp in zip(tree_flatten(params)[0], specs))
+    extra = train_key(0).numel() + 4  # the generator's state, the step
+    assert rec["state_bytes"] == 2 * pieces + extra, (rec["state_bytes"],
+                                                       pieces)

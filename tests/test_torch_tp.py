@@ -97,9 +97,10 @@ def _gradchecks(axis):
     return out
 
 
-def _split_vs_whole(mesh):
+def _split_vs_whole(mesh, cfg=None):
     """(split loss, whole loss, worst piece error of max-abs, pieces'
-    shapes, their param_specs local shapes, gather_params bitwise)."""
+    shapes, their param_specs local shapes, gather_params bitwise) of
+    ``cfg`` (TINY by default)."""
     from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.launch.train import model_axis_of, train_loss
@@ -109,7 +110,7 @@ def _split_vs_whole(mesh):
     from repro_torch.models.model import gather_params, shard_params
     from repro_torch.sharding.rules import local_shape, param_specs
 
-    cfg = ModelConfig(**TINY)
+    cfg = cfg or ModelConfig(**TINY)
     params = init_params(0, cfg, device="cpu")
     batch = next(make_batch_iterator(cfg, 2, 32, seed=3, device="cpu"))
     treedef = tree_flatten(params)[1]
@@ -186,7 +187,8 @@ def test_model_split_names_the_dense_family():
     from repro_torch.configs.registry import list_archs
     from repro_torch.sharding.rules import model_split
 
-    dense = {"minitron_8b", "yi_34b", "stablelm_12b", "deepseek_7b"}
+    dense = {"minitron_8b", "yi_34b", "stablelm_12b", "deepseek_7b",
+             "arctic_480b", "deepseek_v3_671b"}
     for arch in list_archs():
         want = "tp" if arch in dense else "replicated"
         assert model_split(get_config(arch)) == want, arch

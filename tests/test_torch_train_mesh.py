@@ -73,6 +73,7 @@ SPAWN_TIMEOUT = 300
 REF_SCRIPT = r"""
 import sys
 import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_smoke_config
 from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.api import (AggregatorSpec, ClipSpec, CompressSpec, ScheduleSpec,
                        ServerPlan)
@@ -83,7 +84,7 @@ from repro.launch.train import (ByzTrainConfig, MeshTrainState,
 from repro.models import ModelConfig, apply_train, init_params
 
 STEPS = 4
-cfg = ModelConfig(**%(tiny)r)
+cfg = %(cfg)s
 MESHES = {(4, 2): make_debug_mesh(4, 2), (2, 4): make_debug_mesh(2, 4)}
 CONFIGS = {
     "default-bf": ByzTrainConfig(gamma=0.3, n_byz=1, attack="bf", p=0.5),
@@ -150,16 +151,33 @@ for name, config, shape in %(runs)r:
                 out[f"{name}_g_{k}_{i}"] = np.asarray(g)
 np.savez(sys.argv[1], **out)
 print("REF_OK")
-""" % {"tiny": TINY, "runs": RUNS}
+"""
 
 
-@pytest.fixture(scope="module", autouse=True)
-def reference(tmp_path_factory):
-    """The reference subprocess, started before the module's first test
-    (the port-only tests run meanwhile); yields a function that waits for
-    it and returns the npz path."""
-    path = str(tmp_path_factory.mktemp("train_ref") / "ref.npz")
-    proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT, path],
+def model_config(spec):
+    """The port's ``ModelConfig`` of ``spec``: a dict of its fields, or
+    (arch, overrides) for a smoke config."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ModelConfig
+
+    if isinstance(spec, dict):
+        return ModelConfig(**spec)
+    return get_smoke_config(spec[0]).replace(**spec[1])
+
+
+def _config_expr(spec) -> str:
+    """The reference's expression for ``spec`` (``model_config``)."""
+    if isinstance(spec, dict):
+        return f"ModelConfig(**{spec!r})"
+    return f"get_smoke_config({spec[0]!r}).replace(**{spec[1]!r})"
+
+
+def start_reference(path, spec=TINY, runs=RUNS):
+    """Start the reference subprocess for the model ``spec`` and ``runs``
+    ((name, configuration, mesh shape)); returns a function that waits
+    for it and returns the npz path, and the process."""
+    script = REF_SCRIPT % {"cfg": _config_expr(spec), "runs": runs}
+    proc = subprocess.Popen([sys.executable, "-c", script, path],
                             env=ENV, cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
@@ -168,12 +186,26 @@ def reference(tmp_path_factory):
         assert proc.returncode == 0 and "REF_OK" in out, err[-3000:]
         return path
 
+    return wait, proc
+
+
+def stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference(tmp_path_factory):
+    """The reference subprocess, started before the module's first test
+    (the port-only tests run meanwhile); yields a function that waits for
+    it and returns the npz path."""
+    wait, proc = start_reference(
+        str(tmp_path_factory.mktemp("train_ref") / "ref.npz"))
     try:
         yield wait
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+        stop(proc)
 
 
 def _port_configs():
@@ -199,13 +231,15 @@ def _port_configs():
     }
 
 
-def _replay_job(rank, ref_path):
-    """One rank's replay of the runs on the reference's tape: per run and
-    step, the worst leaf error (of the leaf's max-abs) of its pieces
-    against the reference's slices, the raw bytes of params and g, and
-    whether every leaf has ``param_specs``'s local shape; with the run's
-    "model" coordinate, the collectives of its first difference round and
-    whether its model compute was replicated (no ``model_axis_of``)."""
+def _replay_job(rank, ref_path, spec=TINY, runs=RUNS):
+    """One rank's replay of the ``runs`` of the model ``spec`` on the
+    reference's tape: per run and step, the worst leaf error (of the
+    leaf's max-abs) of its pieces against the reference's slices, the raw
+    bytes of params and g, and whether every leaf has ``param_specs``'s
+    local shape; with the run's "model" coordinate, the collectives of
+    its first difference round, whether its model compute was replicated
+    (no ``model_axis_of``) and the collectives of one worker gradient at
+    the starting params."""
     import hashlib
 
     from repro_torch.api.mesh_exec import collective_counts
@@ -214,14 +248,14 @@ def _replay_job(rank, ref_path):
     from repro_torch.launch.mesh import P, make_debug_mesh
     from repro_torch.launch.train import (MeshTrainState, TrainTape,
                                           make_train_step, model_axis_of,
-                                          train_key)
-    from repro_torch.models import ModelConfig, init_params
+                                          train_key, worker_grads)
+    from repro_torch.models import init_params
     from repro_torch.models.model import shard_params
     from repro_torch.sharding.rules import local_shape, param_specs
 
     torch.set_num_threads(1)
     ref = np.load(ref_path)
-    cfg = ModelConfig(**TINY)
+    cfg = model_config(spec)
     whole = init_params(0, cfg, device="meta")
     treedef = tree_flatten(whole)[1]
     n = len(tree_flatten(whole)[0])
@@ -233,7 +267,7 @@ def _replay_job(rank, ref_path):
                                         for i in range(n)])
 
     out = {}
-    for name, config, shape in RUNS:
+    for name, config, shape in runs:
         tc, mesh, W = configs[config], meshes[shape], shape[0]
         specs = tree_flatten(param_specs(mesh, cfg, whole, tc.shard_mode),
                              is_leaf=lambda x: isinstance(x, P))[0]
@@ -254,6 +288,12 @@ def _replay_job(rank, ref_path):
             randk=[[[ref[f"{name}_randk_{k}_{w}_{i}"] for i in range(n)]
                     for w in range(W)] for k in range(STEPS)])
         held = [tree_unflatten(treedef, pieces(p)) for p in ("params0", "g0")]
+        toks = ref["batch_1_tokens"]  # a worker's rows: the gradient's
+        batch = {"tokens": torch.from_numpy(toks[:toks.shape[0] // W])}
+        reset_collective_counts()
+        worker_grads(held[0], cfg, batch,
+                     model_axis_of(mesh, cfg, tc.shard_mode))
+        model_counts = collective_counts()
         state = MeshTrainState(*held, train_key(0),
                                torch.zeros((), dtype=torch.int32))
         step = make_train_step(cfg, mesh, tc)
@@ -277,7 +317,8 @@ def _replay_job(rank, ref_path):
                     shaped &= tuple(got.shape) == shp
             rows.append((worst, digest.hexdigest(), shaped))
         out[name] = (mesh.get_local_rank("model"), rows, counts,
-                     model_axis_of(mesh, cfg, tc.shard_mode) is None)
+                     model_axis_of(mesh, cfg, tc.shard_mode) is None,
+                     model_counts)
     return out
 
 
@@ -355,7 +396,7 @@ def test_trainer_follows_the_reference_on_eight_ranks(replay):
             [True, False, False, False]
     for rank, out in enumerate(results):
         for name, _, _ in RUNS:
-            coord, rows, _, replicated = out[name]
+            coord, rows, _, replicated, _ = out[name]
             for k, (worst, digest, _) in enumerate(rows):
                 assert worst <= REL, (rank, name, k, worst)
                 # the ranks along "data" hold the same pieces; where the
