@@ -43,16 +43,19 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import partial
+from importlib import import_module
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import krum as _kkrum
 from ..kernels import ops as _kops
 from ..kernels.krum import RowSelection
 from .clipping import clip_rows
 from .tree_utils import tree_batch_ravel
+
+# the module: the package binds the name ``krum`` to the function
+_kkrum = import_module("repro_torch.kernels.krum")
 
 __all__ = ["Aggregator", "RowSelection", "mean", "coordinate_median",
            "trimmed_mean", "geometric_median", "krum", "multi_krum",

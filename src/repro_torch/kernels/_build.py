@@ -137,15 +137,17 @@ def _start_build(name: str):
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     log = target.with_suffix(".log")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    # the output to the log file, not a pipe: nvcc never waits for a
+    # reader while the caller does other work (``start_all``)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
     return proc, target, tmp, log
 
 
 def _finish_build(name: str, job) -> None:
     proc, target, tmp, log = job
-    out, _ = proc.communicate()
-    log.write_text(out)
+    proc.wait()
+    out = log.read_text()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{out}")
@@ -155,8 +157,22 @@ def _finish_build(name: str, job) -> None:
 def build_all(names=SOURCES) -> float:
     """Compile every source that is not built yet, one nvcc per source,
     all started together.  Returns the wall seconds it took."""
-    t0 = time.perf_counter()
-    jobs = {name: _start_build(name) for name in names}
+    return finish_all(start_all(names))
+
+
+def start_all(names=SOURCES):
+    """Start one nvcc for every source that is not built yet, all
+    together, and return at once: the caller may run work that needs no
+    kernel meanwhile, then waits in :func:`finish_all` (given what this
+    returns)."""
+    return time.perf_counter(), {name: _start_build(name) for name in names}
+
+
+def finish_all(started) -> float:
+    """Wait for the builds :func:`start_all` started; raises if one
+    failed, after every nvcc has ended.  Returns the wall seconds since
+    they started."""
+    t0, jobs = started
     errors = []
     for name, job in jobs.items():
         if job is None:

@@ -23,6 +23,7 @@ from . import clipped_diff as _cd
 from . import coordinate_median as _cm
 from . import geometric_median as _gm
 from . import krum as _kr
+from . import ref  # noqa: F401  (re-exported, as the reference's ops)
 from .centered_clip import (  # noqa: F401
     bucket_means_tiled,
     centered_clip,
@@ -59,7 +60,7 @@ __all__ = ["coordinate_median", "trimmed_mean", "clip_then_aggregate",
            "krum_select_from_gram", "krum_apply", "select_row",
            "weighted_row_sum", "selection_is_onehot", "RowSelection",
            "accumulate_stats_blocks", "apply_selection_blocks",
-           "launch_counts", "reset_launch_counts"]
+           "ref", "launch_counts", "reset_launch_counts"]
 
 _COUNTERS = (_ca.LAUNCHES, _cm.LAUNCHES, _cc.LAUNCHES, _gm.LAUNCHES,
              _kr.LAUNCHES, _cd.LAUNCHES)

@@ -6,10 +6,11 @@ Mapping: a worker is a coordinate of the mesh's worker axes ("pod" and
 runs in manual SPMD, as ``repro_torch.api.mesh_exec`` does: every rank
 calls the step with its held state and the same global batch, and gets
 back its held new state.  What a rank holds is ``sharding.rules.
-held_specs``: under the "tp" split (``model_split``: the attention
-decoders, dense, MoE or MLA, under "tp" or "fsdp_tp") on a "model" axis
-of M > 1 ranks, its "model" piece of every split leaf of params and g,
-and the norms and scalars whole; otherwise every leaf whole.  ``initial_state`` builds it from
+held_specs``: under the "tp" split (``model_split``: the token
+decoders, attention (dense, MoE or MLA), Mamba-2 SSM or hybrids of both,
+under "tp" or "fsdp_tp") on a "model" axis of M > 1 ranks, its "model"
+piece of every split leaf of params and g, and the norms and scalars
+whole; otherwise every leaf whole.  ``initial_state`` builds it from
 whole params.  Within a step, a rank
 
 1. draws the round's randomness (the coin c_k, the cohort, the attack's
@@ -42,12 +43,15 @@ whole params.  Within a step, a rank
 
 Differences from the reference, each for a reason:
 
-- **The split is Megatron's, written out, for the attention decoders.**
+- **The split is Megatron's, written out, for the token decoders.**
   The reference's GSPMD splits every family's forward and backward pass
   over "model"; the port splits the attention decoders, dense, MoE
-  (arctic) and MLA (deepseek-v3) alike (``models.tp``), and runs SSM,
-  cross-attention and frame inputs replicated along "model"
-  (``model_split`` says "replicated"): there every rank holds
+  (arctic) and MLA (deepseek-v3), and the SSM and hybrid decoders
+  (mamba2, jamba: the Mamba-2 mixer's heads, ``in_proj`` and ``conv_w``
+  fetched whole once a layer since their pieces cut across its packed
+  parts) alike (``models.tp``), and runs cross-attention and frame
+  inputs replicated along "model" (``model_split`` says
+  "replicated"): there every rank holds
   params and g whole, computes its worker's whole gradient, cuts its
   piece for the aggregation and all-gathers the aggregate back.  zero3
   splits no model compute either.  Where a rank's heads reach past its

@@ -24,12 +24,13 @@ Entry points:
   gather_params(pieces, mesh, cfg, mode)     -> and the whole tree back
 
 Inside a ``sharding.constraints.model_axis`` block on a "model" axis of
-more than one rank, ``apply_train`` runs the tensor-parallel split of an
-attention decoder (``models.tp``; ``sharding.rules.model_split``) on
-this rank's pieces (``shard_params``): the embedding and unembedding
-split on the vocabulary, the attention heads (GQA or MLA) and the MLP's
-hidden dimension column- then row-split, the MoE layer's experts split
-over the axis, the dense prefix and the MTP head split alike.  It reads
+more than one rank, ``apply_train`` runs the tensor-parallel split of a
+token decoder (``models.tp``; ``sharding.rules.model_split``) on this
+rank's pieces (``shard_params``): the embedding and unembedding split on
+the vocabulary, the attention heads (GQA or MLA), the Mamba-2 mixer's
+heads and the MLP's hidden dimension column- then row-split, the MoE
+layer's experts split over the axis, the dense prefix and the MTP head
+split alike.  It reads
 the axis once and hands it to every layer, so that a layer recomputed
 under ``torch.utils.checkpoint`` splits as its forward pass did.
 
@@ -230,7 +231,9 @@ def _apply_layer(
         if x.shape[1] == 1 and cache is not None:
             out, new_cache = ssm_mod.mamba2_decode_step(layer["mixer"], cfg, h, cache)
         else:
-            out, new_cache = ssm_mod.mamba2_forward(layer["mixer"], cfg, h, state=cache)
+            out, new_cache = ssm_mod.mamba2_forward(
+                layer["mixer"], cfg, h, state=cache, tp=tp,
+                held=held and held["mixer"])
     else:
         raise ValueError(mixer)
     x = x + out
@@ -587,9 +590,9 @@ def apply_train(params, cfg: ModelConfig, batch):
 
         if model_split(cfg) != "tp":
             raise ValueError(
-                f"{cfg.name}: the tensor-parallel split covers the attention "
-                "decoders, the dense decoders only and those with MoE or "
-                "MLA layers, not SSM, cross-attention or frame inputs "
+                f"{cfg.name}: the tensor-parallel split covers the token "
+                "decoders only (attention, SSM or both; dense or MoE MLPs), "
+                "not cross-attention or frame inputs "
                 f"(sharding.rules.model_split is {model_split(cfg)!r}); run "
                 "it whole, outside a model_axis block")
         held = tp.held

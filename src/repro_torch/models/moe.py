@@ -49,7 +49,7 @@ __all__ = ["init_moe", "moe_forward", "MoEOutput", "route", "top_k",
            "count_drops", "record_routing"]
 
 _TALLIES: list = []  # the open tallies of ``count_drops``
-_ROUTINGS: list = []  # the open (log, pin) pairs of ``record_routing``
+_ROUTINGS: list = []  # the open [log, pins, passes] of ``record_routing``
 
 
 class MoEOutput(NamedTuple):
@@ -171,8 +171,11 @@ def route(params, cfg, xt, capacity_factor: float):
     logits = xt.to(up) @ params["router"].to(up)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = top_k(probs, K)  # (T, K)
-    for log, pin in _ROUTINGS:
-        if pin is not None:
+    for entry in _ROUTINGS:
+        log, pins = entry[0], entry[1]
+        if pins is not None:  # the next layer's, in turn
+            pin = pins[entry[2] % len(pins)]
+            entry[2] += 1
             if tuple(pin.shape) != tuple(expert_ids.shape):
                 raise ValueError(f"pinned routing {tuple(pin.shape)} for "
                                  f"{tuple(expert_ids.shape)} choices")
@@ -286,14 +289,19 @@ def count_drops():
 def record_routing(pin=None):
     """Inside the block, every MoE forward pass (recomputed ones too)
     appends its choices, the (T, K) expert ids, to the yielded list.  With
-    ``pin`` ((T, K) expert ids), every pass routes by ``pin`` instead of
-    its own top-k, its gates the router's probabilities of those experts,
-    renormalized: a run held against another whose routing it takes, on a
-    model with one MoE layer (whose every pass sees the same tokens)."""
+    ``pin`` ((T, K) expert ids, or a sequence of them, one a MoE layer in
+    the order the layers run), the passes route by the pins in turn,
+    cyclically, instead of by their own top-k, their gates the router's
+    probabilities of those experts, renormalized: a run held against
+    another whose routing it takes, on a model whose MoE layers run in
+    the same order in every pass over them (a forward pass, and its
+    recomputation under one checkpoint)."""
     log = []
-    entry = (log, pin)
+    pins = (None if pin is None else
+            [pin] if isinstance(pin, torch.Tensor) else list(pin))
+    entry = [log, pins, 0]
     _ROUTINGS.append(entry)
     try:
         yield log
     finally:
-        _ROUTINGS.remove(entry)
+        _ROUTINGS[:] = [e for e in _ROUTINGS if e is not entry]

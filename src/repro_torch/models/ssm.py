@@ -11,6 +11,20 @@ Decode: single-step SSM recurrence + rolling conv state, O(1) per token.
 Layout follows Mamba-2: input projection produces [z (gate), x, B, C, dt];
 depthwise causal conv over the (x, B, C) channels; A is a per-head scalar
 decay (negative), D a per-head skip.
+
+Under the tensor-parallel split (``tp``, ``models.tp``; training only)
+rank r runs heads ``split_range(nh, M)`` of the scan: their z, x and dt
+channels and all of B and C (one group, which every head reads).
+``param_specs`` splits ``in_proj`` by column and ``conv_w`` by channel in
+equal blocks, which cut across the packed parts, so each of the two
+comes whole once a layer (``tp.take`` over its whole range: gathered,
+its gradient all-reduced and this rank's piece kept) and the rank's
+columns are cut from it into one product; B and C are computed alike on
+every rank and their gradients summed over the axis by that gather.  The
+gated norm over d_inner sums the ranks' partial sums of squares
+(``tp.sum_over_model``); ``out_proj`` is row-split and the ranks'
+products summed (``tp.reduce_from_model``).  The whole layer runs the
+same body with ``tp=None``.
 """
 from __future__ import annotations
 
@@ -22,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.sharding.constraints import maybe_constrain
+from . import tp as tp_mod
 from .layers import F32, Draw, dense_init, init_rmsnorm, rmsnorm
 
 __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode_step",
@@ -172,31 +187,80 @@ def init_ssm_state(cfg, batch: int, dtype=F32, *, device=None,
     )
 
 
-def mamba2_forward(params, cfg, x, *, state: Optional[SSMState] = None):
-    """Full-sequence forward (training / prefill).  Returns (out, new_state)."""
+def _columns(w, ranges):
+    """The columns ``ranges`` ([lo, hi) pairs, in order) of ``w``'s last
+    dimension, side by side: ``w`` itself when they are all of it."""
+    merged = []
+    for lo, hi in ranges:
+        if merged and merged[-1][1] == lo:
+            merged[-1] = (merged[-1][0], hi)
+        elif hi > lo:
+            merged.append((lo, hi))
+    if merged == [(0, w.shape[-1])]:
+        return w
+    return torch.cat([w[..., lo:hi] for lo, hi in merged], dim=-1)
+
+
+def _gated_rmsnorm(scale, y, z, width: int, tp, eps=1e-6):
+    """``rmsnorm`` of y * silu(z) over the inner width ``width``, from
+    this rank's channels (``scale`` its entries): the sum of squares of
+    each row summed over the axis.  In f32 (f64 for f64 operands)."""
+    up = torch.promote_types(y.dtype, F32)
+    g = (y * F.silu(z.to(up)).to(y.dtype)).to(up)
+    ss = tp_mod.sum_over_model(torch.sum(g * g, dim=-1, keepdim=True), tp)
+    out = g * torch.rsqrt(ss / width + eps)
+    return (out * scale.to(up)).to(y.dtype)
+
+
+def mamba2_forward(params, cfg, x, *, state: Optional[SSMState] = None,
+                   tp=None, held=None):
+    """Full-sequence forward (training / prefill).  Returns (out, new_state).
+    With ``tp`` (a ``ModelAxis``) and ``held`` (the leaves' held specs),
+    this rank's heads on its pieces and the row-split product summed over
+    the axis (module docstring); with ``tp=None`` every head."""
+    if tp is not None and state is not None:
+        raise ValueError("the tensor-parallel split trains: it takes no "
+                         "SSM state")
     Bsz, S, d = x.shape
     d_inner, nh = _dims(cfg)
     N, P = cfg.ssm_state, cfg.ssm_head_dim
+    h0, h1 = (0, nh) if tp is None else tp_mod.split_range(nh, tp)
+    H, c0, c1 = h1 - h0, h0 * P, h1 * P  # the heads and their channels
+    C = c1 - c0
 
-    proj = x @ params["in_proj"]
-    z, xbc, dt = _split_proj(cfg, proj)
+    def leaf(name, dim, lo, hi, tree=params, specs=held):
+        return tp_mod.take(tree[name], dim, specs and specs[name], lo, hi,
+                           tp)
+
+    # z | x | B | C | dt of these heads in one product; in_proj and conv_w
+    # whole once (their pieces cut across the parts)
+    conv_dim = d_inner + 2 * N  # x | B | C
+    dt0 = d_inner + conv_dim  # dt's first column of in_proj
+    w_in = _columns(leaf("in_proj", 1, 0, dt0 + nh), [
+        (c0, c1), (d_inner + c0, d_inner + c1), (2 * d_inner, dt0),
+        (dt0 + h0, dt0 + h1)])
+    proj = tp_mod.copy_to_model(x, tp) @ w_in
+    z, xbc, dt = proj.split([C, C + 2 * N, H], dim=-1)
+    conv = [(c0, c1), (d_inner, conv_dim)]
     conv_in_state = state.conv if state is not None else None
-    xbc, new_conv = _causal_conv(params["conv_w"], params["conv_b"], xbc,
-                                 conv_in_state)
-    xs = xbc[..., :d_inner].reshape(Bsz, S, nh, P)
-    B_mat = xbc[..., d_inner: d_inner + N].to(F32)
-    C_mat = xbc[..., d_inner + N:].to(F32)
-    dt = _softplus(dt.to(F32) + params["dt_bias"][None, None])  # (B,S,H)
-    A = -torch.exp(params["A_log"])  # (H,)
+    xbc, new_conv = _causal_conv(
+        _columns(leaf("conv_w", 1, 0, conv_dim), conv),
+        _columns(leaf("conv_b", 0, 0, conv_dim), conv), xbc, conv_in_state)
+    xs = xbc[..., :C].reshape(Bsz, S, H, P)
+    B_mat = xbc[..., C: C + N].to(F32)
+    C_mat = xbc[..., C + N:].to(F32)
+    dt = _softplus(dt.to(F32) + leaf("dt_bias", 0, h0, h1)[None, None])
+    A = -torch.exp(leaf("A_log", 0, h0, h1))  # (H,)
 
     xs = maybe_constrain(xs, "data", None, "heads", None)
     y, h_final = _ssd_chunked(
         cfg, xs, dt, B_mat, C_mat, A, None if state is None else state.h
     )
-    y = y + params["D"][None, None, :, None] * xs.to(F32)
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z.to(F32)).to(x.dtype))
-    out = y @ params["out_proj"]
+    y = y + leaf("D", 0, h0, h1)[None, None, :, None] * xs.to(F32)
+    y = y.reshape(Bsz, S, C).to(x.dtype)
+    y = _gated_rmsnorm(leaf("scale", 0, c0, c1, params["norm"],
+                            held and held["norm"]), y, z, d_inner, tp)
+    out = tp_mod.reduce_from_model(y @ leaf("out_proj", 0, c0, c1), tp)
     new_state = None
     if state is not None:
         new_state = SSMState(h=h_final, conv=new_conv.to(state.conv.dtype))

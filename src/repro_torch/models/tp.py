@@ -1,6 +1,6 @@
 """Megatron's tensor-parallel split along the mesh's "model" axis, for the
-attention decoders (GQA, MHA or MLA attention, the SwiGLU MLP, the MoE
-layer, the token embedding and the unembedding).
+token decoders (GQA, MHA or MLA attention, the Mamba-2 mixer, the SwiGLU
+MLP, the MoE layer, the token embedding and the unembedding).
 
 The reference's GSPMD splits each worker's forward and backward pass
 over "model" from ``param_specs`` and the activation constraints; here
@@ -24,6 +24,16 @@ split leaf (``sharding.rules.held_specs``) and computes with it:
   them: the dispatched tokens and the gates enter through
   :func:`copy_to_model`, the partial combine leaves through
   :func:`reduce_from_model` (``models.moe``);
+* the **Mamba-2 mixer** (``models.ssm``) runs this rank's block of heads
+  of the chunked scan: the columns of ``in_proj`` and the channels of
+  ``conv_w`` it computes cut across the packed z | x | B | C | dt parts
+  and its held pieces, so each leaf comes whole once a layer
+  (:func:`take` over its whole range: gathered, or copied in) and the
+  rank's parts are cut from it; B and C, which every head reads, are
+  computed alike on every rank, and their gradients summed over the axis
+  by that gather's backward; the gated norm over the inner width sums the
+  ranks' partial sums of squares with :func:`sum_over_model` (an
+  all-reduce forward and backward); ``out_proj`` is row-split;
 * the **embedding** is split on the vocabulary:
   :func:`vocab_parallel_embed` looks up the tokens of this rank's rows,
   zeroes the others and all-reduces;
@@ -49,8 +59,12 @@ the gradient and keeps this rank's piece).  Norms, scalars and the
 residual stream stay whole and are computed alike on every rank, so their
 gradients are the same on every rank.
 
-Every function has a plain one-process twin (``*_plain``: the whole
-computation on the whole tensors), against which the split is checked.
+With ``axis=None`` :func:`copy_to_model`, :func:`reduce_from_model`,
+:func:`sum_over_model` and :func:`take` act on the whole tensors as
+identities (``take`` narrows), so that one body runs a layer whole or
+split.  Every function has a plain one-process twin (``*_plain``: the
+whole computation on the whole tensors; ``sum_over_model``'s is
+``reduce_from_model_plain``), against which the split is checked.
 Collectives are counted in ``api.mesh_exec.collective_counts()``,
 recomputed ones (activation checkpointing) included.
 """
@@ -66,6 +80,7 @@ __all__ = [
     "split_on",
     "copy_to_model",
     "reduce_from_model",
+    "sum_over_model",
     "gather_from_model",
     "gather_replicated",
     "take",
@@ -151,14 +166,26 @@ class _GatherReplicated(_GatherFromModel):
 
 def copy_to_model(x, axis: ModelAxis):
     """``x`` (replicated on the axis) entering a split region: identity
-    forward, the gradient summed over the axis backward."""
-    return _CopyToModel.apply(x, axis)
+    forward, the gradient summed over the axis backward (``x`` itself
+    when ``axis`` is None)."""
+    return x if axis is None else _CopyToModel.apply(x, axis)
 
 
 def reduce_from_model(x, axis: ModelAxis):
     """The sum over the axis of the ranks' partial ``x`` (a row split's
-    product): all-reduce forward, identity backward."""
-    return _ReduceFromModel.apply(x, axis)
+    product): all-reduce forward, identity backward (``x`` itself when
+    ``axis`` is None)."""
+    return x if axis is None else _ReduceFromModel.apply(x, axis)
+
+
+def sum_over_model(x, axis: ModelAxis):
+    """The sum over the axis of the ranks' partial ``x`` (a partial sum of
+    squares) that every rank then uses inside the split: all-reduce
+    forward, and all-reduce of the gradient backward, since each rank's
+    use of the sum contributes a part of its gradient
+    (``copy_to_model`` of ``reduce_from_model``; ``x`` itself when
+    ``axis`` is None)."""
+    return copy_to_model(reduce_from_model(x, axis), axis)
 
 
 def gather_from_model(x, axis: ModelAxis, dim: int):
@@ -232,7 +259,11 @@ def take(w, dim: int, spec, lo: int, hi: int, axis: ModelAxis):
     (one ``param_specs`` does not split) is narrowed with its gradient
     summed over the axis, since every rank uses it for a part of the
     product; a :class:`LayerSlice` is fetched from its owner, whose
-    backward sums the gradient there."""
+    backward sums the gradient there.  With ``axis`` None, ``w`` is whole:
+    it is narrowed (``w`` itself for its whole range)."""
+    if axis is None:
+        return w if (lo, hi) == (0, w.shape[dim]) else w.narrow(dim, lo,
+                                                                 hi - lo)
     if isinstance(w, LayerSlice):
         return w.whole(axis).narrow(dim, lo, hi - lo)
     if split_on(spec, dim) is None:

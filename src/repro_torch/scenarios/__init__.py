@@ -19,6 +19,7 @@ consumed by both engines, the mesh trainer and the streaming launcher.
 from .adaptive import (  # noqa: F401
     ADAPTIVE_OBJECTIVES,
     differentiable_aggregate,
+    jnp_shadow_plan,
     make_adaptive_attack,
     torch_shadow_plan,
 )
@@ -48,6 +49,7 @@ __all__ = [
     "breakdown_points",
     "collect_resilience",
     "differentiable_aggregate",
+    "jnp_shadow_plan",
     "make_adaptive_attack",
     "make_context",
     "run_cell",

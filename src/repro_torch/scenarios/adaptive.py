@@ -40,7 +40,7 @@ from ..core.attacks import Attack, AttackContext, _good_sampled_stats
 from ..core.clipping import marina_radius
 
 __all__ = ["differentiable_aggregate", "torch_shadow_plan",
-           "make_adaptive_attack", "ADAPTIVE_OBJECTIVES"]
+           "jnp_shadow_plan", "make_adaptive_attack", "ADAPTIVE_OBJECTIVES"]
 
 ADAPTIVE_OBJECTIVES = ("deviation", "descent")
 
@@ -52,6 +52,10 @@ def torch_shadow_plan(plan):
     sched = dataclasses.replace(plan.schedule, backend="torch",
                                 placement="naive", blocks="sequential")
     return dataclasses.replace(plan, schedule=sched, compress=None)
+
+
+# the reference's name ("jnp" stays an alias of the "torch" backend)
+jnp_shadow_plan = torch_shadow_plan
 
 
 def _fixed_order(key, n: int):

@@ -26,12 +26,13 @@ out of a whole tensor (the trainer cuts its worker's whole gradient with
 it before the mesh aggregation, ``repro_torch.launch.train``).
 
 Which part of that the model compute follows is :func:`model_split`:
-"tp" for the attention decoders (GQA, MHA or MLA attention; the SwiGLU
-MLP or the MoE layer; token inputs), whose forward and backward passes
-split over "model" as ``models.tp`` writes out, so that a rank holds
-only its pieces (:func:`held_specs`); "replicated" for the other
-families (SSM, cross-attention, frame inputs) and for zero3, whose ranks
-hold every leaf whole and compute it whole.
+"tp" for the token decoders (GQA, MHA or MLA attention, the Mamba-2
+mixer, or both interleaved; the SwiGLU MLP, the MoE layer or none; token
+inputs), whose forward and backward passes split over "model" as
+``models.tp`` writes out, so that a rank holds only its pieces
+(:func:`held_specs`); "replicated" for the other families
+(cross-attention, frame inputs) and for zero3, whose ranks hold every
+leaf whole and compute it whole.
 """
 from __future__ import annotations
 
@@ -96,14 +97,14 @@ _FSDP_THRESHOLD = 60e9
 def model_split(cfg, mode: str = "tp") -> str:
     """How a worker's forward and backward pass runs over "model": "tp"
     (Megatron's column and row split, ``models.tp``) for the token
-    decoders whose mixers are all attention (GQA or MLA) and whose MLPs
-    are dense or MoE (a dense prefix and an MTP head included), under
-    "tp" or "fsdp_tp"; "replicated" (every rank computes the whole pass)
-    for SSM, cross-attention and frame inputs, which the split does not
-    cover yet, and under zero3, which by definition splits no model
-    compute."""
-    covered = (set(cfg.mixer_pattern) == {"attn"}
-               and set(cfg.mlp_pattern) <= {"dense", "moe"}
+    decoders whose mixers are attention (GQA or MLA) or Mamba-2 (SSM, and
+    the hybrids of both) and whose MLPs are dense, MoE or none (a dense
+    prefix and an MTP head included), under "tp" or "fsdp_tp";
+    "replicated" (every rank computes the whole pass) for
+    cross-attention and frame inputs, which the split does not cover
+    yet, and under zero3, which by definition splits no model compute."""
+    covered = (set(cfg.mixer_pattern) <= {"attn", "ssm"}
+               and set(cfg.mlp_pattern) <= {"dense", "moe", "none"}
                and cfg.input_kind == "tokens")
     return "tp" if covered and mode in ("tp", "fsdp_tp") else "replicated"
 

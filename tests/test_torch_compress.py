@@ -11,6 +11,7 @@ p), so fed the same uniforms the port gives the reference's output.
 kernel in interpret mode; its CUDA kernels against the plain version in
 tests/test_torch_cuda.py, on the card.
 """
+import importlib
 import itertools
 import math
 
@@ -31,9 +32,12 @@ from repro.kernels import ref as rref
 from repro_torch.core import ByzVRMarinaPP, problem_from_numpy
 from repro_torch.core import compressors as tcomp
 from repro_torch.core import theory as ttheory
-from repro_torch.kernels import clipped_diff as cdk
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+
+# the module: the package binds the name to the function, as the
+# reference's does
+cdk = importlib.import_module("repro_torch.kernels.clipped_diff")
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 KINDS = [("rand_k", {"k": 1}), ("rand_k", {"k": 10}), ("rand_k", {"k": 40}),

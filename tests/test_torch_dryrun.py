@@ -28,7 +28,7 @@ KEYS = ("arch", "shape", "multi_pod", "mode", "smoke", "mesh", "n_chips",
         "shard_mode", "agg_schedule", "params", "memory", "cost",
         "collectives", "model_split", "rank")
 DENSE = ("minitron_8b", "stablelm_12b", "deepseek_7b", "yi_34b",
-         "arctic_480b", "deepseek_v3_671b")
+         "arctic_480b", "deepseek_v3_671b", "mamba2_780m", "jamba_v01_52b")
 TIMEOUT = 900
 
 REF_SCRIPT = r"""
@@ -219,6 +219,32 @@ def test_full_size_moe_decoders_hold_their_param_specs_pieces(arch):
     its ``param_specs`` piece along "model" (the experts, MLA's and the
     attention's heads, the vocabulary; the stacks "model" does not divide
     stay whole), the count computed from the specs."""
+    got, want, total = _held_against_specs(arch)
+    assert got == want and got < total / 10, (got, total)
+
+
+# a rank's held param values on (16, 16), and the whole model's
+SSM_HELD = {"mamba2_780m": (198_757_632, 857_379_072),
+            "jamba_v01_52b": (5_860_335_200, 51_460_000_640)}
+
+
+@pytest.mark.parametrize("arch", list(SSM_HELD))
+def test_full_size_ssm_decoders_hold_their_param_specs_pieces(arch):
+    """mamba2-780m's and jamba-v0.1-52b's train state on (16, 16), from
+    ``abstract_state``: every leaf is exactly its ``param_specs`` piece
+    along "model" (``in_proj`` by column, ``conv_w`` by channel,
+    ``out_proj`` by row; jamba's attention, experts and vocabulary; its
+    stacked dense MLP, 4 periods on 16 ranks, whole), the count computed
+    from the specs and equal to the values the specs give by hand."""
+    got, want, total = _held_against_specs(arch)
+    assert (got, total) == SSM_HELD[arch], (got, total)
+    assert got == want
+
+
+def _held_against_specs(arch):
+    """(a rank's held param values of ``arch`` on (16, 16) from
+    ``abstract_state``, the values its ``param_specs`` pieces give, the
+    whole model's), each leaf's held shape checked against its piece's."""
     import math
 
     from repro_torch.configs import get_config
@@ -244,7 +270,7 @@ def test_full_size_moe_decoders_hold_their_param_specs_pieces(arch):
         want += math.prod(shape)
     got = sum(math.prod(h.shape) for h in held)
     total = sum(math.prod(w.shape) for w in whole)
-    assert got == want and got < total / 10, (got, total)
+    return got, want, total
 
 
 @pytest.mark.parametrize("mesh", ["", "2x8"], ids=["16x16", "2x8"])

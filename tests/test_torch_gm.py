@@ -29,11 +29,11 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
-from repro_torch.kernels import centered_clip as cc
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
 # both packages re-export functions under their modules' names
+cc = importlib.import_module("repro_torch.kernels.centered_clip")
 gmk = importlib.import_module("repro_torch.kernels.geometric_median")
 rcc = importlib.import_module("repro.kernels.centered_clip")
 

@@ -442,3 +442,38 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
                                    "centered_clip", "clipped_diff"}
     # each library is named by a hash of its sources and flags
     assert _build._lib_path("row_norms") != _build._lib_path("clip_aggregate")
+
+
+def test_build_starts_nvcc_and_returns(monkeypatch, tmp_path):
+    """``_build.start_all`` starts one nvcc per source and returns before
+    they end (the caller runs other work meanwhile); ``finish_all`` waits,
+    keeps each nvcc's output as the library's build log, and raises after
+    every nvcc has ended when one failed.  A stand-in nvcc script plays
+    the compiler (this container has none)."""
+    import os
+    import time
+
+    from repro_torch.kernels import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "out=''\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=\"$2\"; shift; done\n"
+        "echo 'ptxas info    : Used 32 registers'\n"
+        "sleep 0.5\n"
+        "case \"$out\" in *krum*) echo 'error: planted'; exit 1;; esac\n"
+        "touch \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    started = _build.start_all(("row_norms", "clipped_diff"))
+    assert time.perf_counter() - started[0] < 0.4  # nvcc still running
+    assert _build.finish_all(started) >= 0.5
+    assert "Used 32 registers" in _build.build_log("row_norms")
+    assert _build._lib_path("clipped_diff").exists()
+    assert _build.build_all(("row_norms",)) < 0.4  # built: no nvcc
+    with pytest.raises(_build.KernelError, match="planted"):
+        _build.build_all(("krum", "centered_clip"))
+    assert _build._lib_path("centered_clip").exists()  # its nvcc ended
+    assert not _build._lib_path("krum").exists()

@@ -25,10 +25,11 @@ import torch
 import repro.core.aggregators as ragg
 from repro.kernels import ref as rref
 from repro_torch.core import aggregators as tagg
-from repro_torch.kernels import krum as tk
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
+# the modules, not the functions the packages bind to these names
+tk = importlib.import_module("repro_torch.kernels.krum")
 rk = importlib.import_module("repro.kernels.krum")  # the module, not the fn
 
 SUM = dict(rtol=1e-5, atol=1e-6)

@@ -188,7 +188,8 @@ def test_model_split_names_the_dense_family():
     from repro_torch.sharding.rules import model_split
 
     dense = {"minitron_8b", "yi_34b", "stablelm_12b", "deepseek_7b",
-             "arctic_480b", "deepseek_v3_671b"}
+             "arctic_480b", "deepseek_v3_671b", "mamba2_780m",
+             "jamba_v01_52b"}
     for arch in list_archs():
         want = "tp" if arch in dense else "replicated"
         assert model_split(get_config(arch)) == want, arch
@@ -203,9 +204,11 @@ def test_split_refuses_a_family_it_does_not_cover():
     from repro_torch.models import apply_train, init_params
     from repro_torch.sharding.constraints import ModelAxis, model_axis
 
-    cfg = get_smoke_config("mamba2_780m").replace(dtype="float32")
+    cfg = get_smoke_config("llama32_vision_90b").replace(dtype="float32")
     params = init_params(0, cfg, device="meta")
     tokens = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    vision = torch.zeros((1, cfg.n_vision_tokens, cfg.d_model),
+                         device="meta")
     with model_axis(ModelAxis(None, 0, 2, None)):
-        with pytest.raises(ValueError, match="dense decoders only"):
-            apply_train(params, cfg, {"tokens": tokens})
+        with pytest.raises(ValueError, match="token decoders only"):
+            apply_train(params, cfg, {"tokens": tokens, "vision": vision})

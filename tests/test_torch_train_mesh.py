@@ -231,7 +231,7 @@ def _port_configs():
     }
 
 
-def _replay_job(rank, ref_path, spec=TINY, runs=RUNS):
+def _replay_job(rank, ref_path, spec=TINY, runs=RUNS, loose=()):
     """One rank's replay of the ``runs`` of the model ``spec`` on the
     reference's tape: per run and step, the worst leaf error (of the
     leaf's max-abs) of its pieces against the reference's slices, the raw
@@ -239,7 +239,9 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS):
     local shape; with the run's "model" coordinate, the collectives of
     its first difference round, whether its model compute was replicated
     (no ``model_axis_of``) and the collectives of one worker gradient at
-    the starting params."""
+    the starting params.  Leaves named in ``loose`` (the last key on their
+    path) are left out of a step's worst error, and their own worst error
+    is appended to the step's row."""
     import hashlib
 
     from repro_torch.api.mesh_exec import collective_counts
@@ -251,7 +253,8 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS):
                                           train_key, worker_grads)
     from repro_torch.models import init_params
     from repro_torch.models.model import shard_params
-    from repro_torch.sharding.rules import local_shape, param_specs
+    from repro_torch.sharding.rules import (_map_with_name, local_shape,
+                                            param_specs)
 
     torch.set_num_threads(1)
     ref = np.load(ref_path)
@@ -259,6 +262,7 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS):
     whole = init_params(0, cfg, device="meta")
     treedef = tree_flatten(whole)[1]
     n = len(tree_flatten(whole)[0])
+    names = tree_flatten(_map_with_name(lambda name, _: name, whole))[0]
     meshes = {shape: make_debug_mesh(*shape) for shape in ((4, 2), (2, 4))}
     configs = _port_configs()
 
@@ -304,18 +308,21 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS):
             state = step(state, batch, tape)
             if k == 1:  # the first difference round
                 counts = collective_counts()
-            worst, digest, shaped = 0.0, hashlib.sha256(), True
+            worst, digest, shaped = [0.0, 0.0], hashlib.sha256(), True
             for what in ("params", "g"):
                 wants = pieces(f"{name}_{what}_{k}")
                 got_leaves = tree_flatten(getattr(state, what))[0]
-                for got, want, shp in zip(got_leaves, wants, want_shapes):
+                for got, want, shp, leaf in zip(got_leaves, wants,
+                                                want_shapes, names):
                     want = want.numpy()
                     err = np.abs(got.numpy() - want).max()
-                    worst = max(worst, float(err / max(np.abs(want).max(),
-                                                       1e-30)))
+                    at = int(leaf in loose)
+                    worst[at] = max(worst[at], float(
+                        err / max(np.abs(want).max(), 1e-30)))
                     digest.update(got.numpy().tobytes())
                     shaped &= tuple(got.shape) == shp
-            rows.append((worst, digest.hexdigest(), shaped))
+            row = (worst[0], digest.hexdigest(), shaped)
+            rows.append(row + (worst[1],) if loose else row)
         out[name] = (mesh.get_local_rank("model"), rows, counts,
                      model_axis_of(mesh, cfg, tc.shard_mode) is None,
                      model_counts)
