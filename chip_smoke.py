@@ -363,7 +363,28 @@ Phases (any failure raises, prints no result and exits non-zero):
     5e-5 and each gradient piece of every non-expert leaf and of experts
     0, 7, 8 and 15 within 5e-2 of max-abs or 0.15 of rms; the choices its
     own routing sends elsewhere counted, its loss beside).
-14. A ``{"kernels": [...]}`` line, then the card line, then the result.
+14. fsdp_tp's split over "data" (params and g held in "data" x "model"
+    pieces, each layer gathered over "data" in the period loop):
+    fsdp-small (``TINY`` and the arctic and v3 smoke configs in f32,
+    the default plan, a full and a difference round on one
+    ``TrainTape``, under fsdp_tp and under "tp" on the same mesh: (data 2,
+    model 2) with two "data" workers and (pod 1, data 2, model 2) with
+    the pods the workers, the worker's 4 rows split over "data"; 4 gloo
+    ranks on cuda:0; each rank's pieces within 1e-5 of each leaf's
+    max-abs of the matching slice of the "tp" run's after every round,
+    exactly the ``param_specs`` shapes, the same choices dropped, the
+    collectives by kind on gloo's host route, a reduce-scatter where the
+    rows split); fsdp-wide (minitron-8b at full width, 2 of 32 layers,
+    bf16, remat, 2 rows x 2,048 split over "data" on (pod 1, data 2,
+    model 2): held bytes exactly the pieces, the step-0 loss within 2e-4
+    relative and each g^0 piece within 5e-2 of max-abs of a one-rank
+    whole run's on the same weights and batch; a full and a difference
+    round's ms and peak GB).
+    Phases 11-14 run their splits first (``split_paths``: the one-rank
+    NCCL runs; one process of the whole runs beside one spawn of 4 gloo
+    ranks, then one spawn of 2, shared by every phase), then each phase's
+    checks, and print each phase's seconds.
+15. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
@@ -378,6 +399,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -4392,14 +4414,14 @@ TP_WIDE_G0_REL = 5e-2
 DRYRUN_STATE_RTOL = 0.01  # the dry run's state bytes against the allocator
 
 
-def _tp_tape(coins):
+def _tp_tape(coins, workers=1):
     import numpy as np
 
     from repro_torch.launch.train import TrainTape
 
     n = len(coins)
-    return TrainTape(c=np.array(coins), sampled=np.ones((n, 1), bool),
-                     order=np.zeros((n, 1), np.int64))
+    return TrainTape(c=np.array(coins), sampled=np.ones((n, workers), bool),
+                     order=np.tile(np.arange(workers), (n, 1)))
 
 
 def _tp_small_run(mesh_shape):
@@ -4472,9 +4494,22 @@ def _rel_err(got, want, chunk=1 << 26):
     return float(err / scale.clamp(min=1e-30))
 
 
-def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None):
+def _split_mesh(shape):
+    """The debug mesh of ``shape``: (data, model), or (pod, data, model)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    if len(shape) == 2:
+        return make_debug_mesh(*shape)
+    return make_debug_mesh(shape[1], shape[2], pod=shape[0])
+
+
+def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None,
+                 mesh_shape=(1, 2), shard_mode="tp", rows=None):
     """train-tp-wide (``cfg``: minitron-8b with 2 layers by default) on
-    this rank of the (1, 2) mesh: its held bytes and their
+    this rank of the ``mesh_shape`` mesh (a (pod, data, model) one with
+    the pods the workers), under ``shard_mode``, on batches of ``rows``
+    (rows, sequence; one row of ``TRAIN_SEQ`` by default): its held bytes
+    and their
     ``param_specs`` sum, the step-0 loss, each leaf's error of its g^0
     pieces against the slices of the one-rank g^0 (the file ``g0_path``),
     per round (``coins``) ms, peak GB, launches and collectives.  With
@@ -4493,7 +4528,7 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None):
     from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
     from repro_torch.data import synthetic_batch
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import P, make_debug_mesh
+    from repro_torch.launch.mesh import P
     from repro_torch.launch.train import (ByzTrainConfig, initial_state,
                                           make_train_step, train_loss)
     from repro_torch.models import init_params, moe
@@ -4506,13 +4541,17 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None):
 
     torch.cuda.empty_cache()
     cfg = cfg or get_config("minitron_8b", n_layers=2)
-    mesh = make_debug_mesh(1, 2)
-    tc = ByzTrainConfig(n_byz=0)  # the default plan; gamma 3e-4
+    mesh = _split_mesh(mesh_shape)
+    waxes = ("pod",) if len(mesh_shape) == 3 else ()
+    # the default plan; gamma 3e-4
+    tc = ByzTrainConfig(n_byz=0, shard_mode=shard_mode,
+                        worker_axes_override=waxes)
     # the one-rank run's weights and batches: the card's generator
-    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
+    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg,
+                               *(rows or (1, TRAIN_SEQ)))
                for k in range(len(coins) + 1)]
     whole = init_params(MODEL_SEED, cfg)
-    specs = tree_flatten(param_specs(mesh, cfg, whole),
+    specs = tree_flatten(param_specs(mesh, cfg, whole, shard_mode),
                          is_leaf=lambda x: isinstance(x, P))[0]
     want = sum(math.prod(local_shape(mesh, x.shape, sp)) * x.element_size()
                for x, sp in zip(tree_flatten(whole)[0], specs))
@@ -4528,14 +4567,15 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None):
     ref = tree_unflatten(treedef, torch.load(g0_path, mmap=True,
                                              weights_only=True))
     g0_errs, g0_rms = [], []
-    for got, piece in zip(tree_flatten(state.g)[0],
-                          tree_flatten(shard_params(ref, mesh, cfg))[0]):
+    for got, piece in zip(tree_flatten(state.g)[0], tree_flatten(
+            shard_params(ref, mesh, cfg, shard_mode))[0]):
         piece = piece.to(got.device)
         g0_errs.append(_rel_err(got, piece))
         g0_rms.append(_rms_err(got, piece))
     del ref
     with pinned("loss0"):
-        loss0 = train_loss(state.params, cfg, batches[1], mesh)
+        loss0 = train_loss(state.params, cfg, batches[1], mesh, shard_mode,
+                           waxes)
     own = {}
     if routes:  # the split's own routing
         with moe.record_routing() as seen:
@@ -4561,12 +4601,9 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None):
 
 
 def _tp_job(rank, mesh_shape, g0_path):
-    """One rank of a phase-11 spawn: train-tp-small on ``mesh_shape``,
-    then, given train-minitron-wide's g^0 file, train-tp-wide."""
-    import torch
-
-    torch.set_num_threads(1)
-    torch.cuda.set_device(0)
+    """Phase 11's part of a rank of the shared spawns: train-tp-small on
+    ``mesh_shape``, then, given train-minitron-wide's g^0 file,
+    train-tp-wide."""
     out = {"small": _tp_small_run(mesh_shape)}
     if g0_path:
         out["wide"] = _tp_wide_run(g0_path)
@@ -4598,33 +4635,18 @@ def _held_slice(whole, mesh_shape, model_rank, cfg=None):
     return out
 
 
-def train_tp_small(card, work):
-    """train-tp-small and train-tp-wide: the one-rank NCCL run of TINY,
-    then spawns of 2 and 4 gloo ranks on cuda:0 (the 2-rank one also runs
+def train_tp_small(card, whole, jobs):
+    """train-tp-small's checks: the one-rank NCCL run of TINY (``whole``)
+    against the spawns of 2 and 4 gloo ranks on cuda:0 (``jobs``: mesh
+    shape -> the ranks' phase-11 reports; the 2-rank one also ran
     train-tp-wide); returns the launches of both runs, summed over the
     ranks, and train-tp-wide's ranks' reports."""
-    import os
-
-    import torch
-    import torch.distributed as dist
-
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import spawn
 
-    t0 = _run_header(
-        "train-tp-small", card,
-        "none (the mesh trainer's test model: 2 layers, d_model 64, 4 heads, "
-        f"2 kv heads, vocab 256, f32; batch 2 x 32, {len(TP_COINS)} steps on "
-        f"a tape, coins {TP_COINS})")
-    dist.init_process_group("nccl", init_method="file://" + os.path.join(
-        work, "rendezvous_tp"), rank=0, world_size=1)
-    try:
-        whole = _tp_small_run((1, 1))
-    finally:
-        dist.destroy_process_group()
-    jobs = {shape: spawn(_tp_job, shape[1], (
-        shape, PHASE10["g0"] if shape == (1, 2) else None),
-        timeout=TRAIN_TIMEOUT) for shape in TP_SMALL_MESHES}
+    print(f"  train-tp-small on {card}; reduced: none (the mesh trainer's "
+          "test model: 2 layers, d_model 64, 4 heads, 2 kv heads, vocab "
+          f"256, f32; batch 2 x 32, {len(TP_COINS)} steps on a tape, coins "
+          f"{TP_COINS})")
     # every kernel's count, launched or not: the kernels line reads them
     counts = {run: dict.fromkeys(ops.launch_counts(), 0)
               for run in ("train-tp-small", "train-tp-wide")}
@@ -4658,8 +4680,7 @@ def train_tp_small(card, work):
         print(f"    {shape}: every rank's pieces of params and g within "
               f"{worst:.3e} of max-abs of the one-rank card run's slices "
               f"after each of {len(TP_COINS)} steps [{TP_REL:g}]")
-    print(f"    one-rank run: launches {whole['launches']}; train-tp-small "
-          f"wall {time.perf_counter() - t0:.3f} s")
+    print(f"    one-rank run: launches {whole['launches']}")
     wide = [rep["wide"] for rep in jobs[(1, 2)]]
     for rep in wide:
         for rnd in rep["rounds"]:
@@ -4777,32 +4798,23 @@ def dryrun_vs_card(card):
           f"{time.perf_counter() - t0:.3f} s")
 
 
-def tp_path(card):
-    """Phase 11: the tensor-parallel split and the dry run; returns the
-    split runs' launch counts."""
-    import shutil
-
+def tp_path(card, whole, jobs):
+    """Phase 11's checks: the tensor-parallel split (its runs in
+    ``split_paths``) and the dry run; returns the split runs' launch
+    counts."""
     import torch
 
     print("tensor-parallel split and dry run")
     t0 = time.perf_counter()
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke_phase11"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    torch.cuda.set_device(0)
-    try:
-        counts, wide = train_tp_small(card, work)
-    finally:  # train-minitron-wide's g^0, 5.17 GB on disk
-        Path(PHASE10["g0"]).unlink(missing_ok=True)
+    counts, wide = train_tp_small(card, whole, jobs)
     train_tp_wide(card, wide)
     for run, c in counts.items():
         missing = [k for k in TRAINER_KERNELS if not c.get(k)]
         if missing:
             raise AssertionError(f"{run}: {missing} not launched")
     dryrun_vs_card(card)
-    shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f"  phase 11 wall {time.perf_counter() - t0:.3f} s")
+    print(f"  phase 11 checks and dry run {time.perf_counter() - t0:.3f} s")
     return counts
 
 
@@ -5002,13 +5014,11 @@ def _full_split(ref_path, cfg, kept, what):
 
 
 def _moe_job(rank, mesh_shape, g0_path, ref_path, routes):
-    """One rank of a phase-12 spawn: train-tp-moe-small on ``mesh_shape``
+    """Phase 12's part of a rank of the shared spawns: train-tp-moe-small on ``mesh_shape``
     for both configs; given the one-rank runs' files (and train-tp-v3-wide's
     routings), train-tp-v3-wide and moe-v3-full-experts."""
     import torch
 
-    torch.set_num_threads(1)
-    torch.cuda.set_device(0)
     out = {"small": {arch: _small_split_run(arch, mesh_shape)
                      for arch in MOE_ARCHS}}
     if g0_path:
@@ -5129,20 +5139,6 @@ def _full_whole(cfg, kept, what, path, t0):
           f"{time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
     return str(path), peak, loss
-
-
-def _v3_whole_job(rank, card, work):
-    """Phase 12's one-rank whole runs, in a process of their own: the
-    segments they leave the allocator (cuBLAS's workspaces pin two of
-    3.7 GB after the full-experts gradient) stay out of the way of the
-    split's ranks, which share the card."""
-    import torch
-
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return {**_v3_wide_whole(card, Path(work)),
-            **_v3_full_whole(card, Path(work))}
 
 
 def _save(obj, path):
@@ -5291,61 +5287,24 @@ def _check_full(what, full, whole_peak, loss_rtol, own_rtol, g_rel,
               f"the whole run {whole_peak:.2f} GB)")
 
 
-def moe_tp_path(card):
-    """Phase 12: the split of the MoE and MLA decoders; returns the split
-    runs' launch counts."""
-    import os
-    import shutil
-
+def moe_tp_path(card, whole, one, jobs):
+    """Phase 12's checks: the split of the MoE and MLA decoders (its runs
+    in ``split_paths``: ``whole`` the one-rank NCCL runs of the smoke
+    configs, ``one`` the one-rank whole runs' readings, ``jobs`` mesh
+    shape -> the ranks' phase-12 reports); returns the split runs' launch
+    counts."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import spawn
 
     print("tensor-parallel split of the MoE and MLA decoders")
     t0 = time.perf_counter()
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke_phase12"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    torch.cuda.set_device(0)
     counts = {run: dict.fromkeys(ops.launch_counts(), 0)
               for run in ("train-tp-moe-small", "train-tp-v3-wide")}
-    t_small = _run_header(
-        "train-tp-moe-small", card,
-        "none (the smoke configs of arctic-480b and deepseek-v3-671b, f32, "
-        f"remat on; batch 2 x 32, {len(MOE_COINS)} rounds on a tape, coins "
-        f"{MOE_COINS})")
-    dist.init_process_group("nccl", init_method="file://" + os.path.join(
-        work, "rendezvous"), rank=0, world_size=1)
-    try:
-        whole = {arch: _small_split_run(arch, (1, 1)) for arch in MOE_ARCHS}
-    finally:
-        dist.destroy_process_group()
-    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    try:
-        sys.stdout.flush()  # ahead of the spawned process's lines
-        one = spawn(_v3_whole_job, 1, (card, str(work)),
-                    timeout=MOE_TIMEOUT)[0]
-        # the split's ranks' allocators grow their segments in place: the
-        # two ranks of moe-v3-full-experts share the card at some 36 GB each
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        jobs = {shape: spawn(_moe_job, shape[1], (
-            shape, *((one["g0"], one["ref"], one["wide_routes"])
-                     if shape == (1, 2) else (None, None, None))),
-            timeout=MOE_TIMEOUT)
-            for shape in MOE_SMALL_MESHES}
-    finally:  # the whole runs' files on disk
-        shutil.rmtree(work, ignore_errors=True)
-        if env is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
-    print("  train-tp-moe-small")
-    _check_moe_small(whole, {s: jobs[s] for s in MOE_SMALL_MESHES},
-                     counts["train-tp-moe-small"])
-    print(f"    train-tp-moe-small wall {time.perf_counter() - t_small:.3f} "
-          "s (with the spawns' other runs)")
+    print(f"  train-tp-moe-small on {card}; reduced: none (the smoke configs "
+          "of arctic-480b and deepseek-v3-671b, f32, remat on; batch 2 x 32, "
+          f"{len(MOE_COINS)} rounds on a tape, coins {MOE_COINS})")
+    _check_moe_small(whole, jobs, counts["train-tp-moe-small"])
     wide = [rep["wide"] for rep in jobs[(1, 2)]]
     print(f"  train-tp-v3-wide on {card}: the trainer on the (1, 2) mesh, 2 "
           f"gloo ranks on cuda:0, rounds {V3_WIDE_COINS} (True: full)")
@@ -5363,7 +5322,7 @@ def moe_tp_path(card):
         if missing:
             raise AssertionError(f"{run}: {missing} not launched")
     torch.cuda.empty_cache()
-    print(f"  phase 12 wall {time.perf_counter() - t0:.3f} s")
+    print(f"  phase 12 checks {time.perf_counter() - t0:.3f} s")
     return counts
 
 
@@ -5450,16 +5409,11 @@ def _mamba2_wide_whole(card, work):
     return {"mamba2_g0": path, "mamba2_loss0": loss0}
 
 
-def _ssm_whole_job(rank, card, work):
-    """Phase 13's one-rank whole runs, in a process of their own (as
-    phase 12's): train-tp-mamba2-wide's and train-tp-jamba-wide's."""
-    import torch
-
+def _ssm_whole(card, work):
+    """Phase 13's one-rank whole runs (in ``_whole_job``'s process):
+    train-tp-mamba2-wide's and train-tp-jamba-wide's."""
     from repro_torch.configs import get_config
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out = _mamba2_wide_whole(card, Path(work))
     t0 = _run_header(
         "train-tp-jamba-wide (one rank, whole)", card,
@@ -5475,13 +5429,11 @@ def _ssm_whole_job(rank, card, work):
 
 
 def _ssm_job(rank, mesh_shape, one):
-    """One rank of a phase-13 spawn: train-tp-ssm-small on ``mesh_shape``
+    """Phase 13's part of a rank of the shared spawns: train-tp-ssm-small on ``mesh_shape``
     for both configs; given the one-rank runs' files (``one``),
     train-tp-mamba2-wide and train-tp-jamba-wide."""
     import torch
 
-    torch.set_num_threads(1)
-    torch.cuda.set_device(0)
     out = {"small": {arch: _small_split_run(arch, mesh_shape, SSM_COINS)
                      for arch in SSM_ARCHS}}
     if one:
@@ -5497,59 +5449,24 @@ def _ssm_job(rank, mesh_shape, one):
     return out
 
 
-def ssm_tp_path(card):
-    """Phase 13: the split of the SSM and hybrid decoders; returns the
-    split runs' launch counts."""
-    import os
-    import shutil
-
+def ssm_tp_path(card, whole, one, jobs):
+    """Phase 13's checks: the split of the SSM and hybrid decoders (its
+    runs in ``split_paths``, as phase 12's); returns the split runs'
+    launch counts."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import spawn
 
     print("tensor-parallel split of the SSM and hybrid decoders")
     t0 = time.perf_counter()
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke_phase13"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    torch.cuda.set_device(0)
     counts = {run: dict.fromkeys(ops.launch_counts(), 0)
               for run in ("train-tp-ssm-small", "train-tp-mamba2-wide")}
-    t_small = _run_header(
-        "train-tp-ssm-small", card,
-        "none (the smoke configs of mamba2-780m and jamba-v0.1-52b, f32, "
-        f"remat on; batch 2 x 32, {len(SSM_COINS)} rounds on a tape, coins "
-        f"{SSM_COINS})")
-    dist.init_process_group("nccl", init_method="file://" + os.path.join(
-        work, "rendezvous"), rank=0, world_size=1)
-    try:
-        whole = {arch: _small_split_run(arch, (1, 1), SSM_COINS)
-                 for arch in SSM_ARCHS}
-    finally:
-        dist.destroy_process_group()
-    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    try:
-        sys.stdout.flush()  # ahead of the spawned process's lines
-        one = spawn(_ssm_whole_job, 1, (card, str(work)),
-                    timeout=SSM_TIMEOUT)[0]
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        jobs = {shape: spawn(_ssm_job, shape[1], (
-            shape, one if shape == (1, 2) else None), timeout=SSM_TIMEOUT)
-            for shape in SSM_SMALL_MESHES}
-    finally:  # the whole runs' files on disk
-        shutil.rmtree(work, ignore_errors=True)
-        if env is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
-    print("  train-tp-ssm-small")
+    print(f"  train-tp-ssm-small on {card}; reduced: none (the smoke configs "
+          "of mamba2-780m and jamba-v0.1-52b, f32, remat on; batch 2 x 32, "
+          f"{len(SSM_COINS)} rounds on a tape, coins {SSM_COINS})")
     _check_small("train-tp-ssm-small", SSM_ARCHS, whole, jobs, counts[
         "train-tp-ssm-small"], SSM_COINS, SSM_REL, drops=False,
         loose=SSM_HEAD_LEAVES, loose_rel=SSM_HEAD_REL)
-    print(f"    train-tp-ssm-small wall {time.perf_counter() - t_small:.3f} "
-          "s (with the spawns' other runs)")
     wide = [rep["wide"] for rep in jobs[(1, 2)]]
     print(f"  train-tp-mamba2-wide on {card}: the trainer on the (1, 2) mesh, "
           f"2 gloo ranks on cuda:0, rounds {MAMBA2_WIDE_COINS} (True: full)")
@@ -5568,8 +5485,482 @@ def ssm_tp_path(card):
         if missing:
             raise AssertionError(f"{run}: {missing} not launched")
     torch.cuda.empty_cache()
-    print(f"  phase 13 wall {time.perf_counter() - t0:.3f} s")
+    print(f"  phase 13 checks {time.perf_counter() - t0:.3f} s")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: fsdp_tp's split over "data"
+# ---------------------------------------------------------------------------
+
+# fsdp-small: the trainer's test model and the MoE smoke configs in f32
+# (the smoke configs with remat on), the default config (plan and gamma;
+# no byzantine), a full round then a difference round, under fsdp_tp and
+# under "tp" on the same mesh and tape: (data 2, model 2), two "data"
+# workers; (pod 1, data 2, model 2) with the pods the workers, one worker
+# whose 4 rows split over "data" (under "tp" every "data" rank runs them
+# all: an independent check of the split rows)
+FSDP_ARCHS = ("tiny", "arctic_480b", "deepseek_v3_671b")
+FSDP_MESHES = ((2, 2), (1, 2, 2))
+FSDP_COINS = (True, False)
+FSDP_REL = 1e-5  # of each leaf's max-abs, against the "tp" run's slice
+# fsdp-wide: minitron-8b at full width, 2 of its 32 layers, bf16, remat,
+# batch 2 rows x 2,048 (split over "data") on (pod 1, data 2, model 2),
+# against a one-rank whole run of the same batch.  A CPU rehearsal at
+# d_model 256, vocab 4,096 read the step-0 loss 3.19e-6 relative and g^0
+# 1.76e-2 of max-abs sound; with the cross-entropy's count left out of the
+# sum over "data" 5.90e-4 and 1.02, with the reduce-scatter left out (each
+# rank its own rows' gradient) 3.19e-6 and 1.10 (PERF.md, phase 14): g^0
+# at train-tp-wide's TP_WIDE_G0_REL catches both, the loss at
+# FSDP_WIDE_LOSS_RTOL the first (train-tp-wide's 1e-3 would pass it)
+FSDP_WIDE_LOSS_RTOL = 2e-4
+FSDP_WIDE = dict(n_layers=2)
+FSDP_WIDE_ROWS = (2, 2048)
+FSDP_WIDE_MESH = (1, 2, 2)
+FSDP_WIDE_COINS = (True, False)
+FSDP_WIDE_G0 = "fsdp_wide_g0.pt"  # the one-rank run's g^0, in the work dir
+
+
+def _fsdp_config(arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ModelConfig
+
+    if arch == "tiny":
+        return ModelConfig(**TP_TINY)
+    return get_smoke_config(arch).replace(dtype="float32")
+
+
+def _fsdp_small_run(arch, mesh_shape):
+    """``arch``'s small config on this rank of ``mesh_shape`` under "tp"
+    and under fsdp_tp, on one tape: per round the worst error of the
+    fsdp_tp pieces of params and g against the matching slices of the
+    "tp" run's (of each leaf's max-abs); whether every leaf has its
+    ``param_specs`` local shape; held bytes and their ``param_specs`` sum;
+    the choices each run's MoE layers dropped; the fsdp_tp run's launches
+    and collectives; the rank's "data" and "model" coordinates."""
+    import itertools
+
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import P
+    from repro_torch.launch.train import (ByzTrainConfig, initial_state,
+                                          make_train_step)
+    from repro_torch.models import init_params, moe
+    from repro_torch.sharding.rules import (LocalShard, held_specs,
+                                            local_shape, only_axis,
+                                            param_specs)
+
+    cfg = _fsdp_config(arch)
+    mesh = _split_mesh(mesh_shape)
+    waxes = ("pod",) if len(mesh_shape) == 3 else ()
+    workers = mesh_shape[0]
+    batches = [_to(b, "cuda") for b in itertools.islice(make_batch_iterator(
+        cfg, 4, 32, seed=3, device="cpu"), len(FSDP_COINS) + 1)]
+    params = _to(init_params(0, cfg, device="cpu"), "cuda")
+    whole = tree_flatten(init_params(0, cfg, device="meta"))[0]
+    tape = _tp_tape(FSDP_COINS, workers)
+    runs = {}
+    for mode in ("tp", "fsdp_tp"):
+        tc = ByzTrainConfig(shard_mode=mode, worker_axes_override=waxes)
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        states = []
+        with moe.count_drops() as drops:
+            state = initial_state(params, cfg, mesh, tc, batches[0])
+            step = make_train_step(cfg, mesh, tc)
+            for k in range(len(FSDP_COINS)):
+                state = step(state, batches[k + 1], tape)
+                states.append([tree_flatten(getattr(state, w))[0]
+                               for w in ("params", "g")])
+        torch.cuda.synchronize()
+        runs[mode] = (states, int(drops[0]),
+                      {k: v for k, v in ops.launch_counts().items() if v},
+                      collective_counts())
+    held = tree_flatten(held_specs(mesh, cfg, init_params(
+        0, cfg, device="meta"), "fsdp_tp"), is_leaf=lambda x: isinstance(
+            x, P))[0]
+    specs = tree_flatten(param_specs(mesh, cfg, init_params(
+        0, cfg, device="meta"), "fsdp_tp"), is_leaf=lambda x: isinstance(
+            x, P))[0]
+    shapes = [local_shape(mesh, x.shape, sp) for x, sp in zip(whole, specs)]
+    cuts = [LocalShard(mesh, only_axis(sp, "data")) for sp in held]
+    worst, shaped = [], True
+    for got, ref in zip(runs["fsdp_tp"][0], runs["tp"][0]):
+        err = 0.0
+        for g_leaves, r_leaves in zip(got, ref):
+            for a, b, cut, shp in zip(g_leaves, r_leaves, cuts, shapes):
+                b = cut(b) if any(cut.spec) else b
+                shaped &= tuple(a.shape) == tuple(shp)
+                if a.shape != b.shape:
+                    raise AssertionError(f"fsdp-small {arch} {mesh_shape}: "
+                                         f"{tuple(a.shape)} against the "
+                                         f"slice {tuple(b.shape)}")
+                err = max(err, float((a - b).abs().max() / b.abs().max()
+                                     .clamp(min=1e-30)))
+        worst.append(err)
+    last = runs["fsdp_tp"][0][-1]
+    nbytes = [sum(x.numel() * x.element_size() for x in leaves)
+              for leaves in last]
+    want = sum(math.prod(shp) * x.element_size()
+               for shp, x in zip(shapes, whole))
+    return {"worst": worst, "shaped": shaped, "held": nbytes, "want": want,
+            "drops": (runs["tp"][1], runs["fsdp_tp"][1]),
+            "launches": runs["fsdp_tp"][2],
+            "collectives": runs["fsdp_tp"][3],
+            "coords": (mesh.get_local_rank("data"),
+                       mesh.get_local_rank("model"))}
+
+
+def _fsdp_job(rank, work):
+    """Phase 14's part of a rank of the shared 4-rank spawn: fsdp-small on
+    both meshes, then, once the whole runs' process is done
+    (``_wait_whole``), fsdp-wide against the one-rank run's g^0 file in
+    ``work``."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    out = {"small": {(arch, shape): _fsdp_small_run(arch, shape)
+                     for shape in FSDP_MESHES for arch in FSDP_ARCHS}}
+    torch.cuda.empty_cache()
+    out["small_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _wait_whole(work)
+    out["wait_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["wide"] = _tp_wide_run(
+        str(Path(work) / FSDP_WIDE_G0), get_config("minitron_8b",
+                                                   **FSDP_WIDE),
+        FSDP_WIDE_COINS, mesh_shape=FSDP_WIDE_MESH, shard_mode="fsdp_tp",
+        rows=FSDP_WIDE_ROWS)
+    out["wide_s"] = time.perf_counter() - t
+    return out
+
+
+def _fsdp_wide_whole(card, work):
+    """fsdp-wide's one-rank whole run: its step-0 loss and g^0 (written to
+    disk) on the same weights and batches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import worker_grads
+    from repro_torch.models import apply_train, init_params
+
+    t0 = _run_header(
+        "fsdp-wide (one rank, whole)", card,
+        f"n_layers 32 -> 2, train_4k's batch 256 x 4,096 -> "
+        f"{FSDP_WIDE_ROWS[0]} x {FSDP_WIDE_ROWS[1]:,}; bf16, remat on")
+    cfg = get_config("minitron_8b", **FSDP_WIDE)
+    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, *FSDP_WIDE_ROWS)
+               for k in range(2)]
+    params = init_params(MODEL_SEED, cfg)
+    with torch.no_grad():
+        loss0 = float(apply_train(params, cfg, batches[1])[0])
+    g0, ms = _timed(lambda: worker_grads(params, cfg, batches[0]))
+    if not all(bool(torch.isfinite(g).all()) for g in g0):
+        raise AssertionError("fsdp-wide: the whole g^0 not finite")
+    peak = _peak_gb()
+    path = str(work / FSDP_WIDE_G0)
+    _save([g.cpu() for g in g0], path)
+    print(f"    loss at x^0 on step 0's batch {loss0:.6f}; g^0 in {ms:.1f} "
+          f"ms, peak {peak:.2f} GB; wall {time.perf_counter() - t0:.3f} s")
+    del params, g0
+    torch.cuda.empty_cache()
+    return {"fsdp_g0": path, "fsdp_loss0": loss0}
+
+
+def fsdp_path(card, jobs, one):
+    """Phase 14's checks: fsdp_tp's split over "data" (its runs in
+    ``split_paths``' 4-rank spawn, ``jobs`` the ranks' reports; ``one``
+    the one-rank whole run's readings); returns its launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    print('fsdp_tp: params and g held in "data" x "model" pieces')
+    t0 = time.perf_counter()
+    counts = {run: dict.fromkeys(ops.launch_counts(), 0)
+              for run in ("train-fsdp-small", "train-fsdp-wide")}
+    print(f"  fsdp-small on {card}; reduced: none (the mesh trainer's test "
+          "model, f32; the smoke configs of arctic-480b and "
+          "deepseek-v3-671b, f32, remat on; batch 4 x 32, rounds "
+          f"{FSDP_COINS} (True: full) on a tape); meshes (data 2, model 2) "
+          "with two \"data\" workers and (pod 1, data 2, model 2) with one "
+          "pod worker, 4 gloo ranks on cuda:0, each against \"tp\" on the "
+          "same mesh")
+    for shape in FSDP_MESHES:
+        for arch in FSDP_ARCHS:
+            reps = [r["small"][(arch, shape)] for r in jobs]
+            what = f"fsdp-small {arch} {shape}"
+            worst = max(max(r["worst"]) for r in reps)
+            if not worst <= FSDP_REL:
+                raise AssertionError(f"{what}: pieces {worst:.3e} of max-abs "
+                                     f"from the \"tp\" run's [{FSDP_REL:g}]")
+            for rank, r in enumerate(reps):
+                if not r["shaped"] or r["held"] != [r["want"]] * 2:
+                    raise AssertionError(
+                        f"{what} rank {rank}: held {r['held']} bytes, its "
+                        f"param_specs pieces {r['want']} each")
+                _check_routes(f"{what} rank {rank}", r["collectives"], "host")
+                if "all_gather" not in r["collectives"]:
+                    raise AssertionError(f"{what} rank {rank}: no gather")
+                if len(shape) == 3 and "reduce_scatter" not in \
+                        r["collectives"]:
+                    raise AssertionError(f"{what} rank {rank}: rows split "
+                                         "over \"data\" and no reduce-scatter")
+                missing = [k for k in TRAINER_KERNELS
+                           if not r["launches"].get(k)]
+                if missing:
+                    raise AssertionError(f"{what} rank {rank}: {missing} not "
+                                         "launched")
+                for a, b in r["launches"].items():
+                    counts["train-fsdp-small"][a] += b
+                # the choices dropped: the same as "tp"'s, the rows of the
+                # ranks of a "data" group summed where they split
+                tp_drops, mine = r["drops"]
+                if len(shape) == 3:
+                    mine = sum(o["drops"][1] for o in reps
+                               if o["coords"][1] == r["coords"][1])
+                if mine != tp_drops or (arch != "tiny" and not mine):
+                    raise AssertionError(
+                        f"{what} rank {rank}: {mine} choices dropped, the "
+                        f"\"tp\" run {tp_drops}")
+            r0 = reps[0]
+            by_round = ", ".join(f"{max(r['worst'][k] for r in reps):.2e}"
+                                 for k in range(len(FSDP_COINS)))
+            print(f"    {arch} {shape}: every rank's pieces within "
+                  f"{worst:.3e} of max-abs of the \"tp\" run's slices "
+                  f"(by round {by_round}) [{FSDP_REL:g}]; held {r0['held'][0]:,} B of params and "
+                  f"of g a rank (= the pieces); choices dropped "
+                  f"{r0['drops'][0]} (\"tp\") and {r0['drops'][1]} (rank 0); "
+                  f"rank 0's launches {r0['launches']}, collectives "
+                  f"{r0['collectives']}")
+    print(f"    fsdp-small's runs {max(r['small_s'] for r in jobs):.3f} s "
+          "(the slowest rank)")
+    print(f"  fsdp-wide on {card}; reduced: n_layers 32 -> 2, train_4k's "
+          f"batch 256 x 4,096 -> {FSDP_WIDE_ROWS[0]} x "
+          f"{FSDP_WIDE_ROWS[1]:,} (one pod worker, its rows split over "
+          f"\"data\"), {FSDP_WIDE_MESH} mesh, 4 gloo ranks on cuda:0, rounds "
+          f"{FSDP_WIDE_COINS} (True: full)")
+    wide = [r["wide"] for r in jobs]
+    _check_wide("fsdp-wide", wide, one["fsdp_loss0"], "the one-rank run",
+                FSDP_WIDE_LOSS_RTOL, TP_WIDE_G0_REL)
+    print(f"    fsdp-wide's runs {max(r['wide_s'] for r in jobs):.3f} s "
+          "(the slowest rank)")
+    for rep in wide:
+        for rnd in rep["rounds"]:
+            if not rnd["collectives"].get("reduce_scatter"):
+                raise AssertionError("fsdp-wide: no reduce-scatter")
+            for a, b in rnd["launches"].items():
+                counts["train-fsdp-wide"][a] += b
+    for run, c in counts.items():
+        missing = [k for k in TRAINER_KERNELS if not c.get(k)]
+        if missing:
+            raise AssertionError(f"{run}: {missing} not launched")
+    torch.cuda.empty_cache()
+    print(f"  phase 14 checks {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the runs of phases 11-14: one process of whole runs, one spawn of 2
+# ranks and one of 4 for every split
+# ---------------------------------------------------------------------------
+
+SPLIT_TIMEOUT = 900  # seconds for a spawned job
+# the whole runs' process marks its end (or its failure) in the work dir
+WHOLE_DONE, WHOLE_FAILED = "whole.done", "whole.failed"
+
+
+def _whole_job(rank, card, work):
+    """The one-rank whole runs of phases 12-14, in a process of their own:
+    the segments they leave the allocator (cuBLAS's workspaces pin two of
+    3.7 GB after the full-experts gradient) stay out of the way of the
+    split's ranks, which share the card; the seconds of each phase's."""
+    import gc
+
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work, out, secs = Path(work), {}, {}
+    try:
+        for phase, fn in ((12, lambda: {**_v3_wide_whole(card, work),
+                                        **_v3_full_whole(card, work)}),
+                          (13, lambda: _ssm_whole(card, work)),
+                          (14, lambda: _fsdp_wide_whole(card, work))):
+            t = time.perf_counter()
+            out[phase] = fn()
+            secs[phase] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+    except BaseException:
+        (work / WHOLE_FAILED).touch()
+        raise
+    (work / WHOLE_DONE).touch()
+    out["seconds"] = secs
+    return out
+
+
+def _wait_whole(work):
+    """Return once the whole runs' process is done with the card (its
+    marker in ``work``); raise if it failed or never ends."""
+    work, deadline = Path(work), time.monotonic() + SPLIT_TIMEOUT
+    while not (work / WHOLE_DONE).exists():
+        if (work / WHOLE_FAILED).exists():
+            raise RuntimeError("the whole runs' process failed")
+        if time.monotonic() > deadline:
+            raise RuntimeError("the whole runs' process did not end in "
+                               f"{SPLIT_TIMEOUT} s")
+        time.sleep(0.2)
+
+
+def _split_job(rank, mesh_shape, files):
+    """One rank of a shared spawn on ``mesh_shape``: phases 11-13's small
+    split runs and, on 2 ranks, their wide runs (``files``: the whole
+    runs' files and readings); on 4 ranks phase 14's runs too; the
+    seconds of each phase's part."""
+    import gc
+
+    import torch
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    wide = mesh_shape == (1, 2)
+    parts = [(11, lambda: _tp_job(rank, mesh_shape,
+                                  files["g0"] if wide else None)),
+             (12, lambda: _moe_job(rank, mesh_shape, *(
+                 (files[12]["g0"], files[12]["ref"], files[12]["wide_routes"])
+                 if wide else (None, None, None)))),
+             (13, lambda: _ssm_job(rank, mesh_shape,
+                                   files[13] if wide else None))]
+    if not wide:
+        parts.append((14, lambda: _fsdp_job(rank, files["work"])))
+    out, secs = {}, {}
+    for phase, fn in parts:
+        t = time.perf_counter()
+        out[phase] = fn()
+        secs[phase] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not wide:  # fsdp-wide waited for the whole runs' process
+        secs[14] -= out[14]["wait_s"]
+    out["seconds"] = secs
+    return out
+
+
+def split_paths(card):
+    """The runs of phases 11-14 (their checks follow, phase by phase): the
+    one-rank NCCL runs of the small configs in this process; the one-rank
+    whole runs in a spawned process beside one spawn of 4 gloo ranks on
+    cuda:0, then one spawn of 2, which between them run every phase's
+    split; returns each phase's runs and the seconds its parts took."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import spawn
+
+    print("the split runs of phases 11-14")
+    t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_split"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    secs = dict.fromkeys((11, 12, 13, 14), 0.0)
+    ones = {}
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "rendezvous"), rank=0, world_size=1)
+    try:
+        for phase, fn in (
+                (11, lambda: _tp_small_run((1, 1))),
+                (12, lambda: {arch: _small_split_run(arch, (1, 1))
+                              for arch in MOE_ARCHS}),
+                (13, lambda: {arch: _small_split_run(arch, (1, 1), SSM_COINS)
+                              for arch in SSM_ARCHS})):
+            t = time.perf_counter()
+            ones[phase] = fn()
+            secs[phase] += time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    print(f"  one-rank NCCL runs of the small configs "
+          f"{time.perf_counter() - t0:.3f} s")
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    walls, whole, jobs = {}, {}, {}
+
+    def whole_runs():  # in a thread: the process of the whole runs
+        t = time.perf_counter()
+        try:
+            whole["one"] = spawn(_whole_job, 1, (card, str(work)),
+                                 timeout=SPLIT_TIMEOUT)[0]
+        except BaseException as err:  # noqa: BLE001 — raised below
+            whole["err"] = err
+        walls["whole"] = time.perf_counter() - t
+
+    try:
+        # the split's ranks' allocators grow their segments in place: the
+        # two ranks of moe-v3-full-experts share the card at some 36 GB each
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        sys.stdout.flush()  # ahead of the spawned processes' lines
+        # the whole runs (up to 70 GB on the card) run beside the 4-rank
+        # spawn's small runs (a few GB), whose fsdp-wide waits for their
+        # end (``_wait_whole``); the 2-rank spawn's wide runs follow both
+        thread = threading.Thread(target=whole_runs)
+        thread.start()
+        t = time.perf_counter()
+        try:
+            jobs[(1, 4)] = spawn(_split_job, 4, ((1, 4), {"work": str(work)}),
+                                 timeout=SPLIT_TIMEOUT)
+        finally:
+            thread.join()
+        walls[(1, 4)] = time.perf_counter() - t
+        if "err" in whole:
+            raise whole["err"]
+        one = whole["one"]
+        t = time.perf_counter()
+        jobs[(1, 2)] = spawn(_split_job, 2, ((1, 2), {"g0": PHASE10["g0"],
+                                                      **one}),
+                             timeout=SPLIT_TIMEOUT)
+        walls[(1, 2)] = time.perf_counter() - t
+        for phase, v in one["seconds"].items():
+            secs[phase] += v
+        for reports in jobs.values():
+            for phase in secs:
+                secs[phase] += max(r["seconds"].get(phase, 0.0)
+                                   for r in reports)
+    finally:  # the whole runs' files on disk; train-minitron-wide's g^0
+        shutil.rmtree(work, ignore_errors=True)
+        Path(PHASE10["g0"]).unlink(missing_ok=True)
+        if env is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    torch.cuda.empty_cache()
+    print(f"  the whole runs' process {walls['whole']:.3f} s beside the "
+          f"(1, 4) spawn {walls[(1, 4)]:.3f} s (its fsdp-wide waited "
+          f"{max(r[14]['wait_s'] for r in jobs[(1, 4)]):.3f} s for them), "
+          f"then the (1, 2) spawn {walls[(1, 2)]:.3f} s; the runs by phase "
+          "(the slowest rank's part of each spawn, the whole runs' part): "
+          + ", ".join(f"{p} {v:.3f} s" for p, v in secs.items())
+          + f"; wall {time.perf_counter() - t0:.3f} s")
+
+    def of(phase):
+        return {shape: [r[phase] for r in jobs[shape]] for shape in jobs
+                if phase in jobs[shape][0]}
+
+    return {11: (ones[11], of(11)), 12: (ones[12], one[12], of(12)),
+            13: (ones[13], one[13], of(13)),
+            14: (of(14)[(1, 4)], one[14])}, secs
 
 
 def main():
@@ -5669,16 +6060,20 @@ def main():
     # 10. the mesh trainer and the decode launcher
     counts.update(train_path(card))
 
-    # 11. the tensor-parallel split and the dry run
-    counts.update(tp_path(card))
+    # 11-14: the runs of every split (shared spawns), then each phase's
+    # checks: 11 the tensor-parallel split and the dry run, 12 the split
+    # of the MoE and MLA decoders, 13 of the SSM and hybrid decoders, 14
+    # fsdp_tp's split over "data"
+    runs, secs = split_paths(card)
+    for phase, check in ((11, tp_path), (12, moe_tp_path),
+                         (13, ssm_tp_path), (14, fsdp_path)):
+        t = time.perf_counter()
+        counts.update(check(card, *runs[phase]))
+        secs[phase] += time.perf_counter() - t
+    print("phases 11-14, runs and checks: " + ", ".join(
+        f"phase {p} {v:.3f} s" for p, v in secs.items()))
 
-    # 12. the split of the MoE and MLA decoders
-    counts.update(moe_tp_path(card))
-
-    # 13. the split of the SSM and hybrid decoders
-    counts.update(ssm_tp_path(card))
-
-    # 14. the kernels line, the card, the result
+    # 15. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

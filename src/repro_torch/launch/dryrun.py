@@ -11,9 +11,13 @@ tensors (shapes and dtypes, nothing allocated, nothing computed):
 
   train    ``launch.train.make_train_step`` on the rank's held state
            (``abstract_state(..., mesh)``: its pieces under the
-           tensor-parallel split, ``sharding.rules.model_split``) and the
-           global batch, for one difference round (two gradients, the
-           clip and the aggregation: the larger of the two rounds);
+           tensor-parallel split, ``sharding.rules.model_split``; under
+           fsdp_tp its "data" x "model" pieces, each layer gathered over
+           "data" in the period loop) and the global batch (with the pods
+           the workers, as under fsdp_tp on the multi-pod mesh, the
+           worker's rows split over "data"), for one difference round
+           (two gradients, the clip and the aggregation: the larger of
+           the two rounds);
   prefill  ``launch.serve.make_prefill_step`` and
   decode   ``make_serve_step``, one process each: params whole, the batch
            (and cache) split per ``batch_specs``; their ``model_split``
@@ -31,10 +35,13 @@ It records, under the reference's JSON keys:
   cost.flops                     the formulas of ``torch.utils.flop_counter``
                                  over every op of the step
   collectives                    ``api.mesh_exec.collective_counts()``: the
-                                 aggregation's and the split's collectives,
-                                 recomputed ones included, in bytes by the
-                                 reference's conventions (all-reduce 2x its
-                                 result, reduce-scatter x its group)
+                                 aggregation's and the split's collectives
+                                 (the "data" gathers among the all-gathers,
+                                 the reduce-scatters of the split rows'
+                                 gradients), recomputed ones included, in
+                                 bytes by the reference's conventions
+                                 (all-reduce 2x its result, reduce-scatter
+                                 x its group: its input)
 
 plus ``model_split``, ``rank``, ``round`` and ``trace_s``.  The kernel
 wrappers take their plain path on "meta" tensors (they launch only on

@@ -9,9 +9,10 @@ back its held new state.  What a rank holds is ``sharding.rules.
 held_specs``: under the "tp" split (``model_split``: the token
 decoders, attention (dense, MoE or MLA), Mamba-2 SSM or hybrids of both,
 under "tp" or "fsdp_tp") on a "model" axis of M > 1 ranks, its "model"
-piece of every split leaf of params and g, and the norms and scalars
-whole; otherwise every leaf whole.  ``initial_state`` builds it from
-whole params.  Within a step, a rank
+piece of every split leaf of params and g (under fsdp_tp its "data" x
+"model" piece, as the reference's ``state_specs`` places its state), and
+the norms and scalars whole; otherwise every leaf whole.
+``initial_state`` builds it from whole params.  Within a step, a rank
 
 1. draws the round's randomness (the coin c_k, the cohort, the attack's
    and the compressor's seeds, Bucketing's order) from one CPU
@@ -24,22 +25,32 @@ whole params.  Within a step, a rank
    ``torch.autograd.grad`` over the held leaves, remat kept; under the
    split inside a ``model_axis`` block, so that the ranks of a worker's
    "model" axis compute its gradient once between them, each its pieces
-   (``models.tp``);
+   (``models.tp``).  Under fsdp_tp each layer's leaves are gathered over
+   "data" before use; where "data" is a worker axis each of its ranks is
+   another worker, and the worker's gradient of a gathered leaf stays
+   whole over "data" (the reference's per-worker gradient, ``DataAxis``
+   "keep"); where it is not (pod workers), the worker's rows split over
+   "data" when its size divides them (rank r: rows r*b/|data| on), the
+   loss's sums over rows add up the "data" ranks, and a reduce-scatter
+   sums the gradients of the gathered leaves (an all-reduce those of the
+   whole ones);
 3. forms its worker's message: the gradient (full rounds) or the
    gradient difference, leafwise RandK'd (``CompressSpec(kind=
    "rand_fraction")``), then corrupted by the attack if the worker is
    byzantine;
-4. cuts its aggregation piece out of its held message per
-   ``param_specs`` with the worker axes stripped (``sharding.rules``):
-   under "tp" the held piece itself, under fsdp_tp with "data" not a
-   worker axis a further cut along "data", and where the compute is
-   replicated the piece of the whole leaf; hands the pieces to the plan's
-   mesh step (``plan.build(mesh)``) as ``base_specs``, and all-gathers the
-   aggregated pieces back to the held ones over the axes of that cut
-   only (none under "tp"); g^{k+1} = g^k + agg (difference rounds,
-   clipped at lambda = alpha gamma ||g^k||, the norm of the whole g: the
-   squares of the split leaves summed over "model", the whole leaves
-   counted once) or agg (full rounds, no clip).
+4. cuts its aggregation piece out of its message per ``param_specs``
+   with the worker axes stripped (``sharding.rules``): under the split
+   the message already is that piece (the held piece with the worker
+   axes stripped), where the compute is replicated the piece of the
+   whole leaf; hands the pieces to the plan's mesh step
+   (``plan.build(mesh)``) as ``base_specs``; and takes the aggregate back
+   to the held piece: all-gathered over the axes that the aggregation
+   splits and the held piece does not (the replicated branch), narrowed
+   along those that the held piece splits and the aggregation does not
+   (fsdp_tp's "data" when it is a worker axis); g^{k+1} = g^k + agg
+   (difference rounds, clipped at lambda = alpha gamma ||g^k||, the norm
+   of the whole g: each piece's squares summed over the axes that split
+   it, the whole leaves counted once) or agg (full rounds, no clip).
 
 Differences from the reference, each for a reason:
 
@@ -54,7 +65,10 @@ Differences from the reference, each for a reason:
   "replicated"): there every rank holds
   params and g whole, computes its worker's whole gradient, cuts its
   piece for the aggregation and all-gathers the aggregate back.  zero3
-  splits no model compute either.  Where a rank's heads reach past its
+  splits no model compute either.  Under "tp" with pod workers every
+  "data" rank of a pod runs the worker's whole rows (the same numbers,
+  computed again on each); the rows split over "data" under fsdp_tp
+  only.  Where a rank's heads reach past its
   pieces (fewer kv heads than ranks) it all-gathers those weights.
 - **Draws are of whole leaves.**  RandK's uniforms and gauss's noise are
   drawn per whole leaf, as before, and a rank keeps its piece of them,
@@ -83,15 +97,18 @@ import torch
 
 from ..api import AggregatorSpec, ClipSpec, PlanError, ScheduleSpec
 from ..api import ServerPlan
-from ..api.mesh_exec import _all_gather, _count, _gather_leaf, leaf_agg_of
+from ..api.mesh_exec import (_all_gather, _count, _gather_leaf, _spec_axes,
+                             leaf_agg_of)
 from ..core.tree_utils import tree_flatten, tree_map, tree_norm
 from ..core.tree_utils import tree_unflatten
 from ..models.model import ModelConfig, apply_train, init_params
 from ..models.model import shard_params
-from ..sharding.constraints import ModelAxis, model_axis
+from ..sharding.constraints import DataAxis, ModelAxis, model_axis
 from ..sharding.rules import (LocalShard, held_specs, local_shape,
-                              model_split, param_specs, state_sharding)
-from .mesh import P, axis_size, model_group, num_workers, worker_axes
+                              model_split, only_axis, param_specs,
+                              state_sharding)
+from .mesh import P, axis_size, model_group, num_workers
+from .mesh import worker_axes as default_worker_axes
 
 __all__ = [
     "ByzTrainConfig",
@@ -107,6 +124,7 @@ __all__ = [
     "model_axis_of",
     "initial_state",
     "train_loss",
+    "held_norm",
     "main",
 ]
 
@@ -251,28 +269,107 @@ def _attack_stage(cfg: ByzTrainConfig):
     return stage
 
 
+def _pass_axis(axis: Optional[ModelAxis], batch):
+    """(the axis of a worker's pass on ``batch``, this rank's rows of
+    it): under fsdp_tp with "data" not a worker axis, the rows split over
+    "data" when its size divides them (rank r: the r-th block), else
+    every rank takes them all."""
+    data = None if axis is None else axis.data
+    if data is None or data.worker:
+        return axis, batch
+    b = next(iter(batch.values())).shape[0]
+    if b % data.size:
+        return dataclasses.replace(axis, data=dataclasses.replace(
+            data, rows=False)), batch
+    n = b // data.size
+    return (dataclasses.replace(axis, data=dataclasses.replace(data,
+                                                               rows=True)),
+            {k: v[data.rank * n:(data.rank + 1) * n]
+             for k, v in batch.items()})
+
+
+def _sinks(leaves, data: DataAxis):
+    """The gradient sinks of the leaves split over "data" (zeros of the
+    gathered shape, whole over "data"), None for the others: a tree in
+    the params' structure."""
+    specs, treedef = tree_flatten(data.held, is_leaf=lambda x: isinstance(
+        x, P))
+    out = []
+    for x, sp in zip(leaves, specs):
+        if not any(sp):
+            out.append(None)
+            continue
+        shape = list(x.shape)
+        for j, e in enumerate(sp):
+            if e:
+                shape[j] *= data.size
+        out.append(torch.zeros(shape, dtype=x.dtype, device=x.device))
+    return tree_unflatten(treedef, out)
+
+
+def _sum_over_rows(grads: list, whole: list, data: DataAxis) -> None:
+    """Sum over "data" the gradients ``grads[i]``, i in ``whole`` (the
+    leaves not split over it, each rank's its rows' part), in place of
+    the list: one all-reduce a dtype."""
+    by_dtype = {}
+    for i in whole:
+        by_dtype.setdefault(grads[i].dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        torch.distributed.all_reduce(flat, group=data.group)
+        _count("all_reduce", flat, data.group)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            grads[i] = part.view_as(grads[i])
+
+
 def worker_grads(params, model_cfg: ModelConfig, batch,
                  axis: Optional[ModelAxis] = None) -> list:
     """The gradient of ``apply_train``'s loss on ``batch`` at ``params``,
     as a list of leaves in flatten order (``torch.autograd.grad``).  With
     ``axis`` (``model_axis_of``), ``params`` are this rank's held pieces
-    and the pass is split over it: the gradient of each piece."""
+    and the pass is split over it: the gradient of each piece.  Under
+    fsdp_tp (``axis.data``) the rows split over "data" where
+    ``_pass_axis`` says so, and a leaf split over "data" gets its
+    worker's gradient whole over "data" where "data" is a worker axis,
+    else the gradient of its piece (summed over the rows' ranks)."""
     leaves, treedef = tree_flatten(params)
     leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    axis, batch = _pass_axis(axis, batch)
+    data = None if axis is None else axis.data
+    sinks = None
+    if data is not None and data.worker:
+        sinks = _sinks(leaves, data)
+        axis = dataclasses.replace(axis, data=dataclasses.replace(
+            data, sinks=sinks))
     with model_axis(axis):
         loss, _ = apply_train(tree_unflatten(treedef, leaves), model_cfg,
                               batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(x) if gr is None else gr
-            for gr, x in zip(grads, leaves)]
+    if sinks is not None:  # the gathered leaves' gradients are the sinks'
+        grads = [gr if sk is None else sk for gr, sk in zip(
+            grads, tree_flatten(sinks, is_leaf=_is_none)[0])]
+    grads = [torch.zeros_like(x) if gr is None else gr
+             for gr, x in zip(grads, leaves)]
+    if data is None or not data.rows:
+        return grads
+    whole = [i for i, sp in enumerate(tree_flatten(
+        data.held, is_leaf=lambda x: isinstance(x, P))[0]) if not any(sp)]
+    _sum_over_rows(grads, whole, data)
+    return grads
 
 
-def model_axis_of(mesh, model_cfg: ModelConfig,
-                  shard_mode: str = "tp") -> Optional[ModelAxis]:
+def _is_none(x) -> bool:
+    return x is None
+
+
+def model_axis_of(mesh, model_cfg: ModelConfig, shard_mode: str = "tp",
+                  worker_axes: Optional[tuple] = None) -> Optional[ModelAxis]:
     """The "model" axis a worker's pass splits over on ``mesh``: a
-    ``ModelAxis`` (with this rank's ``held_specs``) when
-    ``model_split(model_cfg, shard_mode)`` is "tp" and the axis has more
-    than one rank, else None (the pass runs whole)."""
+    ``ModelAxis`` (with this rank's ``held_specs``; under fsdp_tp its
+    ``DataAxis`` too, "data" a worker axis where ``worker_axes``, the
+    run's, name it: by default the mesh's) when ``model_split(model_cfg,
+    shard_mode)`` is "tp" and the axis has more than one rank, else None
+    (the pass runs whole)."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if "model" not in names or model_split(model_cfg, shard_mode) != "tp":
         return None
@@ -281,31 +378,88 @@ def model_axis_of(mesh, model_cfg: ModelConfig,
         return None
     held = held_specs(mesh, model_cfg, init_params(0, model_cfg,
                                                    device="meta"), shard_mode)
+    leaves, treedef = tree_flatten(held, is_leaf=lambda x: isinstance(x, P))
+
+    def on(axes):
+        return tree_unflatten(treedef, [only_axis(sp, axes) for sp in leaves])
+
+    data = None
+    if any("data" in _spec_axes(sp) for sp in leaves):
+        waxes = default_worker_axes(mesh) if worker_axes is None \
+            else tuple(worker_axes)
+        data = DataAxis(mesh.get_group("data"), mesh.get_local_rank("data"),
+                        axis_size(mesh, "data"), on("data"),
+                        worker="data" in waxes)
     return ModelAxis(model_group(mesh), mesh.get_local_rank("model"), size,
-                     held)
+                     on("model"), data)
+
+
+def held_norm(g_leaves, axis: Optional[ModelAxis], held) -> torch.Tensor:
+    """||g|| of the whole g from this rank's pieces ``g_leaves`` (their
+    held specs ``held``, in flatten order): each piece's squares summed
+    over the axes that split it ("model", "data" or both; ``axis`` and
+    its ``data``), the whole leaves' counted once (a collective on the
+    split's groups)."""
+    if axis is None:
+        return tree_norm(g_leaves)
+    kinds = [("model" in _spec_axes(sp), "data" in _spec_axes(sp))
+             for sp in held]
+    zero = torch.zeros((), device=g_leaves[0].device)
+
+    def ssq(kind):
+        return sum((g.float().square().sum() for g, k in zip(g_leaves, kinds)
+                    if k == kind), zero)
+
+    # over "model": the pieces split on both axes and on "model" alone;
+    # then over "data": the first of those with the "data"-only ones
+    parts = torch.stack([ssq((True, True)), ssq((True, False))])
+    torch.distributed.all_reduce(parts, group=axis.group)
+    _count("all_reduce", parts, axis.group)
+    total = parts[0] + ssq((False, True))
+    if axis.data is not None:
+        torch.distributed.all_reduce(total, group=axis.data.group)
+        _count("all_reduce", total, axis.data.group)
+    return torch.sqrt(total + parts[1] + ssq((False, False)))
+
+
+def _run_worker_axes(mesh, cfg: "ByzTrainConfig") -> tuple:
+    """The worker axes of a run: the plan's, the config's override, or
+    every batch-like axis of the mesh."""
+    return (tuple(resolve_plan(cfg).schedule.worker_axes)
+            or tuple(cfg.worker_axes_override) or default_worker_axes(mesh))
 
 
 def initial_state(params, model_cfg: ModelConfig, mesh, cfg: "ByzTrainConfig",
                   batch) -> "MeshTrainState":
     """The state a rank starts from: its held pieces of the whole
     ``params`` (``models.model.shard_params``), g^0 its worker's gradient
-    of them on ``batch`` (split as the steps are), the key of
-    ``cfg.seed`` and step 0."""
+    of them on ``batch`` (split as the steps are, and cut to the held
+    pieces), the key of ``cfg.seed`` and step 0."""
     held = shard_params(params, mesh, model_cfg, cfg.shard_mode)
-    axis = model_axis_of(mesh, model_cfg, cfg.shard_mode)
-    g0 = tree_unflatten(tree_flatten(held)[1],
-                        worker_grads(held, model_cfg, batch, axis))
-    return MeshTrainState(params=held, g=g0, key=train_key(cfg.seed),
+    axis = model_axis_of(mesh, model_cfg, cfg.shard_mode,
+                         _run_worker_axes(mesh, cfg))
+    leaves, treedef = tree_flatten(held)
+    g0 = worker_grads(held, model_cfg, batch, axis)
+    if axis is not None and axis.data is not None and axis.data.worker:
+        cuts = tree_flatten(state_sharding(mesh, axis.data.held),
+                            is_leaf=lambda x: isinstance(x, LocalShard))[0]
+        g0 = [cut(g) if g.shape != x.shape else g
+              for g, x, cut in zip(g0, leaves, cuts)]
+    return MeshTrainState(params=held, g=tree_unflatten(treedef, g0),
+                          key=train_key(cfg.seed),
                           step=torch.zeros((), dtype=torch.int32))
 
 
 def train_loss(params, model_cfg: ModelConfig, batch, mesh=None,
-               shard_mode: str = "tp") -> float:
+               shard_mode: str = "tp", worker_axes=None) -> float:
     """``apply_train``'s loss at a rank's held ``params`` (split over the
     mesh's "model" axis where ``model_axis_of`` says so: a collective),
-    without gradients."""
+    without gradients: the loss on all of ``batch``'s rows, on every
+    rank (under fsdp_tp with "data" not one of the ``worker_axes``, the
+    rows split over "data" and the sums added up)."""
     axis = None if mesh is None else model_axis_of(mesh, model_cfg,
-                                                   shard_mode)
+                                                   shard_mode, worker_axes)
+    axis, batch = _pass_axis(axis, batch)
     with torch.no_grad(), model_axis(axis):
         return float(apply_train(params, model_cfg, batch)[0])
 
@@ -355,8 +509,7 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
     attack_stage = _attack_stage(cfg)
     # cohort and worker axes are trainer-owned knobs when the plan leaves
     # them unset; an explicit plan.cohort / plan.schedule.worker_axes wins
-    waxes = (tuple(plan.schedule.worker_axes)
-             or tuple(cfg.worker_axes_override) or worker_axes(mesh))
+    waxes = _run_worker_axes(mesh, cfg)
     W = math.prod(axis_size(mesh, a) for a in waxes)
     C = plan.cohort or cfg.C or W
     w = 0  # this rank's worker: its coordinates on waxes, row-major
@@ -375,47 +528,48 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
                 f"frac=...), got kind={plan.compress.kind!r}")
         compress_frac = plan.compress.frac
 
-    axis = model_axis_of(mesh, model_cfg, cfg.shard_mode)
+    axis = model_axis_of(mesh, model_cfg, cfg.shard_mode, waxes)
     whole = init_params(0, model_cfg, device="meta")
     shapes = [tuple(x.shape) for x in tree_flatten(whole)[0]]
 
     def flat_specs(tree):
         return tree_flatten(tree, is_leaf=lambda x: isinstance(x, P))[0]
 
+    def shards(specs):
+        return tree_flatten(state_sharding(mesh, specs),
+                            is_leaf=lambda x: isinstance(x, LocalShard))[0]
+
     # each leaf's aggregation spec (param_specs, worker axes stripped),
-    # the piece the rank holds, and the rest of the cut: the axes of the
-    # aggregation spec that the held piece does not split
+    # the piece the rank holds, and the message's extent: the held piece
+    # with the worker axes stripped (a worker's gradient is whole over
+    # them).  The message is cut along the axes of the aggregation spec
+    # that it does not split; the aggregate comes back to the held piece
+    # gathered over the axes that the held piece does not split and
+    # narrowed along those that the aggregation spec does not
     specs = [_strip(sp, waxes) for sp in flat_specs(param_specs(
         mesh, model_cfg, whole, mode=cfg.shard_mode))]
     held = flat_specs(held_specs(mesh, model_cfg, whole, cfg.shard_mode))
-    rests = [P(*(e if h is None else None for e, h in zip(sp, hp)))
+    msg = [_strip(hp, waxes) for hp in held]
+    cuts = shards([P(*(e if m is None else None for e, m in zip(sp, mp)))
+                   for sp, mp in zip(specs, msg)])
+    backs = [P(*(e if h is None else None for e, h in zip(sp, hp)))
              for sp, hp in zip(specs, held)]
-    cuts = tree_flatten(state_sharding(mesh, rests),
-                        is_leaf=lambda x: isinstance(x, LocalShard))[0]
-    held_cuts = tree_flatten(state_sharding(mesh, held),
-                             is_leaf=lambda x: isinstance(x, LocalShard))[0]
-    split = [any(hp) for hp in held]
+    narrows = shards([P(*(h if e is None else None for e, h in zip(sp, hp)))
+                      for sp, hp in zip(specs, held)])
+    msg_cuts = shards(msg)
     del whole
 
-    def held_norm(g_leaves):
-        """||g|| of the whole g from this rank's pieces: the split leaves'
-        squares summed over "model", the whole leaves' counted once."""
-        if axis is None:
-            return tree_norm(g_leaves)
-        parts = torch.stack([
-            sum((g.float().square().sum() for g, s in zip(g_leaves, split)
-                 if s == want), torch.zeros((), device=g_leaves[0].device))
-            for want in (True, False)])
-        ssq = parts[0].clone()
-        torch.distributed.all_reduce(ssq, group=axis.group)
-        _count("all_reduce", ssq, axis.group)
-        return torch.sqrt(ssq + parts[1])
-
     def noise_pieces(noise):
-        """gauss's noise of each whole leaf (1, size), cut to the held
-        piece (1, piece size)."""
+        """gauss's noise of each whole leaf (1, size), cut to the
+        message's extent (1, piece size)."""
         return [cut(nz.reshape(1, *shp)[0]).reshape(1, -1)
-                for nz, shp, cut in zip(noise, shapes, held_cuts)]
+                for nz, shp, cut in zip(noise, shapes, msg_cuts)]
+
+    def back(agg, i):
+        """Leaf i's aggregate, back to the held piece."""
+        if any(backs[i]):
+            agg = _gather_leaf(agg[None], backs[i], mesh, ())[0]
+        return narrows[i](agg) if any(narrows[i].spec) else agg
 
     def draws(state, tape):
         """(c, sampled, order, attack key, RandK key) of this step, and
@@ -498,7 +652,8 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
         if server.clips and plan.clip.radius is not None:
             radius = float(plan.clip.radius)
         elif server.clips:
-            radius = plan.clip.alpha * cfg.gamma * held_norm(g_leaves)
+            radius = plan.clip.alpha * cfg.gamma * held_norm(g_leaves, axis,
+                                                             held)
 
         # this worker's rows of the global batch
         b = next(iter(batch.values())).shape[0] // W
@@ -513,7 +668,7 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
             if compress_frac > 0.0:
                 msgs = _leafwise_randk(
                     q_key, msgs, compress_frac, *(
-                        (shapes, held_cuts) if axis is not None else ()))
+                        (shapes, msg_cuts) if axis is not None else ()))
         pieces = corrupt(msgs, dev, sampled, att_key, cuts)
         del msgs
         tree_w = tree_unflatten(treedef, pieces)
@@ -525,9 +680,8 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
             agg = server(tree_w, mask=sampled, key=order, radius=radius,
                          base_specs=spec_tree)
         del tree_w, pieces
-        # back to the held pieces: over the rest of the cut only
-        aggs = (_gather_leaf(a[None], rest, mesh, ())[0]
-                for a, rest in zip(tree_flatten(agg)[0], rests))
+        # back to the held pieces
+        aggs = (back(a, i) for i, a in enumerate(tree_flatten(agg)[0]))
         if on_aggregate is not None:
             aggs = list(aggs)
             on_aggregate(c, aggs)

@@ -32,7 +32,15 @@ heads and the MLP's hidden dimension column- then row-split, the MoE
 layer's experts split over the axis, the dense prefix and the MTP head
 split alike.  It reads
 the axis once and hands it to every layer, so that a layer recomputed
-under ``torch.utils.checkpoint`` splits as its forward pass did.
+under ``torch.utils.checkpoint`` splits as its forward pass did.  Under
+fsdp_tp the pieces are split over "data" too (``ModelAxis.data``): each
+layer's leaves are gathered over "data" at the start of its step in the
+period loop (``tp.gather_from_data``), so that under remat they are
+gathered again in the recompute; the embedding, the unembedding and the
+MTP head once a step, where ``apply_train`` uses them.  With the
+worker's rows split over "data", the cross-entropy's sums over rows
+(and the MoE routing's, ``models.moe.route``) add up the axis's ranks,
+so that every rank's loss is the worker's.
 
 Gradients are taken with ``torch.autograd.grad`` over the tree's leaves.
 Modality stubs: hubert consumes precomputed frame embeddings, the VLM
@@ -347,8 +355,8 @@ def params_to_numpy(tree):
 def shard_params(params, mesh, cfg: ModelConfig, mode: str = "tp"):
     """This rank's pieces of the whole tree ``params`` on ``mesh``, per
     ``sharding.rules.held_specs`` (under the "tp" split on a "model" axis
-    of more than one rank, each split leaf's "model" piece; otherwise the
-    leaves themselves)."""
+    of more than one rank, each split leaf's "model" piece, under fsdp_tp
+    its "data" x "model" piece; otherwise the leaves themselves)."""
     from repro_torch.api.mesh_exec import _local_piece
     from repro_torch.sharding.rules import held_specs
 
@@ -390,31 +398,80 @@ def _embed_inputs(params, cfg: ModelConfig, batch, tp=None):
     return maybe_constrain(x, "data", None, None)
 
 
-def _unstack(tree, n: int, tp=None, held=None) -> list:
+def _unstack(tree, n: int, tp=None, held=None, data=None) -> list:
     """The ``n`` slices along the leading axis of a stacked tree, as
     views (``unbind``: one backward node a leaf, which stacks the
     slices' gradients once; one slice: ``squeeze``).  Under the split
     (``tp``, ``held`` the tree's held specs) a leaf whose layer dimension
     is split (this rank holds n / M layers) gives a ``tp.LayerSlice`` a
-    layer, fetched from its owner where it is used."""
+    layer, fetched from its owner where it is used.  With ``data`` (the
+    tree's "data" specs and its gradient sinks, or None), a leaf split
+    over "data" gives a ``tp.DataSlice`` a layer (inside the
+    ``LayerSlice``), gathered at the start of its step
+    (:func:`_whole_over_data`)."""
     leaves, treedef = tree_flatten(tree)
-    # one layer: a view whose backward is a view too (unbind's stacks a
-    # copy of the layer's gradient)
-    per_leaf = [(leaf.squeeze(0),) if leaf.shape[0] == 1 else leaf.unbind(0)
-                for leaf in leaves]
+
+    def views(leaf):
+        # one layer: a view whose backward is a view too (unbind's stacks a
+        # copy of the layer's gradient)
+        return (leaf.squeeze(0),) if leaf.shape[0] == 1 else leaf.unbind(0)
+
+    per_leaf = [views(leaf) for leaf in leaves]
     splits = ([None] * len(leaves) if held is None else
               [tp_mod.split_on(sp, 0) for sp in _specs(held)[0]])
+    dims, sinks = [None] * len(leaves), [None] * len(leaves)
+    if data is not None:
+        dspecs, dsinks = data
+        dims = [next((j - 1 for j, e in enumerate(sp) if e), None)
+                for sp in _specs(dspecs)[0]]
+        if dsinks is not None:
+            sinks = [None if sk is None else views(sk) for sk in
+                     tree_flatten(dsinks, is_leaf=lambda x: x is None)[0]]
 
-    def layer(views, split, i):
-        if split is None:
-            return views[i]
-        owner = i // len(views)
-        return tp_mod.LayerSlice(
-            views[i % len(views)] if owner == tp.rank else views[0], owner)
+    def layer(j, split, i):
+        at = i if split is None else (i % len(per_leaf[j])
+                                      if i // len(per_leaf[j]) == tp.rank
+                                      else 0)
+        out = per_leaf[j][at]
+        if dims[j] is not None:
+            out = tp_mod.DataSlice(out, dims[j],
+                                   None if sinks[j] is None else sinks[j][at])
+        if split is not None:
+            out = tp_mod.LayerSlice(out, i // len(per_leaf[j]))
+        return out
 
-    return [tree_unflatten(treedef, [layer(v, sp, i)
-                                     for v, sp in zip(per_leaf, splits)])
+    return [tree_unflatten(treedef, [layer(j, sp, i)
+                                     for j, sp in enumerate(splits)])
             for i in range(n)]
+
+
+def _whole_over_data(tree, tp):
+    """A layer's tree (``_unstack``) with each ``tp.DataSlice`` gathered
+    over "data" (inside a ``tp.LayerSlice`` too, before the fetch from
+    the owner: the ranks of a "data" group share their "model"
+    coordinate, so they are owners or anchors together)."""
+    if tp is None or tp.data is None:
+        return tree
+    leaves, treedef = tree_flatten(tree)
+
+    def whole(x):
+        if isinstance(x, tp_mod.DataSlice):
+            return x.whole(tp.data)
+        if isinstance(x, tp_mod.LayerSlice) and isinstance(
+                x.local, tp_mod.DataSlice):
+            return tp_mod.LayerSlice(x.local.whole(tp.data), x.owner)
+        return x
+
+    return tree_unflatten(treedef, [whole(x) for x in leaves])
+
+
+def _data_of(tp, key):
+    """(the "data" specs, the gradient sinks) of ``params[key]`` under
+    fsdp_tp's "data" split, or None."""
+    if tp is None or tp.data is None:
+        return None
+    sinks = tp.data.sinks
+    return tp.data.held[key], None if sinks is None else sinks[key]
 
 
 def _specs(held):
@@ -461,6 +518,7 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
     new_caches = {"prefix": None, "body": None}
 
     def prefix_step(h, aux, layer, cache):
+        layer = _whole_over_data(layer, tp)
         h, nc, (lb, zl) = _apply_layer(
             layer, cfg, "attn", "dense", h, positions=positions, vision=vision,
             cache=cache, cache_index=cache_index, window=window, tp=tp,
@@ -469,6 +527,7 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
         return h, aux + torch.stack([lb, zl]), nc
 
     def body_step(h, aux, layers, caches_slice):
+        layers = _whole_over_data(layers, tp)
         new_slices = []
         for pos in range(cfg.period):
             cache = None if caches_slice is None else caches_slice[pos]
@@ -489,7 +548,8 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
         n = cfg.first_dense_layers
         held = None if tp is None else tp.held["prefix"]
         prefix_held = held and _layer_held(held)
-        layers = _unstack(params["prefix"], n, tp, held)
+        layers = _unstack(params["prefix"], n, tp, held,
+                          _data_of(tp, "prefix"))
         pc = None if caches is None else _unstack(caches["prefix"], n)
         out = []
         for i in range(n):
@@ -502,8 +562,10 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
     n = cfg.n_periods
     body_held = (None,) * cfg.period if tp is None else tp.held["body"]
     layer_held = [h and _layer_held(h) for h in body_held]
-    per_pos = [_unstack(p, n, tp, h)
-               for p, h in zip(params["body"], body_held)]
+    data = _data_of(tp, "body")
+    per_pos = [_unstack(p, n, tp, h, data and (data[0][pos], data[1] and
+                                               data[1][pos]))
+               for pos, (p, h) in enumerate(zip(params["body"], body_held))]
     per_pos_caches = (None if caches is None
                       else [_unstack(c, n) for c in caches["body"]])
     out = []
@@ -543,13 +605,15 @@ def _chunk_loss_split(tp, hq, tq, vq, unembed):
     return torch.sum(nll), torch.sum(valid)
 
 
-def _chunked_ce(cfg, h, unembed, targets, valid, tp=None):
+def _chunked_ce(cfg, h, unembed, targets, valid, tp=None, rows=None):
     """Memory-bounded cross-entropy: a loop over sequence chunks, each
     chunk's logits recomputed in the backward pass (checkpointed) so the
     (B, S, vocab) tensor never exists at once.  With ``tp``, the axis the
     unembedding's vocabulary is split over, each chunk's cross-entropy is
     the vocabulary-parallel one (its all-reduces run again when the chunk
-    is recomputed)."""
+    is recomputed).  With ``rows``, the "data" axis the worker's rows are
+    split over, the loss's sum and its count of valid positions add up
+    the axis's ranks, whether or not the vocabulary is split."""
     B, S, D = h.shape
     Q = min(cfg.logit_chunk, S)
     n_chunks = -(-S // Q)
@@ -571,11 +635,37 @@ def _chunked_ce(cfg, h, unembed, targets, valid, tp=None):
         ls, ns = loss_fn(h[:, sl], targets[:, sl], valid[:, sl], unembed)
         total = total + ls
         count = count + ns
+    if rows is not None:
+        total = tp_mod.reduce_from_data(total, rows)
+        count = tp_mod.reduce_from_data(count.detach(), rows)
     return total / torch.clamp(count, min=1.0)
 
 
 def _positions(B, S, device):
     return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def _top_whole_over_data(params, tp):
+    """``params`` with the leaves outside the period loop (the embedding,
+    the unembedding, the MTP head) gathered over "data" once, where they
+    are split over it (fsdp_tp); the stacked prefix and body are gathered
+    a layer at a time in their steps."""
+    if tp.data is None:
+        return params
+    out = dict(params)
+    for key in out:
+        if key in ("prefix", "body"):
+            continue
+        dspecs, dsinks = _data_of(tp, key)
+        leaves, treedef = tree_flatten(out[key])
+        specs = _specs(dspecs)[0]
+        sinks = ([None] * len(leaves) if dsinks is None
+                 else tree_flatten(dsinks, is_leaf=lambda x: x is None)[0])
+        out[key] = tree_unflatten(treedef, [
+            x if not any(sp) else tp_mod.gather_from_data(
+                x, tp.data, next(j for j, e in enumerate(sp) if e), sk)
+            for x, sp, sk in zip(leaves, specs, sinks)])
+    return out
 
 
 def apply_train(params, cfg: ModelConfig, batch):
@@ -596,9 +686,12 @@ def apply_train(params, cfg: ModelConfig, batch):
                 f"(sharding.rules.model_split is {model_split(cfg)!r}); run "
                 "it whole, outside a model_axis block")
         held = tp.held
+        params = _top_whole_over_data(params, tp)
     # the axes the embedding and the unembedding are split over, or None
     tp_embed = tp if held and tp_mod.split_on(held["embed"], 0) else None
     tp_unembed = tp if held and tp_mod.split_on(held["unembed"], 1) else None
+    # the "data" axis the worker's rows are split over, or None
+    rows = None if tp is None else tp.rows_axis()
     x = _embed_inputs(params, cfg, batch, tp_embed)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
@@ -622,7 +715,7 @@ def apply_train(params, cfg: ModelConfig, batch):
         targets = pad(tokens[:, 1:], (0, 1))
         valid = (torch.arange(S, device=x.device)[None] < S - 1).expand(B, S)
         loss = _chunked_ce(cfg, h, params["unembed"], targets, valid,
-                           tp_unembed)
+                           tp_unembed, rows)
         if cfg.mtp_depth and "mtp" in params:
             # simplified DeepSeek-V3 MTP: one extra block predicts t+2
             mtp = params["mtp"]
@@ -647,7 +740,7 @@ def apply_train(params, cfg: ModelConfig, batch):
             t2 = pad(tokens[:, 2:], (0, 2))
             v2 = (torch.arange(S, device=x.device)[None] < S - 2).expand(B, S)
             loss = loss + 0.3 * _chunked_ce(cfg, hm, params["unembed"], t2,
-                                            v2, tp_unembed)
+                                            v2, tp_unembed, rows)
 
     lb, zl = aux[0], aux[1]
     n_moe = sum(1 for m in cfg.mlp_pattern if m == "moe") * cfg.n_periods

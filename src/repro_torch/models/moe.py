@@ -31,6 +31,17 @@ shared experts' row-split partial joins that combine, and one
 ``param_specs`` leaves whole (the axis does not divide E) is narrowed to
 the rank's ``split_range`` through ``take``; a rank with no expert adds a
 zero partial and runs the same collectives.
+
+With the worker's rows split over "data" (fsdp_tp with pod workers,
+``ModelAxis.rows_axis``), the routing's sums over tokens are the
+worker's: the load-balance means and the z-loss add up the "data" ranks'
+sums (``tp.reduce_from_data``), the capacity is that of the worker's T
+tokens, and each (token, choice)'s slot counts the earlier "data" ranks'
+tokens through an exclusive prefix of their per-choice counts, so that
+the choices dropped are exactly those of the whole batch.  Each rank then
+scatters its own tokens into its experts' buffers at those slots: the
+buffers stay the worker's capacity (the reference's buffers are
+replicated over "data" too).
 """
 from __future__ import annotations
 
@@ -160,12 +171,15 @@ def _expert_ffn(w, buf, cap: int):
                             max(1, _GROUP_BYTES // per))
 
 
-def route(params, cfg, xt, capacity_factor: float):
+def route(params, cfg, xt, capacity_factor: float, rows=None):
     """The routing half of the layer on tokens ``xt`` (T, D): the gates
     (T, K), the experts (T, K), each (token, choice)'s slot in its
     expert's buffer and whether it was kept, the capacity, and the aux
-    losses (lb, z)."""
-    T = xt.shape[0]
+    losses (lb, z).  ``rows``: the "data" axis the worker's tokens are
+    split over (``xt`` this rank's block of them, in rank order), or
+    None; the slots, keeps, capacity and losses are then the whole
+    batch's."""
+    T = xt.shape[0] * (1 if rows is None else rows.size)
     E, K = cfg.n_experts, cfg.experts_per_token
     up = torch.promote_types(xt.dtype, F32)  # f32 (f64 for f64 tokens)
     logits = xt.to(up) @ params["router"].to(up)  # (T, E)
@@ -186,13 +200,19 @@ def route(params, cfg, xt, capacity_factor: float):
         torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9
     )
 
-    # aux losses (switch-transformer style)
-    me = torch.mean(probs, dim=0)  # (E,)
-    ce = torch.mean(
-        torch.sum(F.one_hot(expert_ids, E).to(F32), dim=1), dim=0
-    )  # fraction of tokens routed to each expert
+    # aux losses (switch-transformer style); me: the mean router
+    # probability, ce: the fraction of tokens routed to each expert
+    routed = torch.sum(F.one_hot(expert_ids, E).to(F32), dim=1)
+    if rows is None:
+        me = torch.mean(probs, dim=0)  # (E,)
+        ce = torch.mean(routed, dim=0)
+        z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    else:  # the sums over every rank's tokens
+        me = tp_mod.reduce_from_data(torch.sum(probs, dim=0), rows) / T
+        ce = tp_mod.reduce_from_data(torch.sum(routed, dim=0), rows) / T
+        z_loss = tp_mod.reduce_from_data(torch.sum(
+            torch.logsumexp(logits, dim=-1) ** 2), rows) / T
     lb_loss = E * torch.sum(me * ce) / K
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     capacity = max(1, int(capacity_factor * T * K / E))
 
@@ -200,12 +220,24 @@ def route(params, cfg, xt, capacity_factor: float):
     # expert buffer stay consistent across choices through per-expert
     # counts.
     counts = torch.zeros((E,), dtype=torch.int32, device=xt.device)
+    if rows is not None:
+        # every rank's per-choice counts (ranks, K, E): a choice's slots
+        # start after the earlier choices' tokens of every rank and this
+        # choice's tokens of the earlier ranks
+        per = torch.stack([torch.sum(F.one_hot(expert_ids[:, kk], E), dim=0,
+                                     dtype=torch.int32) for kk in range(K)])
+        every = tp_mod.gather_from_data_values(per, rows)
+        earlier = torch.sum(every[:rows.rank], dim=0)  # (K, E)
+        after = torch.cumsum(torch.sum(every, dim=0), dim=0) - torch.sum(
+            every, dim=0)  # the earlier choices', every rank's
+        starts = earlier + after
     positions, keeps = [], []
     for kk in range(K):
         ids_k = expert_ids[:, kk]  # (T,)
         onehot = F.one_hot(ids_k, E).to(torch.int32)  # (T, E)
+        base = counts if rows is None else starts[kk]
         intra = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-        pos_k = torch.sum(intra * onehot, dim=-1) + counts[ids_k]
+        pos_k = torch.sum(intra * onehot, dim=-1) + base[ids_k]
         keep_k = pos_k < capacity
         positions.append(torch.where(keep_k, pos_k, capacity - 1).long())
         keeps.append(keep_k)
@@ -226,7 +258,8 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25, tp=None,
     # the routing, on the replicated tokens under the split: the same on
     # every rank, and so are its gradients (to the router and to x)
     gate_vals, expert_ids, positions, keeps, capacity, (lb_loss, z_loss) = \
-        route(params, cfg, xt, capacity_factor)
+        route(params, cfg, xt, capacity_factor,
+              None if tp is None else tp.rows_axis())
     for tally in _TALLIES:
         tally[0] = tally[0] + torch.sum(~keeps).detach()
     if tp is None:

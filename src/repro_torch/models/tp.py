@@ -59,6 +59,21 @@ the gradient and keeps this rank's piece).  Norms, scalars and the
 residual stream stay whole and are computed alike on every rank, so their
 gradients are the same on every rank.
 
+Under fsdp_tp a rank holds its pieces split over "data" as well
+(``held_specs``).  Each leaf comes whole over "data" just before use
+(:func:`gather_from_data`: an all-gather forward), inside the period
+loop's step, a layer at a time, so that under remat it runs again in the
+recompute and no layer's weights outlive their layer; it gives back the
+"model" piece that everything above reads.  Its backward depends on
+what "data" is in the pass (``DataAxis.grad``): a worker axis keeps the
+worker's gradient of the gathered leaf whole over "data" (written to the
+leaf's sink, no collective: the reference's per-worker gradient); rows
+split over "data" are summed by a reduce-scatter that leaves each rank
+its piece; rows that every rank has are narrowed to the piece.  With
+rows split, the sums over rows that the loss couples (the cross-entropy's
+count, the MoE routing's means, capacity and slots) add up the axis's
+ranks (:func:`reduce_from_data`, ``models.moe.route``).
+
 With ``axis=None`` :func:`copy_to_model`, :func:`reduce_from_model`,
 :func:`sum_over_model` and :func:`take` act on the whole tensors as
 identities (``take`` narrows), so that one body runs a layer whole or
@@ -73,7 +88,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.constraints import ModelAxis
+from repro_torch.sharding.constraints import DataAxis, ModelAxis
 
 __all__ = [
     "split_range",
@@ -85,6 +100,10 @@ __all__ = [
     "gather_replicated",
     "take",
     "LayerSlice",
+    "DataSlice",
+    "gather_from_data",
+    "gather_from_data_values",
+    "reduce_from_data",
     "vocab_parallel_embed",
     "vocab_parallel_ce",
     "copy_to_model_plain",
@@ -213,8 +232,10 @@ class _FromOwner(torch.autograd.Function):
     def forward(ctx, local, owner, axis):
         ctx.owner, ctx.axis = owner, axis
         src = dist.get_global_rank(axis.group, owner)
+        # contiguous on every rank: a gathered piece may be a strided view
         buf = (local.contiguous().clone() if axis.rank == owner
-               else torch.empty_like(local))
+               else torch.empty(local.shape, dtype=local.dtype,
+                                device=local.device))
         dist.broadcast(buf, src=src, group=axis.group)
         _count("broadcast", buf, axis.group)
         return buf
@@ -243,6 +264,96 @@ class LayerSlice:
 
     def whole(self, axis: ModelAxis):
         return _FromOwner.apply(self.local, self.owner, axis)
+
+
+def _reduce_scatter(out, x, group):
+    """The sum over ``group`` of its ranks' ``x``, each rank's block of
+    dim 0 into ``out``: ``torch.distributed.reduce_scatter_tensor``.  A
+    release without it raises: the split has no other route to the sum."""
+    if not hasattr(dist, "reduce_scatter_tensor"):
+        raise RuntimeError(
+            f"torch {torch.__version__} offers no reduce_scatter_tensor: "
+            "fsdp_tp's rows split over \"data\" need it")
+    dist.reduce_scatter_tensor(out, x, group=group)
+    _count("reduce_scatter", x, group)
+
+
+def _gather_dim0(x, data: DataAxis):
+    """Every "data" rank's ``x`` concatenated along dim 0 in coordinate
+    order: one all-gather, counted."""
+    from repro_torch.api.mesh_exec import _ALL_GATHER
+
+    xt = x.contiguous()
+    out = torch.empty((data.size * xt.shape[0], *xt.shape[1:]),
+                      dtype=xt.dtype, device=xt.device)
+    _ALL_GATHER(out, xt, group=data.group)
+    _count("all_gather", out, data.group)
+    return out
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, piece, data, dim, sink):
+        ctx.data, ctx.dim, ctx.width, ctx.sink = (data, dim, piece.shape[dim],
+                                                  sink)
+        return _gather_dim0(piece.movedim(dim, 0), data).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, dim, width = ctx.data, ctx.dim, ctx.width
+        mode = data.grad
+        if mode == "keep":
+            if ctx.sink is None:
+                raise RuntimeError("the gradient of a leaf gathered over a "
+                                   "worker axis \"data\" needs its sink")
+            ctx.sink.add_(grad)
+            return None, None, None, None
+        if mode == "narrow":
+            return (grad.narrow(dim, data.rank * width, width), None, None,
+                    None)
+        gt = grad.movedim(dim, 0).contiguous()
+        out = torch.empty((width, *gt.shape[1:]), dtype=grad.dtype,
+                          device=grad.device)
+        _reduce_scatter(out, gt, data.group)
+        return out.movedim(0, dim), None, None, None
+
+
+def gather_from_data(piece, data: DataAxis, dim: int, sink=None):
+    """The ranks' pieces of a held leaf concatenated along ``dim`` over
+    "data", in coordinate order: the leaf whole over "data".  Backward,
+    per ``data.grad``: "keep" adds the gradient to ``sink`` (a buffer of
+    the gathered shape) and gives the piece none; "reduce_scatter" sums
+    the ranks' gradients and keeps this rank's piece; "narrow" keeps this
+    rank's piece of its own."""
+    return _GatherFromData.apply(piece, data, dim, sink)
+
+
+def reduce_from_data(x, data: DataAxis):
+    """The sum over "data" of the ranks' partial ``x`` (a sum over their
+    rows): all-reduce forward, identity backward, so that each rank's
+    gradient is its rows' part (``x`` itself when ``data`` is None)."""
+    return x if data is None else _ReduceFromModel.apply(x, data)
+
+
+def gather_from_data_values(x, data: DataAxis):
+    """Every "data" rank's ``x`` stacked along a new dim 0 in coordinate
+    order: an all-gather of values that carry no gradient (the MoE
+    routing's per-choice counts)."""
+    xt = x.detach()
+    return _gather_dim0(xt, data).view(data.size, *xt.shape)
+
+
+class DataSlice:
+    """A leaf of a layer whose held piece is split over "data": ``piece``
+    (a view of the stacked leaf), the dimension ``dim`` it is split on and
+    the ``sink`` of its gradient (a view of the same layer of the sink, or
+    None); :meth:`whole` gathers it."""
+
+    def __init__(self, piece, dim: int, sink=None):
+        self.piece, self.dim, self.sink = piece, dim, sink
+
+    def whole(self, data: DataAxis):
+        return gather_from_data(self.piece, data, self.dim, self.sink)
 
 
 def split_on(spec, dim: int):

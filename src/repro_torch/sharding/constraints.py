@@ -16,7 +16,10 @@ enters it around a worker's forward and backward pass;
 and hands it down, so that a layer recomputed under activation
 checkpointing (in the backward pass, maybe on another thread) splits as
 its forward pass did.  With no context, or an
-axis of size 1, the models run whole, exactly as before.
+axis of size 1, the models run whole, exactly as before.  Under fsdp_tp
+the axis also carries the "data" axis that the held pieces are split
+over (a :class:`DataAxis`): each layer's leaves come whole over it just
+before use (``models.tp.gather_from_data``).
 
 Logical names:
   "data"   -> batch-like dims      -> ("pod","data") if pod axis else "data"
@@ -42,6 +45,7 @@ from repro_torch.launch.mesh import P
 __all__ = [
     "AbstractMesh",
     "ModelAxis",
+    "DataAxis",
     "model_axis",
     "current_model_axis",
     "maybe_constrain",
@@ -64,18 +68,60 @@ _MODEL_AXIS = contextvars.ContextVar("model_axis", default=None)
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelAxis:
-    """The "model" axis a forward and backward pass is split over:
-    ``group`` (a ``torch.distributed`` process group of the ranks that
-    differ only along "model", in coordinate order), this rank's
-    coordinate ``rank`` on it, its ``size``, and ``held``: the params
-    tree's ``P`` of the pieces this rank holds (``sharding.rules.
-    held_specs``), from which the models read which leaves are split."""
+class DataAxis:
+    """The "data" axis that a rank's held pieces are split over besides
+    "model" (fsdp_tp): ``group`` (the ranks that differ only along
+    "data"), this rank's coordinate ``rank``, its ``size``; ``held``, the
+    params tree's ``P`` of the "data" entries of the held specs (the
+    leaves gathered over the axis before use); ``worker``, whether "data"
+    is a worker axis (each of its ranks another worker); ``rows``,
+    whether the worker's batch rows are split over it (a pass's choice:
+    "data" not a worker axis and its size dividing the rows); ``sinks``,
+    where "data" is a worker axis, the tree of buffers (whole over "data")
+    into which the gradient of each gathered leaf is written."""
 
     group: object
     rank: int
     size: int
     held: object = dataclasses.field(compare=False)
+    worker: bool = True
+    rows: bool = False
+    sinks: object = dataclasses.field(default=None, compare=False)
+
+    @property
+    def grad(self) -> str:
+        """What the gather's backward does with the gradient of a
+        gathered leaf: "keep" (a worker axis: the worker's gradient, whole
+        over "data", written to its sink), "reduce_scatter" (the rows
+        split: the ranks' partial gradients summed, this rank's piece
+        kept) or "narrow" (every rank has every row: this rank's piece)."""
+        if self.worker:
+            return "keep"
+        return "reduce_scatter" if self.rows else "narrow"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The "model" axis a forward and backward pass is split over:
+    ``group`` (a ``torch.distributed`` process group of the ranks that
+    differ only along "model", in coordinate order), this rank's
+    coordinate ``rank`` on it, its ``size``, and ``held``: the params
+    tree's ``P`` of the "model" pieces (``sharding.rules.held_specs``),
+    from which the models read which leaves are split; ``data``: the
+    :class:`DataAxis` of fsdp_tp's pieces, or None."""
+
+    group: object
+    rank: int
+    size: int
+    held: object = dataclasses.field(compare=False)
+    data: Optional[DataAxis] = None
+
+    def rows_axis(self) -> Optional[DataAxis]:
+        """The "data" axis the worker's rows are split over in this pass,
+        or None: where the sums over rows (the loss's count, the MoE
+        routing's means and slots) must add up the axis's ranks."""
+        return self.data if self.data is not None and self.data.rows \
+            else None
 
 
 class model_axis:

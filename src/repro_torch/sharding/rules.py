@@ -30,7 +30,10 @@ Which part of that the model compute follows is :func:`model_split`:
 mixer, or both interleaved; the SwiGLU MLP, the MoE layer or none; token
 inputs), whose forward and backward passes split over "model" as
 ``models.tp`` writes out, so that a rank holds only its pieces
-(:func:`held_specs`); "replicated" for the other families
+(:func:`held_specs`: under fsdp_tp its "data" x "model" pieces, each
+layer's leaves gathered over "data" just before use, as the reference's
+GSPMD gathers them inside its layer scan); "replicated" for the other
+families
 (cross-attention, frame inputs) and for zero3, whose ranks hold every
 leaf whole and compute it whole.
 """
@@ -52,6 +55,7 @@ __all__ = [
     "LocalShard",
     "model_split",
     "held_specs",
+    "only_axis",
     "local_shape",
 ]
 
@@ -178,24 +182,36 @@ def param_specs(mesh, cfg, params_shape, mode: str = "tp"):
         params_shape)
 
 
+def only_axis(spec, axes) -> P:
+    """``spec`` with only the entries on ``axes`` (a name or a tuple of
+    names) kept: an entry that splits over one of them becomes that axis
+    (a tuple entry that names two of them, the tuple of those), the
+    others None."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def keep(entry):
+        names = entry if isinstance(entry, (tuple, list)) else (entry,)
+        kept = tuple(a for a in names if a in axes)
+        return kept if len(kept) > 1 else (kept[0] if kept else None)
+
+    return P(*(keep(e) for e in spec))
+
+
 def held_specs(mesh, cfg, params_shape, mode: str = "tp"):
-    """Tree of ``P``: the piece of each leaf a rank holds and computes
-    with.  Under the "tp" split on a mesh whose "model" axis has more than
-    one rank, the "model" entries of ``param_specs`` (the "data" of
-    fsdp_tp is the aggregation's cut, not the model's); otherwise every
-    leaf whole.  ``params_shape``: the whole tree (meta tensors do)."""
+    """Tree of ``P``: the piece of each leaf a rank holds.  Under the "tp"
+    split on a mesh whose "model" axis has more than one rank, the
+    "model" entries of ``param_specs`` and, under fsdp_tp, its "data"
+    entries too (the reference's ``state_specs``: params and g held in
+    "data" x "model" pieces); otherwise every leaf whole.
+    ``params_shape``: the whole tree (meta tensors do)."""
     split = (model_split(cfg, mode) == "tp"
              and _sizes(mesh).get("model", 1) > 1)
-
-    def held(spec):
-        return P(*(("model" if e == "model" or (isinstance(e, tuple)
-                                                and "model" in e) else None)
-                   if split else None for e in spec))
-
+    axes = ("data", "model") if mode == "fsdp_tp" else ("model",)
     leaves, treedef = tree_flatten(
         param_specs(mesh, cfg, params_shape, mode=mode),
         is_leaf=lambda x: isinstance(x, P))
-    return tree_unflatten(treedef, [held(sp) for sp in leaves])
+    return tree_unflatten(treedef, [
+        only_axis(sp, axes if split else ()) for sp in leaves])
 
 
 def local_shape(mesh, shape, spec) -> tuple:

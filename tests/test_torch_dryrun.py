@@ -310,3 +310,82 @@ def test_smoke_moe_decoders_trace_with_more_ranks_than_experts(arch, mesh):
     extra = train_key(0).numel() + 4  # the generator's state, the step
     assert rec["state_bytes"] == 2 * pieces + extra, (rec["state_bytes"],
                                                        pieces)
+
+
+# a rank's held params and g under fsdp_tp on (16, 16) and (2, 16, 16):
+# the reference's state pieces ("data" x "model")
+FSDP_HELD = {"deepseek_v3_671b": 12_221_253_632, "arctic_480b": 8_567_222_272}
+
+
+@pytest.mark.parametrize("mesh", [((16, 16), ("data", "model")),
+                                  ((2, 16, 16), ("pod", "data", "model"))],
+                         ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", list(FSDP_HELD))
+def test_full_size_fsdp_decoders_hold_data_by_model_pieces(arch, mesh):
+    """deepseek-v3-671b's and arctic-480b's train state under fsdp_tp,
+    from ``abstract_state`` (the dry run's held state): every leaf exactly
+    its ``param_specs`` piece over "data" and "model", params and g
+    12,221,253,632 B (v3) and 8,567,222,272 B (arctic) a rank."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.mesh import P
+    from repro_torch.launch.train import ByzTrainConfig, abstract_state
+    from repro_torch.models import init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import local_shape, param_specs
+
+    cfg = get_config(arch)
+    amesh = AbstractMesh(*mesh)
+    state = abstract_state(cfg, ByzTrainConfig(shard_mode="fsdp_tp"), amesh)
+    whole = tree_flatten(init_params(0, cfg, device="meta"))[0]
+    specs = tree_flatten(param_specs(amesh, cfg, init_params(
+        0, cfg, device="meta"), "fsdp_tp"), is_leaf=lambda x: isinstance(
+            x, P))[0]
+    want = 0
+    for w, sp, h in zip(whole, specs, tree_flatten(state.params)[0]):
+        assert tuple(h.shape) == local_shape(amesh, w.shape, sp), (sp,)
+        want += math.prod(h.shape) * h.element_size()
+    got = sum(x.numel() * x.element_size()
+              for x in tree_flatten((state.params, state.g))[0])
+    assert got == 2 * want == FSDP_HELD[arch], got
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "2x2x2"])
+def test_smoke_fsdp_held_bytes_are_the_param_specs_pieces(mesh):
+    """deepseek-v3's smoke config traced under fsdp_tp (on (2, 2, 2) with
+    the pods the workers, the dry run's multi-pod choice, so that the
+    rows split over "data"): the held state is the sum of its fsdp_tp
+    ``param_specs`` pieces, params and g; the layers are gathered over
+    "data" and, where the rows split, the gradients reduce-scattered."""
+    import math
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.dryrun import mesh_shape, run_one
+    from repro_torch.launch.mesh import P
+    from repro_torch.launch.train import ByzTrainConfig, train_key
+    from repro_torch.models import init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import local_shape, param_specs
+
+    arch = "deepseek_v3_671b"
+    pods = mesh == "2x2x2"
+    tc = ByzTrainConfig(shard_mode="fsdp_tp", n_byz=1,
+                        worker_axes_override=("pod",) if pods else ())
+    rec = run_one(arch, "train_4k", multi_pod=False, smoke=True, mesh=mesh,
+                  train_cfg=tc, out_dir="", verbose=False)
+    assert "not_traced" not in rec, rec
+    cfg = get_smoke_config(arch)
+    amesh = AbstractMesh(*mesh_shape(False, mesh))
+    params = init_params(0, cfg, device="meta")
+    specs = tree_flatten(param_specs(amesh, cfg, params, "fsdp_tp"),
+                         is_leaf=lambda x: isinstance(x, P))[0]
+    pieces = sum(math.prod(local_shape(amesh, w.shape, sp)) * w.element_size()
+                 for w, sp in zip(tree_flatten(params)[0], specs))
+    extra = train_key(0).numel() + 4  # the generator's state, the step
+    assert rec["state_bytes"] == 2 * pieces + extra
+    kinds = rec["collectives"]["bytes"]
+    assert kinds["all-gather"] > 0
+    assert ("reduce-scatter" in kinds) == pods, kinds

@@ -92,3 +92,27 @@ def test_batch_and_cache_specs_match_the_reference(arch, mesh_name):
             assert got == want, (arch, name, waxes)
         ran += 1
     assert ran >= 2
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", list_archs())
+def test_fsdp_held_specs_are_the_reference_state_specs(shapes, arch,
+                                                       mesh_name):
+    """Under fsdp_tp a rank of a split family holds the reference's state
+    pieces (its ``state_specs`` are ``param_specs``): the "data" and the
+    "model" entries; a replicated family holds every leaf whole; under
+    "tp" the "model" entries alone."""
+    sizes, names = MESHES[mesh_name]
+    rmesh, tmesh = RMesh(sizes, names), AbstractMesh(sizes, names)
+    rshape, tshape = shapes[arch]
+    cfg = get_config(arch)
+    want = _ref_specs(R.param_specs(rmesh, ref_config(arch), rshape,
+                                    mode="fsdp_tp"))
+    got = _port_specs(T.held_specs(tmesh, cfg, tshape, "fsdp_tp"))
+    if T.model_split(cfg, "fsdp_tp") == "tp":
+        assert got == want, (arch, mesh_name)
+        assert any("data" in sp for sp in got), arch
+    else:
+        assert all(not any(sp) for sp in got), arch
+    tp = _port_specs(T.held_specs(tmesh, cfg, tshape, "tp"))
+    assert all("data" not in sp for sp in tp), arch

@@ -24,11 +24,14 @@ output shardings pinned to them, as examples/train_marina_pp.py places
 it, so that its step compiles once.  One spawn of 8 ranks replays them
 on a ``TrainTape``.  Each rank holds its pieces under the
 tensor-parallel split (``held_specs``: the "model" entries of
-``param_specs``) and computes its worker's gradient of them only; its
-params and g must have exactly ``param_specs``'s local shapes (the "tp"
-runs) and lie within 1e-5 of each leaf's max-abs of the matching slices
-of the reference's after every step (the port's f32 arithmetic differs
-from XLA's by reduction order), and the ranks along "data" (the same
+``param_specs``, and under fsdp_tp its "data" entries too) and computes
+its worker's gradient of them only (under fsdp_tp each layer's leaves
+gathered over "data", the worker's gradient of them kept whole over
+"data", "data" being the worker axis); its params and g must have
+exactly ``param_specs``'s local shapes (every split run) and lie within
+1e-5 of each leaf's max-abs of the matching slices of the reference's
+after every step (the port's f32 arithmetic differs from XLA's by
+reduction order), and under "tp" the ranks along "data" (the same
 pieces) must equal each other bit for bit.
 
 The port's own draws: the example module (``repro_torch.train_marina_pp
@@ -398,14 +401,17 @@ def replay(reference):
 
 def test_trainer_follows_the_reference_on_eight_ranks(replay):
     ref, results = replay
+    configs = _port_configs()
     for name, _, _ in RUNS:  # both branches: a full round, then differences
         assert [bool(ref[f"{name}_c_{k}"]) for k in range(STEPS)] == \
             [True, False, False, False]
     for rank, out in enumerate(results):
-        for name, _, _ in RUNS:
+        for name, config, _ in RUNS:
             coord, rows, _, replicated, _ = out[name]
             for k, (worst, digest, _) in enumerate(rows):
                 assert worst <= REL, (rank, name, k, worst)
+                if configs[config].shard_mode == "fsdp_tp":
+                    continue  # each rank its own "data" x "model" piece
                 # the ranks along "data" hold the same pieces; where the
                 # compute is replicated, every rank holds the same whole g
                 same = [o[name][1][k][1] for o in results
@@ -415,7 +421,7 @@ def test_trainer_follows_the_reference_on_eight_ranks(replay):
 
 
 @pytest.mark.parametrize("run", ["default-bf", "alie-randk-naive",
-                                 "default-bf-2x4"])
+                                 "default-bf-2x4", "gauss-mean-fsdp"])
 def test_trainer_ranks_hold_param_specs_pieces(replay, run):
     _, results = replay
     for rank, out in enumerate(results):
