@@ -380,11 +380,29 @@ Phases (any failure raises, prints no result and exits non-zero):
     relative and each g^0 piece within 5e-2 of max-abs of a one-rank
     whole run's on the same weights and batch; a full and a difference
     round's ms and peak GB).
-    Phases 11-14 run their splits first (``split_paths``: the one-rank
-    NCCL runs; one process of the whole runs beside one spawn of 4 gloo
-    ranks, then one spawn of 2, shared by every phase), then each phase's
+15. The split of cross-attention (llama-3.2-vision-90b: ``_gqa_split``'s
+    heads with the vision tokens as keys and values, the gate after the
+    sum), every cross-attention gate opened to 0.5: vision-small (the
+    smoke config in f32, remat on, the default plan, a full and a
+    difference round on one ``TrainTape``; "tp" on 2 gloo ranks of a
+    (1, 2) and 4 of a (1, 4) mesh, fsdp_tp on 4 of (pod 1, data 2, model
+    2) with the pod the worker, its rows and vision rows split over
+    "data"; each rank's pieces of params and g within 1e-5 of each leaf's
+    max-abs of the slices of a one-rank NCCL run after every round, held
+    bytes exactly the pieces); vision-wide (llama-3.2-vision-90b at full
+    width, the first 2 positions of its period (cross/dense,
+    attn/dense), bf16, remat, seq 4,096, batch 1: the whole one-rank
+    run's step-0 loss and g^0 in the whole runs' process, then the
+    trainer on 2 gloo ranks of a (1, 2) mesh: held bytes exactly the
+    pieces, the step-0 loss and each g^0 piece against the whole run's
+    at the limits of ``VISION_LOSS_RTOL`` and ``VISION_G0_REL``; a full
+    and a difference round's ms, peak GB, launches and collectives).
+    Phases 11-15 run their splits first (``split_paths``: the one-rank
+    NCCL runs; one process of the whole runs side by side with one spawn
+    of 4 gloo ranks and one of 2, shared by every phase, the wide split
+    runs waiting for the whole runs they are held to), then each phase's
     checks, and print each phase's seconds.
-15. A ``{"kernels": [...]}`` line, then the card line, then the result.
+16. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
@@ -4508,26 +4526,56 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None,
     """train-tp-wide (``cfg``: minitron-8b with 2 layers by default) on
     this rank of the ``mesh_shape`` mesh (a (pod, data, model) one with
     the pods the workers), under ``shard_mode``, on batches of ``rows``
-    (rows, sequence; one row of ``TRAIN_SEQ`` by default): its held bytes
-    and their
-    ``param_specs`` sum, the step-0 loss, each leaf's error of its g^0
-    pieces against the slices of the one-rank g^0 (the file ``g0_path``),
-    per round (``coins``) ms, peak GB, launches and collectives.  With
-    ``routes`` (a model of one MoE layer: the one-rank run's expert ids on
-    step 0's batch, "g0", and on step 1's, "loss0"), g^0 and the step-0
-    loss route as the one-rank run did (``moe.record_routing``), and the
-    step-0 loss is also taken on the split's own routing, whose choices
-    that differ from the one-rank run's are counted."""
-    import contextlib
-
+    (rows, sequence; one row of ``TRAIN_SEQ`` by default): the readings
+    of ``_tp_wide_start`` and, per round (``coins``), ms, peak GB,
+    launches and collectives."""
     import torch
 
     from repro_torch.api.mesh_exec import (collective_counts,
                                            reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.kernels import ops
+
+    out, state, step, batches = _tp_wide_start(
+        g0_path, cfg, len(coins) + 1, routes, mesh_shape, shard_mode, rows)
+    tape = _tp_tape(coins)
+    rounds = []
+    for k, full in enumerate(coins):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        state, ms = _timed(lambda: step(state, batches[k + 1], tape))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in tree_flatten(state.g)[0])
+        rounds.append({"full": full, "ms": ms, "peak_gb": _peak_gb(),
+                       "finite": finite,
+                       "launches": {a: b for a, b in
+                                    ops.launch_counts().items() if b},
+                       "collectives": collective_counts()})
+    return {**out, "rounds": rounds}
+
+
+def _tp_wide_start(g0_path, cfg=None, n_batches=2, routes=None,
+                   mesh_shape=(1, 2), shard_mode="tp", rows=None,
+                   device=None):
+    """A wide split run's start (``_tp_wide_run``'s arguments) on
+    ``device`` (the card by default): its held bytes and their
+    ``param_specs`` sum, the step-0 loss (on the second batch), each
+    leaf's error of its g^0 pieces (the first) against the slices of the
+    one-rank g^0 (the file ``g0_path``); with the state, the train step
+    and the ``n_batches`` batches.  With ``routes`` (a model of one MoE
+    layer: the one-rank run's expert ids on step 0's batch, "g0", and on
+    step 1's, "loss0"), g^0 and the step-0 loss route as the one-rank run
+    did (``moe.record_routing``), and the step-0 loss is also taken on
+    the split's own routing, whose choices that differ from the one-rank
+    run's are counted."""
+    import contextlib
+
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
     from repro_torch.data import synthetic_batch
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import P
     from repro_torch.launch.train import (ByzTrainConfig, initial_state,
                                           make_train_step, train_loss)
@@ -4546,11 +4594,11 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None,
     # the default plan; gamma 3e-4
     tc = ByzTrainConfig(n_byz=0, shard_mode=shard_mode,
                         worker_axes_override=waxes)
-    # the one-rank run's weights and batches: the card's generator
+    # the one-rank run's weights and batches: ``device``'s generator
     batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg,
-                               *(rows or (1, TRAIN_SEQ)))
-               for k in range(len(coins) + 1)]
-    whole = init_params(MODEL_SEED, cfg)
+                               *(rows or (1, TRAIN_SEQ)), device=device)
+               for k in range(n_batches)]
+    whole = _open_gates(init_params(MODEL_SEED, cfg, device=device), cfg)
     specs = tree_flatten(param_specs(mesh, cfg, whole, shard_mode),
                          is_leaf=lambda x: isinstance(x, P))[0]
     want = sum(math.prod(local_shape(mesh, x.shape, sp)) * x.element_size()
@@ -4581,39 +4629,27 @@ def _tp_wide_run(g0_path, cfg=None, coins=TP_WIDE_COINS, routes=None,
         with moe.record_routing() as seen:
             own["loss0_own"] = train_loss(state.params, cfg, batches[1], mesh)
         own["flips"] = _flips(seen, routes["loss0"], "train-tp-v3-wide")
-    step = make_train_step(cfg, mesh, tc)
-    tape = _tp_tape(coins)
-    rounds = []
-    for k, full in enumerate(coins):
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        reset_collective_counts()
-        state, ms = _timed(lambda: step(state, batches[k + 1], tape))
-        finite = all(bool(torch.isfinite(x).all())
-                     for x in tree_flatten(state.g)[0])
-        rounds.append({"full": full, "ms": ms, "peak_gb": _peak_gb(),
-                       "finite": finite,
-                       "launches": {a: b for a, b in
-                                    ops.launch_counts().items() if b},
-                       "collectives": collective_counts()})
-    return {"held": held, "want": want, "loss0": loss0, "g0_errs": g0_errs,
-            "g0_rms": g0_rms, "rounds": rounds, **own}
+    return ({"held": held, "want": want, "loss0": loss0,
+             "g0_errs": g0_errs, "g0_rms": g0_rms, **own}, state,
+            make_train_step(cfg, mesh, tc), batches)
 
 
 def _tp_job(rank, mesh_shape, g0_path):
     """Phase 11's part of a rank of the shared spawns: train-tp-small on
-    ``mesh_shape``, then, given train-minitron-wide's g^0 file,
+    ``mesh_shape`` (None: none) or, given train-minitron-wide's g^0 file,
     train-tp-wide."""
-    out = {"small": _tp_small_run(mesh_shape)}
+    out = {"small": _tp_small_run(mesh_shape)} if mesh_shape else {}
     if g0_path:
         out["wide"] = _tp_wide_run(g0_path)
     return out
 
 
-def _held_slice(whole, mesh_shape, model_rank, cfg=None):
-    """The pieces a rank at ``model_rank`` of ``mesh_shape`` holds of the
-    whole leaves of ``cfg`` (TP_TINY by default; ``held_specs`` on an
-    abstract mesh)."""
+def _held_slice(whole, mesh_shape, model_rank, cfg=None, mode="tp",
+                data_rank=0):
+    """The pieces a rank at ``model_rank`` (and, under fsdp_tp,
+    ``data_rank``) of ``mesh_shape`` ((data, model) or (pod, data,
+    model)) holds of the whole leaves of ``cfg`` (TP_TINY by default;
+    ``held_specs`` under ``mode`` on an abstract mesh)."""
     from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.launch.mesh import P
     from repro_torch.models import ModelConfig, init_params
@@ -4621,16 +4657,20 @@ def _held_slice(whole, mesh_shape, model_rank, cfg=None):
     from repro_torch.sharding.rules import held_specs
 
     cfg = cfg or ModelConfig(**TP_TINY)
-    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    mesh = AbstractMesh(mesh_shape, names)
+    sizes = dict(zip(names, mesh_shape))
+    coords = {"data": data_rank, "model": model_rank}
     specs = tree_flatten(held_specs(mesh, cfg, init_params(
-        0, cfg, device="meta")), is_leaf=lambda x: isinstance(x, P))[0]
+        0, cfg, device="meta"), mode), is_leaf=lambda x: isinstance(x, P))[0]
     out = []
     for x, sp in zip(whole, specs):
         for j, entry in enumerate(sp):
-            if entry == "model":
-                w = x.shape[j] // mesh_shape[1]
-                x = x.take(range(model_rank * w, (model_rank + 1) * w),
-                           axis=j)
+            for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                if axis in coords:  # the first axis of a tuple major
+                    w = x.shape[j] // sizes[axis]
+                    x = x.take(range(coords[axis] * w,
+                                     (coords[axis] + 1) * w), axis=j)
         out.append(x)
     return out
 
@@ -4849,12 +4889,14 @@ V3_KEPT_EXPERTS = (0, 127, 128, 255)
 MOE_TIMEOUT = 900  # seconds for a spawned job
 
 
-def _small_split_run(arch, mesh_shape, coins=MOE_COINS):
-    """The smoke config of ``arch`` on ``mesh_shape`` (its ranks on
-    cuda:0, or one rank) for the rounds ``coins``: per step this rank's
-    params and g leaves (numpy), its held bytes and their ``param_specs``
-    sum, the choices its MoE layers dropped, its launches, collectives
-    and "model" coordinate."""
+def _small_split_run(arch, mesh_shape, coins=MOE_COINS, shard_mode="tp"):
+    """The smoke config of ``arch`` (a cross-attention model's gates
+    opened) on ``mesh_shape`` (its ranks on cuda:0, or one rank; a (pod,
+    data, model) mesh with the pods the workers) under ``shard_mode``
+    for the rounds ``coins``: per step this rank's params and g leaves
+    (numpy), its held bytes and their ``param_specs`` sum, the choices
+    its MoE layers dropped, its launches, collectives, "data" and
+    "model" coordinates and the mode."""
     import torch
 
     from repro_torch.api.mesh_exec import (collective_counts,
@@ -4863,19 +4905,21 @@ def _small_split_run(arch, mesh_shape, coins=MOE_COINS):
     from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import P, make_debug_mesh
+    from repro_torch.launch.mesh import P
     from repro_torch.launch.train import (ByzTrainConfig, initial_state,
                                           make_train_step)
     from repro_torch.models import init_params, moe
     from repro_torch.sharding.rules import local_shape, param_specs
 
     cfg = get_smoke_config(arch).replace(dtype="float32")
-    mesh = make_debug_mesh(*mesh_shape)
-    tc = ByzTrainConfig()  # the default plan and gamma; one honest worker
+    mesh = _split_mesh(mesh_shape)
+    # the default plan and gamma; one honest worker
+    tc = ByzTrainConfig(shard_mode=shard_mode, worker_axes_override=(
+        ("pod",) if len(mesh_shape) == 3 else ()))
     it = (_to(b, "cuda") for b in make_batch_iterator(cfg, 2, 32, seed=3,
                                                       device="cpu"))
-    whole = init_params(0, cfg, device="cpu")
-    specs = tree_flatten(param_specs(mesh, cfg, whole),
+    whole = _open_gates(init_params(0, cfg, device="cpu"), cfg)
+    specs = tree_flatten(param_specs(mesh, cfg, whole, shard_mode),
                          is_leaf=lambda x: isinstance(x, P))[0]
     want = sum(math.prod(local_shape(mesh, x.shape, sp)) * x.element_size()
                for x, sp in zip(tree_flatten(whole)[0], specs))
@@ -4896,6 +4940,7 @@ def _small_split_run(arch, mesh_shape, coins=MOE_COINS):
                    for x in tree_flatten(getattr(state, w))[0])
             for w in ("params", "g")}
     return {"steps": steps, "model": mesh.get_local_rank("model"),
+            "data": mesh.get_local_rank("data"), "mode": shard_mode,
             "held": held, "want": want, "drops": int(drops[0]),
             "launches": {k: v for k, v in ops.launch_counts().items() if v},
             "collectives": collective_counts()}
@@ -5014,13 +5059,14 @@ def _full_split(ref_path, cfg, kept, what):
 
 
 def _moe_job(rank, mesh_shape, g0_path, ref_path, routes):
-    """Phase 12's part of a rank of the shared spawns: train-tp-moe-small on ``mesh_shape``
-    for both configs; given the one-rank runs' files (and train-tp-v3-wide's
-    routings), train-tp-v3-wide and moe-v3-full-experts."""
+    """Phase 12's part of a rank of the shared spawns: train-tp-moe-small
+    on ``mesh_shape`` (None: none) for both configs or, given the one-rank
+    runs' files (and train-tp-v3-wide's routings), train-tp-v3-wide and
+    moe-v3-full-experts."""
     import torch
 
     out = {"small": {arch: _small_split_run(arch, mesh_shape)
-                     for arch in MOE_ARCHS}}
+                     for arch in MOE_ARCHS}} if mesh_shape else {}
     if g0_path:
         from repro_torch.configs import get_config
 
@@ -5181,6 +5227,7 @@ def _check_small(name, archs, whole, jobs, counts, coins, rel, drops,
         one = whole[arch]
         for shape, reports in jobs.items():
             worst = [0.0, 0.0]  # the other leaves', the loose ones'
+            where = ""  # the worst of the other leaves
 
             for rank, rep in enumerate(reports):
                 r = rep["small"][arch]
@@ -5189,7 +5236,8 @@ def _check_small(name, archs, whole, jobs, counts, coins, rel, drops,
                                                    one["steps"])):
                     for leaf, g, w in zip(("params", "g"), got, ref):
                         for i, (a, b) in enumerate(zip(g, _held_slice(
-                                w, shape, r["model"], cfg))):
+                                w, shape, r["model"], cfg, r["mode"],
+                                r["data"]))):
                             if a.shape != b.shape:
                                 raise AssertionError(
                                     f"{what} {leaf} leaf {i}: "
@@ -5198,6 +5246,9 @@ def _check_small(name, archs, whole, jobs, counts, coins, rel, drops,
                             err = float(abs(a - b).max() /
                                         max(abs(b).max(), 1e-30))
                             at = int(names[i] in loose)
+                            if not at and err >= worst[0]:
+                                where = (f"rank {rank} step {k} {leaf} "
+                                         f"leaf {i} ({names[i]})")
                             worst[at] = max(worst[at], err)
                             limit = loose_rel if at else rel
                             if not err <= limit:
@@ -5227,7 +5278,7 @@ def _check_small(name, archs, whole, jobs, counts, coins, rel, drops,
             print(f"    {arch} {shape}: every rank's pieces of params and g "
                   f"within {worst[0]:.3e} of max-abs of the one-rank card "
                   f"run's slices after each of {len(coins)} rounds "
-                  f"[{rel:g}]{held_at}")
+                  f"[{rel:g}] (the worst: {where}){held_at}")
         print(f"    {arch} one-rank run: {one['drops']} choices dropped; "
               f"launches {one['launches']}")
 
@@ -5429,13 +5480,13 @@ def _ssm_whole(card, work):
 
 
 def _ssm_job(rank, mesh_shape, one):
-    """Phase 13's part of a rank of the shared spawns: train-tp-ssm-small on ``mesh_shape``
-    for both configs; given the one-rank runs' files (``one``),
-    train-tp-mamba2-wide and train-tp-jamba-wide."""
+    """Phase 13's part of a rank of the shared spawns: train-tp-ssm-small
+    on ``mesh_shape`` (None: none) for both configs or, given the one-rank
+    runs' files (``one``), train-tp-mamba2-wide and train-tp-jamba-wide."""
     import torch
 
     out = {"small": {arch: _small_split_run(arch, mesh_shape, SSM_COINS)
-                     for arch in SSM_ARCHS}}
+                     for arch in SSM_ARCHS}} if mesh_shape else {}
     if one:
         from repro_torch.configs import get_config
 
@@ -5619,7 +5670,7 @@ def _fsdp_small_run(arch, mesh_shape):
 def _fsdp_job(rank, work):
     """Phase 14's part of a rank of the shared 4-rank spawn: fsdp-small on
     both meshes, then, once the whole runs' process is done
-    (``_wait_whole``), fsdp-wide against the one-rank run's g^0 file in
+    (``_wait_for``), fsdp-wide against the one-rank run's g^0 file in
     ``work``."""
     import torch
 
@@ -5630,9 +5681,7 @@ def _fsdp_job(rank, work):
                      for shape in FSDP_MESHES for arch in FSDP_ARCHS}}
     torch.cuda.empty_cache()
     out["small_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    _wait_whole(work)
-    out["wait_s"] = time.perf_counter() - t
+    out["wait_s"] = _wait_for(work, WHOLE_DONE)
     t = time.perf_counter()
     out["wide"] = _tp_wide_run(
         str(Path(work) / FSDP_WIDE_G0), get_config("minitron_8b",
@@ -5770,17 +5819,149 @@ def fsdp_path(card, jobs, one):
 
 
 # ---------------------------------------------------------------------------
-# the runs of phases 11-14: one process of whole runs, one spawn of 2
-# ranks and one of 4 for every split
+# phase 15: the split of cross-attention (llama-3.2-vision-90b)
 # ---------------------------------------------------------------------------
 
-SPLIT_TIMEOUT = 900  # seconds for a spawned job
-# the whole runs' process marks its end (or its failure) in the work dir
-WHOLE_DONE, WHOLE_FAILED = "whole.done", "whole.failed"
+VISION_ARCH = "llama32_vision_90b"
+# vision-small: the smoke config in f32 (remat on) with its gates opened
+# (VISION_GATE), the default config (plan and gamma; one honest worker), a
+# full round then a difference round, against the one-rank card run:
+# under "tp" on (1, 2) and (1, 4) (a rank's kv piece half a head, gathered
+# by ``take``), under fsdp_tp on (pod 1, data 2, model 2) with the pod the
+# worker (its 2 rows, tokens and vision tokens, split over "data")
+VISION_COINS = (True, False)
+VISION_SMALL = (((1, 2), "tp"), ((1, 4), "tp"), ((1, 2, 2), "fsdp_tp"))
+VISION_REL = 1e-5  # of each leaf's max-abs, against the one-rank card run
+# vision-wide: llama-3.2-vision-90b at full width, the first 2 positions
+# of its period (cross/dense, attn/dense), bf16, remat, gates opened, one
+# row of TRAIN_SEQ, split on (1, 2) against a one-rank whole run of the
+# same weights and batches; its step-0 loss at VISION_LOSS_RTOL and its
+# g^0 pieces at VISION_G0_REL of each leaf's max-abs, each set between
+# the sound reading and the reading with the cross-attention's ``wo``
+# product left unsummed (``tools/vision_split_fault.py`` on the CPU at
+# d_model 256, 4 heads of 64, 2 kv heads, d_ff 512, vocab 4,096, seq
+# 4,096; PERF.md, phase 15)
+VISION_WIDE = dict(n_layers=2, mixer_pattern=("cross", "attn"),
+                   mlp_pattern=("dense", "dense"))
+VISION_WIDE_COINS = (True, False)
+VISION_LOSS_RTOL = 2e-4
+VISION_G0_REL = 5e-2
+
+
+def _vision_wide_whole(card, work):
+    """vision-wide's one-rank whole run (in ``_whole_job``'s process): its
+    step-0 loss and g^0 (written to disk)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import worker_grads
+    from repro_torch.models import apply_train, init_params, param_count
+
+    t0 = _run_header(
+        "vision-wide (one rank, whole)", card,
+        "n_layers 100 -> 2 (the first 2 positions of its period: "
+        "cross/dense, attn/dense), train_4k's batch 256 -> 1 (seq "
+        f"{TRAIN_SEQ}); d_model 8,192, 64 heads, 8 kv heads, d_ff 28,672, "
+        "vocab 128,256, 1,601 vision tokens, bf16, remat on, gates "
+        f"{VISION_GATE}")
+    cfg = get_config(VISION_ARCH, **VISION_WIDE)
+    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
+               for k in range(2)]
+    params = _open_gates(init_params(MODEL_SEED, cfg), cfg)
+    with torch.no_grad():
+        loss0 = float(apply_train(params, cfg, batches[1])[0])
+    g0, ms = _timed(lambda: worker_grads(params, cfg, batches[0]))
+    if not all(bool(torch.isfinite(g).all()) for g in g0):
+        raise AssertionError("vision-wide: the whole g^0 not finite")
+    peak = _peak_gb()
+    path = str(Path(work) / "vision_wide_g0.pt")
+    _save([g.cpu() for g in g0], path)
+    print(f"    {param_count(cfg):,} parameters; loss at x^0 on step 0's "
+          f"batch {loss0:.6f}; g^0 in {ms:.1f} ms, peak {peak:.2f} GB; "
+          f"wall {time.perf_counter() - t0:.3f} s")
+    del params, g0
+    torch.cuda.empty_cache()
+    return {"vision_g0": path, "vision_loss0": loss0}
+
+
+def _vision_job(rank, mesh_shape, one):
+    """Phase 15's part of a rank of the shared spawns: vision-small on
+    ``mesh_shape`` (None: none; the 4-rank spawn: (1, 4) under "tp" and
+    (pod 1, data 2, model 2) under fsdp_tp) or, given the one-rank run's
+    files (``one``), vision-wide."""
+    out = {}
+    for shape, mode in VISION_SMALL:
+        if mesh_shape and math.prod(shape) == math.prod(mesh_shape):
+            out[shape] = _small_split_run(VISION_ARCH, shape, VISION_COINS,
+                                          mode)
+    if one:
+        from repro_torch.configs import get_config
+
+        out["wide"] = _tp_wide_run(
+            one["vision_g0"], get_config(VISION_ARCH, **VISION_WIDE),
+            VISION_WIDE_COINS)
+    return out
+
+
+def vision_path(card, whole, one, jobs):
+    """Phase 15's checks: the split of cross-attention (its runs in
+    ``split_paths``); returns the split runs' launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    print("tensor-parallel split of cross-attention (llama-3.2-vision-90b)")
+    t0 = time.perf_counter()
+    counts = {run: dict.fromkeys(ops.launch_counts(), 0)
+              for run in ("train-vision-small", "train-vision-wide")}
+    print(f"  vision-small on {card}; reduced: none (the smoke config of "
+          f"llama-3.2-vision-90b, f32, remat on, gates {VISION_GATE}; batch "
+          f"2 x 32, {len(VISION_COINS)} rounds on a tape, coins "
+          f"{VISION_COINS}); " + ", ".join(
+              f"{shape} {mode}" for shape, mode in VISION_SMALL)
+          + " (the pod the worker, its rows split over \"data\"), gloo "
+          "ranks on cuda:0, each against the one-rank NCCL run")
+    small = {shape: [{"small": {VISION_ARCH: rep[shape]}}
+                     for rep in jobs[(1, 2) if shape == (1, 2) else (1, 4)]]
+             for shape, _ in VISION_SMALL}
+    _check_small("vision-small", (VISION_ARCH,), whole, small,
+                 counts["train-vision-small"], VISION_COINS, VISION_REL,
+                 drops=False)
+    wide = [rep["wide"] for rep in jobs[(1, 2)]]
+    print(f"  vision-wide on {card}: the trainer on the (1, 2) mesh, 2 gloo "
+          f"ranks on cuda:0, rounds {VISION_WIDE_COINS} (True: full)")
+    _check_wide("vision-wide", wide, one["vision_loss0"], "the one-rank run",
+                VISION_LOSS_RTOL, VISION_G0_REL)
+    for rep in wide:
+        for rnd in rep["rounds"]:
+            for a, b in rnd["launches"].items():
+                counts["train-vision-wide"][a] += b
+    for run, c in counts.items():
+        missing = [k for k in TRAINER_KERNELS if not c.get(k)]
+        if missing:
+            raise AssertionError(f"{run}: {missing} not launched")
+    torch.cuda.empty_cache()
+    print(f"  phase 15 checks {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the runs of phases 11-15: one process of whole runs, one spawn of 2
+# ranks and one of 4 for every split, side by side
+# ---------------------------------------------------------------------------
+
+SPLIT_TIMEOUT = 900  # seconds for a spawned job, or a wait for a marker
+# markers in the work dir: the whole runs' process past phase 12 (the
+# card's peak), at its end, or failed; the 2-rank spawn's wide runs free
+# to start (the whole runs' files and readings in WIDE_FILES), or not
+WHOLE_PEAK, WHOLE_DONE, WHOLE_FAILED = "whole.12", "whole.done", \
+    "whole.failed"
+WIDE_GO, WIDE_STOP, WIDE_FILES = "wide.go", "wide.stop", "wide.pkl"
 
 
 def _whole_job(rank, card, work):
-    """The one-rank whole runs of phases 12-14, in a process of their own:
+    """The one-rank whole runs of phases 12-15, in a process of their own:
     the segments they leave the allocator (cuBLAS's workspaces pin two of
     3.7 GB after the full-experts gradient) stay out of the way of the
     split's ranks, which share the card; the seconds of each phase's."""
@@ -5796,12 +5977,15 @@ def _whole_job(rank, card, work):
         for phase, fn in ((12, lambda: {**_v3_wide_whole(card, work),
                                         **_v3_full_whole(card, work)}),
                           (13, lambda: _ssm_whole(card, work)),
-                          (14, lambda: _fsdp_wide_whole(card, work))):
+                          (14, lambda: _fsdp_wide_whole(card, work)),
+                          (15, lambda: _vision_wide_whole(card, work))):
             t = time.perf_counter()
             out[phase] = fn()
             secs[phase] = time.perf_counter() - t
             gc.collect()
             torch.cuda.empty_cache()
+            if phase == 12:
+                (work / WHOLE_PEAK).touch()
     except BaseException:
         (work / WHOLE_FAILED).touch()
         raise
@@ -5810,60 +5994,79 @@ def _whole_job(rank, card, work):
     return out
 
 
-def _wait_whole(work):
-    """Return once the whole runs' process is done with the card (its
-    marker in ``work``); raise if it failed or never ends."""
-    work, deadline = Path(work), time.monotonic() + SPLIT_TIMEOUT
-    while not (work / WHOLE_DONE).exists():
-        if (work / WHOLE_FAILED).exists():
-            raise RuntimeError("the whole runs' process failed")
-        if time.monotonic() > deadline:
-            raise RuntimeError("the whole runs' process did not end in "
-                               f"{SPLIT_TIMEOUT} s")
+def _wait_for(work, done, failed=WHOLE_FAILED):
+    """Return the seconds until the marker ``done`` is in ``work``; raise
+    if ``failed`` is there first or neither comes in SPLIT_TIMEOUT s."""
+    work, t = Path(work), time.monotonic()
+    while not (work / done).exists():
+        if (work / failed).exists():
+            raise RuntimeError(f"{failed} in {work} (waiting for {done})")
+        if time.monotonic() > t + SPLIT_TIMEOUT:
+            raise RuntimeError(f"no {done} in {work} in {SPLIT_TIMEOUT} s")
         time.sleep(0.2)
+    return time.monotonic() - t
 
 
-def _split_job(rank, mesh_shape, files):
-    """One rank of a shared spawn on ``mesh_shape``: phases 11-13's small
-    split runs and, on 2 ranks, their wide runs (``files``: the whole
-    runs' files and readings); on 4 ranks phase 14's runs too; the
-    seconds of each phase's part."""
+def _split_job(rank, mesh_shape, work):
+    """One rank of a shared spawn on ``mesh_shape``: phases 11-13's and
+    15's small split runs, then on 4 ranks phase 14's (its fsdp-wide
+    waits for the whole runs' process); the 2 ranks start their small
+    runs once the whole runs are past phase 12 (the card's peak) and
+    their wide runs once the 4-rank spawn has ended (the whole runs'
+    files and readings in ``work``); the seconds of each phase's part
+    and of the waits."""
     import gc
+    import pickle
 
     import torch
 
+    work = Path(work)
+    wide = mesh_shape == (1, 2)
+    out, secs, waits = {}, {}, {}
+
+    def run(parts):
+        for phase, fn in parts:
+            t = time.perf_counter()
+            out[phase] = {**out.get(phase, {}), **fn()}
+            secs[phase] = secs.get(phase, 0.0) + time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    if wide:
+        waits["peak"] = _wait_for(work, WHOLE_PEAK)
     torch.set_num_threads(1)
     torch.cuda.set_device(0)
-    wide = mesh_shape == (1, 2)
-    parts = [(11, lambda: _tp_job(rank, mesh_shape,
-                                  files["g0"] if wide else None)),
-             (12, lambda: _moe_job(rank, mesh_shape, *(
-                 (files[12]["g0"], files[12]["ref"], files[12]["wide_routes"])
-                 if wide else (None, None, None)))),
-             (13, lambda: _ssm_job(rank, mesh_shape,
-                                   files[13] if wide else None))]
-    if not wide:
-        parts.append((14, lambda: _fsdp_job(rank, files["work"])))
-    out, secs = {}, {}
-    for phase, fn in parts:
-        t = time.perf_counter()
-        out[phase] = fn()
-        secs[phase] = time.perf_counter() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-    if not wide:  # fsdp-wide waited for the whole runs' process
-        secs[14] -= out[14]["wait_s"]
-    out["seconds"] = secs
+    run([(11, lambda: _tp_job(rank, mesh_shape, None)),
+         (12, lambda: _moe_job(rank, mesh_shape, None, None, None)),
+         (13, lambda: _ssm_job(rank, mesh_shape, None)),
+         (15, lambda: _vision_job(rank, mesh_shape, None))])
+    if wide:
+        waits["go"] = _wait_for(work, WIDE_GO, WIDE_STOP)
+        with open(work / WIDE_FILES, "rb") as f:
+            files = pickle.load(f)
+        run([(11, lambda: _tp_job(rank, None, files["g0"])),
+             (12, lambda: _moe_job(rank, None, files[12]["g0"],
+                                   files[12]["ref"],
+                                   files[12]["wide_routes"])),
+             (13, lambda: _ssm_job(rank, None, files[13])),
+             (15, lambda: _vision_job(rank, None, files[15]))])
+    else:  # last: its fsdp-wide waits for the whole runs' process
+        run([(14, lambda: _fsdp_job(rank, work))])
+        waits["whole"] = out[14]["wait_s"]
+        secs[14] -= waits["whole"]
+    out["seconds"], out["waits"] = secs, waits
     return out
 
 
 def split_paths(card):
-    """The runs of phases 11-14 (their checks follow, phase by phase): the
-    one-rank NCCL runs of the small configs in this process; the one-rank
-    whole runs in a spawned process beside one spawn of 4 gloo ranks on
-    cuda:0, then one spawn of 2, which between them run every phase's
-    split; returns each phase's runs and the seconds its parts took."""
+    """The runs of phases 11-15 (their checks follow, phase by phase): the
+    one-rank NCCL runs of the small configs in this process; then three
+    processes side by side on the card: the one-rank whole runs, one
+    spawn of 4 gloo ranks on cuda:0 and one of 2, which between them run
+    every phase's split (``_split_job``); returns each phase's runs and
+    the seconds its parts took."""
     import os
+    import pickle
     import shutil
 
     import torch
@@ -5871,13 +6074,13 @@ def split_paths(card):
 
     from repro_torch.launch.mesh import spawn
 
-    print("the split runs of phases 11-14")
+    print("the split runs of phases 11-15")
     t0 = time.perf_counter()
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_split"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     torch.cuda.set_device(0)
-    secs = dict.fromkeys((11, 12, 13, 14), 0.0)
+    secs = dict.fromkeys((11, 12, 13, 14, 15), 0.0)
     ones = {}
     dist.init_process_group("nccl", init_method="file://" + os.path.join(
         work, "rendezvous"), rank=0, world_size=1)
@@ -5887,7 +6090,9 @@ def split_paths(card):
                 (12, lambda: {arch: _small_split_run(arch, (1, 1))
                               for arch in MOE_ARCHS}),
                 (13, lambda: {arch: _small_split_run(arch, (1, 1), SSM_COINS)
-                              for arch in SSM_ARCHS})):
+                              for arch in SSM_ARCHS}),
+                (15, lambda: {VISION_ARCH: _small_split_run(
+                    VISION_ARCH, (1, 1), VISION_COINS)})):
             t = time.perf_counter()
             ones[phase] = fn()
             secs[phase] += time.perf_counter() - t
@@ -5896,42 +6101,47 @@ def split_paths(card):
     print(f"  one-rank NCCL runs of the small configs "
           f"{time.perf_counter() - t0:.3f} s")
     env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    walls, whole, jobs = {}, {}, {}
+    walls, runs, errs = {}, {}, {}
 
-    def whole_runs():  # in a thread: the process of the whole runs
+    def run(key, fn, nprocs, args):  # a spawn, waited for in a thread
         t = time.perf_counter()
         try:
-            whole["one"] = spawn(_whole_job, 1, (card, str(work)),
-                                 timeout=SPLIT_TIMEOUT)[0]
+            runs[key] = spawn(fn, nprocs, args, timeout=SPLIT_TIMEOUT)
         except BaseException as err:  # noqa: BLE001 — raised below
-            whole["err"] = err
-        walls["whole"] = time.perf_counter() - t
+            errs[key] = err
+        walls[key] = time.perf_counter() - t
 
     try:
         # the split's ranks' allocators grow their segments in place: the
         # two ranks of moe-v3-full-experts share the card at some 36 GB each
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         sys.stdout.flush()  # ahead of the spawned processes' lines
-        # the whole runs (up to 70 GB on the card) run beside the 4-rank
-        # spawn's small runs (a few GB), whose fsdp-wide waits for their
-        # end (``_wait_whole``); the 2-rank spawn's wide runs follow both
-        thread = threading.Thread(target=whole_runs)
-        thread.start()
-        t = time.perf_counter()
+        # the whole runs (up to 70 GB on the card) beside the small runs
+        # of both spawns (a few GB; the 2-rank one's after phase 12's
+        # whole runs, the peak); the 4-rank spawn's fsdp-wide after the
+        # whole runs, the 2-rank spawn's wide runs after both
+        threads = [threading.Thread(target=run, args=a) for a in (
+            ("whole", _whole_job, 1, (card, str(work))),
+            ((1, 2), _split_job, 2, ((1, 2), str(work))))]
+        for thread in threads:
+            thread.start()
+        go = False
         try:
-            jobs[(1, 4)] = spawn(_split_job, 4, ((1, 4), {"work": str(work)}),
-                                 timeout=SPLIT_TIMEOUT)
+            run((1, 4), _split_job, 4, ((1, 4), str(work)))
+            threads[0].join()
+            if not errs:
+                with open(work / WIDE_FILES, "wb") as f:
+                    pickle.dump({"g0": PHASE10["g0"], **runs["whole"][0]}, f)
+                go = True
         finally:
-            thread.join()
-        walls[(1, 4)] = time.perf_counter() - t
-        if "err" in whole:
-            raise whole["err"]
-        one = whole["one"]
-        t = time.perf_counter()
-        jobs[(1, 2)] = spawn(_split_job, 2, ((1, 2), {"g0": PHASE10["g0"],
-                                                      **one}),
-                             timeout=SPLIT_TIMEOUT)
-        walls[(1, 2)] = time.perf_counter() - t
+            (work / (WIDE_GO if go else WIDE_STOP)).touch()
+            for thread in threads:
+                thread.join()
+        for key in ("whole", (1, 4), (1, 2)):
+            if key in errs:
+                raise errs[key]
+        one = runs["whole"][0]
+        jobs = {shape: runs[shape] for shape in ((1, 4), (1, 2))}
         for phase, v in one["seconds"].items():
             secs[phase] += v
         for reports in jobs.values():
@@ -5946,10 +6156,15 @@ def split_paths(card):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
     torch.cuda.empty_cache()
+    waits = {k: max(r["waits"][k] for reports in jobs.values()
+                    for r in reports if k in r["waits"])
+             for k in ("whole", "peak", "go")}
     print(f"  the whole runs' process {walls['whole']:.3f} s beside the "
           f"(1, 4) spawn {walls[(1, 4)]:.3f} s (its fsdp-wide waited "
-          f"{max(r[14]['wait_s'] for r in jobs[(1, 4)]):.3f} s for them), "
-          f"then the (1, 2) spawn {walls[(1, 2)]:.3f} s; the runs by phase "
+          f"{waits['whole']:.3f} s for them) and the (1, 2) spawn "
+          f"{walls[(1, 2)]:.3f} s (its small runs waited {waits['peak']:.3f}"
+          f" s for the whole runs' phase 12, its wide runs {waits['go']:.3f}"
+          " s for the (1, 4) spawn); the runs by phase "
           "(the slowest rank's part of each spawn, the whole runs' part): "
           + ", ".join(f"{p} {v:.3f} s" for p, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.3f} s")
@@ -5960,7 +6175,8 @@ def split_paths(card):
 
     return {11: (ones[11], of(11)), 12: (ones[12], one[12], of(12)),
             13: (ones[13], one[13], of(13)),
-            14: (of(14)[(1, 4)], one[14])}, secs
+            14: (of(14)[(1, 4)], one[14]),
+            15: (ones[15], one[15], of(15))}, secs
 
 
 def main():
@@ -6060,20 +6276,21 @@ def main():
     # 10. the mesh trainer and the decode launcher
     counts.update(train_path(card))
 
-    # 11-14: the runs of every split (shared spawns), then each phase's
+    # 11-15: the runs of every split (shared spawns), then each phase's
     # checks: 11 the tensor-parallel split and the dry run, 12 the split
     # of the MoE and MLA decoders, 13 of the SSM and hybrid decoders, 14
-    # fsdp_tp's split over "data"
+    # fsdp_tp's split over "data", 15 the split of cross-attention
     runs, secs = split_paths(card)
     for phase, check in ((11, tp_path), (12, moe_tp_path),
-                         (13, ssm_tp_path), (14, fsdp_path)):
+                         (13, ssm_tp_path), (14, fsdp_path),
+                         (15, vision_path)):
         t = time.perf_counter()
         counts.update(check(card, *runs[phase]))
         secs[phase] += time.perf_counter() - t
-    print("phases 11-14, runs and checks: " + ", ".join(
+    print("phases 11-15, runs and checks: " + ", ".join(
         f"phase {p} {v:.3f} s" for p, v in secs.items()))
 
-    # 15. the kernels line, the card, the result
+    # 16. the kernels line, the card, the result
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

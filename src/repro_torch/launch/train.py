@@ -6,9 +6,10 @@ Mapping: a worker is a coordinate of the mesh's worker axes ("pod" and
 runs in manual SPMD, as ``repro_torch.api.mesh_exec`` does: every rank
 calls the step with its held state and the same global batch, and gets
 back its held new state.  What a rank holds is ``sharding.rules.
-held_specs``: under the "tp" split (``model_split``: the token
-decoders, attention (dense, MoE or MLA), Mamba-2 SSM or hybrids of both,
-under "tp" or "fsdp_tp") on a "model" axis of M > 1 ranks, its "model"
+held_specs``: under the "tp" split (``model_split``: the decoders on
+token inputs, attention (dense, MoE or MLA), Mamba-2 SSM or hybrids of
+both, and cross-attention to vision tokens, under "tp" or "fsdp_tp") on
+a "model" axis of M > 1 ranks, its "model"
 piece of every split leaf of params and g (under fsdp_tp its "data" x
 "model" piece, as the reference's ``state_specs`` places its state), and
 the norms and scalars whole; otherwise every leaf whole.
@@ -54,15 +55,16 @@ the norms and scalars whole; otherwise every leaf whole.
 
 Differences from the reference, each for a reason:
 
-- **The split is Megatron's, written out, for the token decoders.**
+- **The split is Megatron's, written out, for token inputs.**
   The reference's GSPMD splits every family's forward and backward pass
   over "model"; the port splits the attention decoders, dense, MoE
-  (arctic) and MLA (deepseek-v3), and the SSM and hybrid decoders
-  (mamba2, jamba: the Mamba-2 mixer's heads, ``in_proj`` and ``conv_w``
-  fetched whole once a layer since their pieces cut across its packed
-  parts) alike (``models.tp``), and runs cross-attention and frame
-  inputs replicated along "model" (``model_split`` says
-  "replicated"): there every rank holds
+  (arctic) and MLA (deepseek-v3), the SSM and hybrid decoders (mamba2,
+  jamba: the Mamba-2 mixer's heads, ``in_proj`` and ``conv_w`` fetched
+  whole once a layer since their pieces cut across its packed parts) and
+  the cross-attention decoder (llama-3.2-vision: the heads split, the
+  vision tokens replicated, the gate after the sum) alike
+  (``models.tp``), and runs frame inputs replicated along "model"
+  (``model_split`` says "replicated"): there every rank holds
   params and g whole, computes its worker's whole gradient, cuts its
   piece for the aggregation and all-gathers the aggregate back.  zero3
   splits no model compute either.  Under "tp" with pod workers every

@@ -16,7 +16,8 @@ stacked over the layers that share it (``Draw.stacked``), as the
 reference stacks its per-layer trees.  On ``device="meta"`` nothing is
 drawn or allocated (``param_count``).
 
-``gqa_forward``, ``mla_forward`` and ``swiglu_forward`` take ``tp``, a
+``gqa_forward``, ``cross_attn_forward``, ``mla_forward`` and
+``swiglu_forward`` take ``tp``, a
 ``sharding.constraints.ModelAxis``, and ``held``, their leaves' held
 specs: with them they run this rank's part of Megatron's column and row
 split on the pieces it holds (``models.tp``); without them, whole.
@@ -335,11 +336,17 @@ def gqa_forward(
     return out @ params["wo"], new_cache
 
 
-def _gqa_split(params, held, cfg, x, positions, causal, window, tp):
+def _gqa_split(params, held, cfg, x, positions, causal, window, tp,
+               kv=None):
     """This rank's part of the attention: the columns [lo, hi) of the
     heads' output that its ``wo`` rows take (equal blocks, as
     ``param_specs`` splits ``wo``), from the query heads that cover them
     and the kv heads those read; the row-split product all-reduced.
+
+    The keys and values come from ``kv``: None for self-attention (from
+    ``x``, RoPE on ``positions``), or the vision tokens (B, n_vis,
+    d_model) of cross-attention (``positions`` None: no RoPE), which
+    enter the split through their own ``copy_to_model``.
 
     When the range is whole heads of whole kv groups (heads and kv heads
     divisible by the axis) each rank computes its own heads on its own
@@ -354,14 +361,17 @@ def _gqa_split(params, held, cfg, x, positions, causal, window, tp):
     h0, h1 = lo // hd, -(-hi // hd)  # the query heads that cover [lo, hi)
     g0, g1 = h0 // rep, (h1 - 1) // rep + 1  # the kv heads they read
     xin = tp_mod.copy_to_model(x, tp)
+    src = xin if kv is None else tp_mod.copy_to_model(kv, tp)
+    S = src.shape[1]
     wq, wk, wv = (tp_mod.take(params[n], 1, held[n], a * hd, b * hd, tp)
                   for n, a, b in (("wq", h0, h1), ("wk", g0, g1),
                                   ("wv", g0, g1)))
     q = (xin @ wq).reshape(B, T, h1 - h0, hd)
-    k = (xin @ wk).reshape(B, T, g1 - g0, hd)
-    v = (xin @ wv).reshape(B, T, g1 - g0, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = (src @ wk).reshape(B, S, g1 - g0, hd)
+    v = (src @ wv).reshape(B, S, g1 - g0, hd)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if h0 % rep or h1 % rep:  # not whole kv groups: one kv head a query head
         idx = torch.arange(h0, h1, device=x.device) // rep - g0
         k, v = k.index_select(2, idx), v.index_select(2, idx)
@@ -386,8 +396,17 @@ def init_cross_attn(rng: Draw, cfg, dtype):
     }
 
 
-def cross_attn_forward(params, cfg, x, vision_kv):
-    """vision_kv: (B, n_vis, d_model) precomputed projected vision states."""
+def cross_attn_forward(params, cfg, x, vision_kv, tp=None, held=None):
+    """vision_kv: (B, n_vis, d_model) precomputed projected vision states.
+    With ``tp`` (a ``ModelAxis``) and ``held`` (the leaves' held specs),
+    this rank's heads on its pieces (``_gqa_split`` with the vision
+    tokens as the keys' and values' source, no RoPE, not causal); the
+    gate scales the sum over the axis, so that its gradient is whole on
+    every rank, as a norm's is."""
+    if tp is not None:
+        out = _gqa_split(params, held, cfg, x, None, False, 0, tp,
+                         kv=vision_kv)
+        return torch.tanh(params["gate"].to(F32)).to(x.dtype) * out
     B, T, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     nv = vision_kv.shape[1]

@@ -25,10 +25,12 @@ Entry points:
 
 Inside a ``sharding.constraints.model_axis`` block on a "model" axis of
 more than one rank, ``apply_train`` runs the tensor-parallel split of a
-token decoder (``models.tp``; ``sharding.rules.model_split``) on this
+decoder on token inputs (``models.tp``; ``sharding.rules.model_split``;
+the VLM's vision tokens too) on this
 rank's pieces (``shard_params``): the embedding and unembedding split on
-the vocabulary, the attention heads (GQA or MLA), the Mamba-2 mixer's
-heads and the MLP's hidden dimension column- then row-split, the MoE
+the vocabulary, the attention heads (GQA, MLA or the cross-attention to
+the vision tokens), the Mamba-2 mixer's heads and the MLP's hidden
+dimension column- then row-split, the MoE
 layer's experts split over the axis, the dense prefix and the MTP head
 split alike.  It reads
 the axis once and hands it to every layer, so that a layer recomputed
@@ -233,7 +235,8 @@ def _apply_layer(
                 held=held and held["mixer"],
             )
     elif mixer == "cross":
-        out = cross_attn_forward(layer["mixer"], cfg, h, vision)
+        out = cross_attn_forward(layer["mixer"], cfg, h, vision, tp=tp,
+                                 held=held and held["mixer"])
         new_cache = cache  # cross-attn kv are static vision tokens: no cache
     elif mixer == "ssm":
         if x.shape[1] == 1 and cache is not None:
@@ -680,11 +683,11 @@ def apply_train(params, cfg: ModelConfig, batch):
 
         if model_split(cfg) != "tp":
             raise ValueError(
-                f"{cfg.name}: the tensor-parallel split covers the token "
-                "decoders only (attention, SSM or both; dense or MoE MLPs), "
-                "not cross-attention or frame inputs "
-                f"(sharding.rules.model_split is {model_split(cfg)!r}); run "
-                "it whole, outside a model_axis block")
+                f"{cfg.name}: the tensor-parallel split covers token inputs "
+                "only (with vision tokens for cross-attention), not frame "
+                f"inputs (sharding.rules.model_split is "
+                f"{model_split(cfg)!r}); run it whole, outside a model_axis "
+                "block")
         held = tp.held
         params = _top_whole_over_data(params, tp)
     # the axes the embedding and the unembedding are split over, or None

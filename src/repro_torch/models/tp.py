@@ -1,6 +1,7 @@
 """Megatron's tensor-parallel split along the mesh's "model" axis, for the
-token decoders (GQA, MHA or MLA attention, the Mamba-2 mixer, the SwiGLU
-MLP, the MoE layer, the token embedding and the unembedding).
+decoders on token inputs (GQA, MHA or MLA attention, the cross-attention
+to vision tokens, the Mamba-2 mixer, the SwiGLU MLP, the MoE layer, the
+token embedding and the unembedding).
 
 The reference's GSPMD splits each worker's forward and backward pass
 over "model" from ``param_specs`` and the activation constraints; here
@@ -19,6 +20,11 @@ split leaf (``sharding.rules.held_specs``) and computes with it:
   :func:`gather_replicated` (all-gather forward; backward, this rank's
   piece of a gradient that is already the same on every rank), and the
   whole result enters the split again through :func:`copy_to_model`;
+* the **cross-attention** (``models.layers.cross_attn_forward``) is
+  the attention's split with the vision tokens, replicated on the axis,
+  as the keys' and values' source (their own :func:`copy_to_model`);
+  its gate scales the sum that :func:`reduce_from_model` gives, so that
+  the gate's gradient is whole on every rank, as a norm's is;
 * the **MoE layer** routes on the replicated tokens, outside the split,
   and each rank runs its own block of experts on the tokens routed to
   them: the dispatched tokens and the gates enter through

@@ -28,13 +28,13 @@ it before the mesh aggregation, ``repro_torch.launch.train``).
 Which part of that the model compute follows is :func:`model_split`:
 "tp" for the token decoders (GQA, MHA or MLA attention, the Mamba-2
 mixer, or both interleaved; the SwiGLU MLP, the MoE layer or none; token
-inputs), whose forward and backward passes split over "model" as
-``models.tp`` writes out, so that a rank holds only its pieces
-(:func:`held_specs`: under fsdp_tp its "data" x "model" pieces, each
-layer's leaves gathered over "data" just before use, as the reference's
-GSPMD gathers them inside its layer scan); "replicated" for the other
-families
-(cross-attention, frame inputs) and for zero3, whose ranks hold every
+inputs) and the cross-attention decoder (text tokens with vision tokens
+as the cross-attention's keys and values), whose forward and backward
+passes split over "model" as ``models.tp`` writes out, so that a rank
+holds only its pieces (:func:`held_specs`: under fsdp_tp its "data" x
+"model" pieces, each layer's leaves gathered over "data" just before
+use, as the reference's GSPMD gathers them inside its layer scan);
+"replicated" for frame inputs and for zero3, whose ranks hold every
 leaf whole and compute it whole.
 """
 from __future__ import annotations
@@ -100,16 +100,17 @@ _FSDP_THRESHOLD = 60e9
 
 def model_split(cfg, mode: str = "tp") -> str:
     """How a worker's forward and backward pass runs over "model": "tp"
-    (Megatron's column and row split, ``models.tp``) for the token
-    decoders whose mixers are attention (GQA or MLA) or Mamba-2 (SSM, and
-    the hybrids of both) and whose MLPs are dense, MoE or none (a dense
-    prefix and an MTP head included), under "tp" or "fsdp_tp";
-    "replicated" (every rank computes the whole pass) for
-    cross-attention and frame inputs, which the split does not cover
-    yet, and under zero3, which by definition splits no model compute."""
-    covered = (set(cfg.mixer_pattern) <= {"attn", "ssm"}
+    (Megatron's column and row split, ``models.tp``) for the decoders
+    whose mixers are attention (GQA or MLA), Mamba-2 (SSM, and the
+    hybrids of both) or cross-attention to vision tokens, whose MLPs are
+    dense, MoE or none (a dense prefix and an MTP head included) and
+    whose inputs are tokens (with vision tokens for cross-attention),
+    under "tp" or "fsdp_tp"; "replicated" (every rank computes the whole
+    pass) for frame inputs, which the split does not cover yet, and
+    under zero3, which by definition splits no model compute."""
+    covered = (set(cfg.mixer_pattern) <= {"attn", "ssm", "cross"}
                and set(cfg.mlp_pattern) <= {"dense", "moe", "none"}
-               and cfg.input_kind == "tokens")
+               and cfg.input_kind in ("tokens", "tokens+vision"))
     return "tp" if covered and mode in ("tp", "fsdp_tp") else "replicated"
 
 

@@ -28,7 +28,8 @@ KEYS = ("arch", "shape", "multi_pod", "mode", "smoke", "mesh", "n_chips",
         "shard_mode", "agg_schedule", "params", "memory", "cost",
         "collectives", "model_split", "rank")
 DENSE = ("minitron_8b", "stablelm_12b", "deepseek_7b", "yi_34b",
-         "arctic_480b", "deepseek_v3_671b", "mamba2_780m", "jamba_v01_52b")
+         "arctic_480b", "deepseek_v3_671b", "mamba2_780m", "jamba_v01_52b",
+         "llama32_vision_90b")
 TIMEOUT = 900
 
 REF_SCRIPT = r"""

@@ -100,8 +100,9 @@ def test_fsdp_held_specs_are_the_reference_state_specs(shapes, arch,
                                                        mesh_name):
     """Under fsdp_tp a rank of a split family holds the reference's state
     pieces (its ``state_specs`` are ``param_specs``): the "data" and the
-    "model" entries; a replicated family holds every leaf whole; under
-    "tp" the "model" entries alone."""
+    "model" entries (the cross-attention decoder's too); the replicated
+    family, frame inputs, holds every leaf whole; under "tp" the "model"
+    entries alone."""
     sizes, names = MESHES[mesh_name]
     rmesh, tmesh = RMesh(sizes, names), AbstractMesh(sizes, names)
     rshape, tshape = shapes[arch]
@@ -113,6 +114,7 @@ def test_fsdp_held_specs_are_the_reference_state_specs(shapes, arch,
         assert got == want, (arch, mesh_name)
         assert any("data" in sp for sp in got), arch
     else:
+        assert cfg.input_kind == "frames", arch
         assert all(not any(sp) for sp in got), arch
     tp = _port_specs(T.held_specs(tmesh, cfg, tshape, "tp"))
     assert all("data" not in sp for sp in tp), arch

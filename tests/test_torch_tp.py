@@ -97,10 +97,11 @@ def _gradchecks(axis):
     return out
 
 
-def _split_vs_whole(mesh, cfg=None):
+def _split_vs_whole(mesh, cfg=None, params=None):
     """(split loss, whole loss, worst piece error of max-abs, pieces'
     shapes, their param_specs local shapes, gather_params bitwise) of
-    ``cfg`` (TINY by default)."""
+    ``cfg`` (TINY by default) at ``params`` (by default
+    ``init_params(0, cfg)``)."""
     from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.launch.train import model_axis_of, train_loss
@@ -111,7 +112,8 @@ def _split_vs_whole(mesh, cfg=None):
     from repro_torch.sharding.rules import local_shape, param_specs
 
     cfg = cfg or ModelConfig(**TINY)
-    params = init_params(0, cfg, device="cpu")
+    if params is None:
+        params = init_params(0, cfg, device="cpu")
     batch = next(make_batch_iterator(cfg, 2, 32, seed=3, device="cpu"))
     treedef = tree_flatten(params)[1]
     whole_g = tree_unflatten(treedef, worker_grads(params, cfg, batch))
@@ -189,7 +191,7 @@ def test_model_split_names_the_dense_family():
 
     dense = {"minitron_8b", "yi_34b", "stablelm_12b", "deepseek_7b",
              "arctic_480b", "deepseek_v3_671b", "mamba2_780m",
-             "jamba_v01_52b"}
+             "jamba_v01_52b", "llama32_vision_90b"}
     for arch in list_archs():
         want = "tp" if arch in dense else "replicated"
         assert model_split(get_config(arch)) == want, arch
@@ -204,11 +206,10 @@ def test_split_refuses_a_family_it_does_not_cover():
     from repro_torch.models import apply_train, init_params
     from repro_torch.sharding.constraints import ModelAxis, model_axis
 
-    cfg = get_smoke_config("llama32_vision_90b").replace(dtype="float32")
+    cfg = get_smoke_config("hubert_xlarge").replace(dtype="float32")
     params = init_params(0, cfg, device="meta")
-    tokens = torch.zeros((1, 8), dtype=torch.int32, device="meta")
-    vision = torch.zeros((1, cfg.n_vision_tokens, cfg.d_model),
-                         device="meta")
+    frames = torch.zeros((1, 8, cfg.frame_dim), device="meta")
+    targets = torch.zeros((1, 8), dtype=torch.int32, device="meta")
     with model_axis(ModelAxis(None, 0, 2, None)):
-        with pytest.raises(ValueError, match="token decoders only"):
-            apply_train(params, cfg, {"tokens": tokens, "vision": vision})
+        with pytest.raises(ValueError, match="not frame inputs"):
+            apply_train(params, cfg, {"frames": frames, "targets": targets})

@@ -6,7 +6,8 @@ One reference subprocess runs the reference's ``make_train_step`` for 4
 steps (p = 0.5: a full round, then three difference rounds) in three
 configurations and writes its draws (the key chain of
 ``src/repro/launch/train.py:282-298``: coins, cohorts, Bucketing orders,
-gauss noise folded per leaf, RandK uniforms per worker and leaf), the
+gauss noise folded per leaf, RandK uniforms per worker and leaf, each
+only where a run reads it), the
 batches, its starting state and every step's params and g to an npz
 file: the default plan (sharded CM, alpha = 2) under bf; alie with
 ``CompressSpec("rand_fraction", 0.5)``, a cohort of 3 and the naive
@@ -72,6 +73,9 @@ TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
 # steps
 ROBUST_STEPS, ROBUST_MARGIN = 25, 0.05
 SPAWN_TIMEOUT = 300
+# a cross-attention model's gates, opened before g^0 (at their initial 0
+# every cross-attention weight has a zero gradient)
+GATE = 0.5
 
 REF_SCRIPT = r"""
 import sys
@@ -110,6 +114,11 @@ batches = [jax.tree_util.tree_map(np.asarray, next(it))
 out = {f"batch_{k}_{n}": v for k, b in enumerate(batches)
        for n, v in b.items()}
 params = init_params(jax.random.PRNGKey(0), cfg)
+if "cross" in cfg.mixer_pattern:  # the cross-attention gates, opened
+    params = dict(params, body=tuple(
+        dict(layer, mixer=dict(layer["mixer"], gate=jnp.full_like(
+            layer["mixer"]["gate"], %(gate)r))) if mixer == "cross" else layer
+        for layer, mixer in zip(params["body"], cfg.mixer_pattern)))
 g0 = jax.jit(jax.grad(lambda p: apply_train(p, cfg, batches[0])[0]))(params)
 leaves = jax.tree_util.tree_leaves(params)
 for i, (x, g) in enumerate(zip(leaves, jax.tree_util.tree_leaves(g0))):
@@ -129,14 +138,18 @@ for name, config, shape in %(runs)r:
             out[f"{name}_sampled_{k}"] = rank < (W if c else C)
             out[f"{name}_order_{k}"] = np.asarray(
                 jax.random.permutation(kg, W))
-            for i, x in enumerate(leaves):
-                out[f"{name}_noise_{k}_{i}"] = np.asarray(jax.random.normal(
-                    jax.random.fold_in(ka, i), (W, x.size), jnp.float32))
-            for w in range(W):
-                ks = jax.random.split(jax.random.fold_in(kq, w), len(leaves))
+            if tc.attack == "gauss":  # the only runs that read the noise
                 for i, x in enumerate(leaves):
-                    out[f"{name}_randk_{k}_{w}_{i}"] = np.asarray(
-                        jax.random.uniform(ks[i], (x.size,)))
+                    out[f"{name}_noise_{k}_{i}"] = np.asarray(
+                        jax.random.normal(jax.random.fold_in(ka, i),
+                                          (W, x.size), jnp.float32))
+            if tc.plan is not None and tc.plan.compress is not None:
+                for w in range(W):  # a compressing plan's uniforms
+                    ks = jax.random.split(jax.random.fold_in(kq, w),
+                                          len(leaves))
+                    for i, x in enumerate(leaves):
+                        out[f"{name}_randk_{k}_{w}_{i}"] = np.asarray(
+                            jax.random.uniform(ks[i], (x.size,)))
         state = MeshTrainState(params=params, g=g0, key=jax.random.PRNGKey(1),
                                step=jnp.int32(0))
         sh = jax.tree_util.tree_map(
@@ -155,6 +168,15 @@ for name, config, shape in %(runs)r:
 np.savez(sys.argv[1], **out)
 print("REF_OK")
 """
+
+
+def open_gates(params, cfg):
+    """The port's ``params`` of ``cfg`` with every cross-attention gate
+    set to ``GATE``, in place, as the reference script opens them."""
+    for pos, mixer in enumerate(cfg.mixer_pattern):
+        if mixer == "cross":
+            params["body"][pos]["mixer"]["gate"].fill_(GATE)
+    return params
 
 
 def model_config(spec):
@@ -179,7 +201,8 @@ def start_reference(path, spec=TINY, runs=RUNS):
     """Start the reference subprocess for the model ``spec`` and ``runs``
     ((name, configuration, mesh shape)); returns a function that waits
     for it and returns the npz path, and the process."""
-    script = REF_SCRIPT % {"cfg": _config_expr(spec), "runs": runs}
+    script = REF_SCRIPT % {"cfg": _config_expr(spec), "runs": runs,
+                           "gate": GATE}
     proc = subprocess.Popen([sys.executable, "-c", script, path],
                             env=ENV, cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -232,6 +255,14 @@ def _port_configs():
         "default-zero3": ByzTrainConfig(gamma=0.3, n_byz=1, attack="bf",
                                         p=0.5, shard_mode="zero3"),
     }
+
+
+def _batch(ref, k):
+    """Batch ``k`` as the reference saved it: every leaf
+    (``batch_{k}_{name}``: the tokens, and a VLM's vision tokens)."""
+    head = f"batch_{k}_"
+    return {key[len(head):]: torch.from_numpy(ref[key]) for key in ref.files
+            if key.startswith(head)}
 
 
 def _replay_job(rank, ref_path, spec=TINY, runs=RUNS, loose=()):
@@ -291,12 +322,15 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS, loose=()):
                               for k in range(STEPS)]),
             order=np.array([ref[f"{name}_order_{k}"] for k in range(STEPS)]),
             attack_noise=[[ref[f"{name}_noise_{k}_{i}"] for i in range(n)]
-                          for k in range(STEPS)],
+                          for k in range(STEPS)]
+            if f"{name}_noise_0_0" in ref.files else None,
             randk=[[[ref[f"{name}_randk_{k}_{w}_{i}"] for i in range(n)]
-                    for w in range(W)] for k in range(STEPS)])
+                    for w in range(W)] for k in range(STEPS)]
+            if f"{name}_randk_0_0_0" in ref.files else None)
         held = [tree_unflatten(treedef, pieces(p)) for p in ("params0", "g0")]
-        toks = ref["batch_1_tokens"]  # a worker's rows: the gradient's
-        batch = {"tokens": torch.from_numpy(toks[:toks.shape[0] // W])}
+        batch = _batch(ref, 1)  # a worker's rows: the gradient's
+        b = next(iter(batch.values())).shape[0] // W
+        batch = {key: v[:b] for key, v in batch.items()}
         reset_collective_counts()
         worker_grads(held[0], cfg, batch,
                      model_axis_of(mesh, cfg, tc.shard_mode))
@@ -306,9 +340,8 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS, loose=()):
         step = make_train_step(cfg, mesh, tc)
         rows, counts = [], None
         for k in range(STEPS):
-            batch = {"tokens": torch.from_numpy(ref[f"batch_{k + 1}_tokens"])}
             reset_collective_counts()
-            state = step(state, batch, tape)
+            state = step(state, _batch(ref, k + 1), tape)
             if k == 1:  # the first difference round
                 counts = collective_counts()
             worst, digest, shaped = [0.0, 0.0], hashlib.sha256(), True

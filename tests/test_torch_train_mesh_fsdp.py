@@ -27,13 +27,17 @@ computation, "keep" and "narrow" against the plain gradient),
 ``moe.route`` on the rows split over two "data" ranks against ``route``
 on all of them (the same slots, keeps, capacity, load-balance and z
 losses, with choices dropped), and the mamba2 and jamba smoke configs
-under fsdp_tp (rows split over "data", and "data" a worker axis), and
-TINY with a vocabulary of 255, which "model" does not divide (its rows
-split over "data"), against the whole model: the same loss, gradient
-pieces within 1e-5 of max-abs.
+under fsdp_tp (rows split over "data", and "data" a worker axis), TINY
+with a vocabulary of 255, which "model" does not divide, and the
+llama-3.2-vision smoke config with its gates opened (both with their
+rows split over "data", the vision rows with the tokens), against the
+whole model: the same loss, gradient pieces within 1e-5 of max-abs; and
+the llama-3.2-vision case once more in f64 (the layers' f32 casts made
+f64), within 1e-12.
 
 JAX runs only in the reference subprocess.
 """
+import contextlib
 import os
 import subprocess
 import sys
@@ -257,44 +261,70 @@ def _route_checks(data):
     return diffs, (got[4], whole[4]), int((~whole[3]).sum())
 
 
-def _split_checks(arch, mesh_shape, waxes):
-    """The smoke config of ``arch`` (f32; or ``SPLIT_MODELS[arch]``)
+def _split_checks(arch, mesh_shape, waxes, f64=False):
+    """The smoke config of ``arch`` (f32, or with ``f64`` its params, its
+    vision rows and the layers' f32 casts f64; or ``SPLIT_MODELS[arch]``)
     under fsdp_tp on this rank of ``mesh_shape``: (its loss, the whole
     model's, the worst error of its gradient pieces of max-abs against
-    the slices of the whole gradient)."""
+    the slices of the whole gradient, that leaf's index and name)."""
     from repro_torch.api.mesh_exec import _local_piece
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.core.tree_utils import tree_flatten, tree_map
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.launch.mesh import P
     from repro_torch.launch.train import (model_axis_of, train_loss,
                                           worker_grads)
     from repro_torch.models import ModelConfig, init_params
     from repro_torch.models.model import shard_params
-    from repro_torch.sharding.rules import held_specs, only_axis
+    from repro_torch.sharding.rules import (_map_with_name, held_specs,
+                                            only_axis)
+
+    from test_torch_train_mesh import open_gates
 
     if arch in SPLIT_MODELS:
         cfg = ModelConfig(**SPLIT_MODELS[arch])
     else:
         cfg = get_smoke_config(arch).replace(dtype="float32")
     mesh = _mesh(mesh_shape)
-    params = init_params(0, cfg, device="cpu")
+    params = open_gates(init_params(0, cfg, device="cpu"), cfg)
     batch = next(make_batch_iterator(cfg, 4, 32, seed=3, device="cpu"))
-    whole = worker_grads(params, cfg, batch)
-    held = shard_params(params, mesh, cfg, "fsdp_tp")
-    axis = model_axis_of(mesh, cfg, "fsdp_tp", waxes)
-    got = worker_grads(held, cfg, batch, axis)
+    if f64:
+        params = tree_map(lambda x: x.double(), params)
+        batch = {k: v.double() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+    with _casts_to(torch.float64 if f64 else None):
+        whole = worker_grads(params, cfg, batch)
+        held = shard_params(params, mesh, cfg, "fsdp_tp")
+        axis = model_axis_of(mesh, cfg, "fsdp_tp", waxes)
+        got = worker_grads(held, cfg, batch, axis)
+        losses = (train_loss(held, cfg, batch, mesh, "fsdp_tp", waxes),
+                  train_loss(params, cfg, batch))
     specs = tree_flatten(held_specs(mesh, cfg, params, "fsdp_tp"),
                          is_leaf=lambda x: isinstance(x, P))[0]
-    worst = 0.0
-    for a, b, sp in zip(got, whole, specs):
+    names = tree_flatten(_map_with_name(lambda name, _: name, params))[0]
+    worst, where = 0.0, None
+    for i, (a, b, sp) in enumerate(zip(got, whole, specs)):
         if axis.data.worker:  # the worker's gradient, whole over "data"
             sp = only_axis(sp, "model")
         b = _local_piece(b, sp, mesh) if any(sp) else b
-        worst = max(worst, float((a - b).abs().max()
-                                 / b.abs().max().clamp(min=1e-30)))
-    return (train_loss(held, cfg, batch, mesh, "fsdp_tp", waxes),
-            train_loss(params, cfg, batch), worst)
+        err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        if err >= worst:
+            worst, where = err, (i, names[i])
+    return (*losses, worst, where)
+
+
+@contextlib.contextmanager
+def _casts_to(dtype):
+    """The model's f32 casts made ``dtype`` inside (None: as they are)."""
+    from repro_torch.models import layers, model
+
+    f32 = layers.F32
+    if dtype is not None:
+        layers.F32 = model.F32 = dtype
+    try:
+        yield
+    finally:
+        layers.F32 = model.F32 = f32
 
 
 def _mesh(shape):
@@ -310,11 +340,19 @@ def _mesh(shape):
 # rows split over "data"
 SPLIT_MODELS = {"tiny_v255": dict(TINY, name="tiny_v255", vocab=255)}
 # the SSM and hybrid decoders under fsdp_tp: the rows split over "data"
-# (pod workers) and "data" a worker axis; and TINY's unsplit vocabulary
+# (pod workers) and "data" a worker axis; TINY's unsplit vocabulary; and
+# the cross-attention decoder (its gates opened), whose vision rows split
+# over "data" with the tokens
 SPLITS = (("mamba2_780m", (1, 2, 2), ("pod",)),
           ("jamba_v01_52b", (1, 2, 2), ("pod",)),
           ("jamba_v01_52b", (2, 2), ("data",)),
-          ("tiny_v255", (1, 2, 2), ("pod",)))
+          ("tiny_v255", (1, 2, 2), ("pod",)),
+          ("llama32_vision_90b", (1, 2, 2), ("pod",)))
+# the cross-attention decoder's split in f64: the split's own error is
+# rounding, so it vanishes there (chip_smoke.py's vision-small runs the
+# same split on (pod 1, data 2, model 2) in f32 on the card)
+VISION_F64 = ("llama32_vision_90b", (1, 2, 2), ("pod",))
+F64_REL = 1e-12
 
 
 def _unit_job(rank):
@@ -328,6 +366,7 @@ def _unit_job(rank):
     out["route"] = _route_checks(_data_axes(2))
     for run in SPLITS:
         out[run] = _split_checks(*run)
+    out["vision-f64"] = _split_checks(*VISION_F64, f64=True)
     dist.barrier()
     return out
 
@@ -349,9 +388,16 @@ def test_data_gather_against_plain_twin(units, size, mode):
 @pytest.mark.parametrize("run", SPLITS, ids=lambda r: f"{r[0]}-{r[2][0]}")
 def test_ssm_and_hybrid_split_over_data_match_the_whole_model(units, run):
     for rank, out in enumerate(units):
-        loss, whole, worst = out[run]
+        loss, whole, worst, where = out[run]
         assert loss == pytest.approx(whole, rel=1e-6), (rank, run)
-        assert worst <= REL, (rank, run, worst)
+        assert worst <= REL, (rank, run, worst, where)
+
+
+def test_vision_split_over_data_in_f64_matches_the_whole_model(units):
+    for rank, out in enumerate(units):
+        loss, whole, worst, where = out["vision-f64"]
+        assert loss == pytest.approx(whole, rel=F64_REL), rank
+        assert worst <= F64_REL, (rank, worst, where)
 
 
 def test_route_on_split_rows_equals_route_on_all_rows(units):
