@@ -8,8 +8,10 @@ Phases (any failure raises, prints no result and exits non-zero):
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of ``src/repro_torch/kernels/csrc`` built with nvcc (one process
    per source, started together; phase 9, which reaches no kernel, runs
-   on the card meanwhile), the build's wall seconds and each source's
-   ptxas registers and spills.
+   on the card meanwhile, then the one-rank whole runs of phases 12-16,
+   which reach no kernel either, in a process of their own, joined
+   before phase 2), the build's wall seconds, each source's nvcc seconds
+   and its ptxas registers and spills.
 2. Kernel vs plain version on the card.  Fig. 1's kernels: row norms
    (pass 1), the fused clip -> Bucketing -> CM/TM pass (bucketed s = 2
    and unbucketed, CM and TM(0.1), clip on and off) and the standalone
@@ -266,8 +268,9 @@ Phases (any failure raises, prints no result and exits non-zero):
     the reference's robustness job, tests/test_mesh_trainer.py:588-635,
     gauss from one of 4 workers, 12 steps, the default plan and mean on
     the naive placement under the tensor-parallel split, and the default
-    plan under zero3, the trainer's replicated branch; then the same job
-    on the CPU in the same ranks: CM below its start and below mean - 0.05
+    plan under zero3 (params and g held in pieces over "model", each
+    layer gathered over it, the worker's 2 rows split over it); then the
+    same job on the CPU in the same ranks: CM below its start and below mean - 0.05
     on both, under either mode; the card against the CPU: the loss on
     batch 0 after each step within rtol 1e-4 at every step for CM and at
     the first two for mean (which takes gauss's noise whole and runs away
@@ -397,12 +400,41 @@ Phases (any failure raises, prints no result and exits non-zero):
     pieces, the step-0 loss and each g^0 piece against the whole run's
     at the limits of ``VISION_LOSS_RTOL`` and ``VISION_G0_REL``; a full
     and a difference round's ms, peak GB, launches and collectives).
-    Phases 11-15 run their splits first (``split_paths``: the one-rank
-    NCCL runs; one process of the whole runs side by side with one spawn
-    of 4 gloo ranks and one of 2, shared by every phase, the wide split
-    runs waiting for the whole runs they are held to), then each phase's
-    checks, and print each phase's seconds.
-16. A ``{"kernels": [...]}`` line, then the card line, then the result.
+16. The split of frame inputs (hubert-xlarge: the frame projection
+    column-split and gathered back to the residual, the masked
+    cross-entropy's sums over rows added up where the rows split):
+    frames-small (the smoke config in f32, remat on, the default plan, a
+    full and a difference round on one ``TrainTape``; "tp" on 2 gloo
+    ranks of a (1, 2) and 4 of a (1, 4) mesh, fsdp_tp on 4 of (pod 1,
+    data 2, model 2) with the pod the worker, its frames, targets and
+    mask split over "data"; each rank's pieces within 1e-5 of each leaf's
+    max-abs of the slices of a one-rank NCCL run after every round, held
+    bytes exactly the pieces); frames-wide (hubert-xlarge at full width,
+    4 of its 48 layers, bf16, remat, one row of 4,096 frames with the
+    pipeline's targets and mask: the whole one-rank run in the whole
+    runs' process, then the trainer on 2 gloo ranks of a (1, 2) mesh:
+    held bytes exactly the pieces, the step-0 loss and each g^0 piece at
+    the limits of ``FRAMES_LOSS_RTOL`` and ``FRAMES_G0_REL``; a full and
+    a difference round's ms, peak GB, launches and collectives).
+17. zero3's pieces over "model" (no Megatron split: each layer gathered
+    over "model" in the period loop, the rows split over it where it
+    divides them): zero3-small (``TINY`` and deepseek-v3's smoke config
+    in f32, the default plan, a full and a difference round on one
+    ``TrainTape``, on 2 gloo ranks of a (1, 2) mesh, the worker's 2 rows
+    split over "model" (v3's MoE routing over split rows), and 4 of a
+    (1, 4) mesh, where 4 does not divide them and every rank runs both;
+    against the one-rank NCCL runs at 1e-5 of max-abs, held bytes
+    exactly the zero3 pieces); zero3-wide (minitron-8b with 2 of 32
+    layers on fsdp-wide's weights and 2 rows x 2,048 on 2 gloo ranks of
+    a (1, 2) mesh, one full round: held bytes exactly the zero3 pieces,
+    the step-0 loss and g^0 against fsdp-wide's whole run at its limits;
+    ms, peak GB and collectives by kind).
+    Phases 11-17 run their splits first (``split_paths``: the one-rank
+    NCCL runs; one spawn of 4 gloo ranks and one of 2 side by side,
+    shared by every phase, the 2-rank spawn's wide runs after the 4-rank
+    spawn; the whole runs they are held to ran beside the build), then
+    each phase's checks, and print each phase's seconds.
+18. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
@@ -414,6 +446,7 @@ import functools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3876,9 +3909,10 @@ ROBUST_TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4,
                    n_kv_heads=2, d_ff=128, vocab=256, remat=False,
                    dtype="float32")
 # the plans: cm and mean run the tensor-parallel split on the (4, 2) mesh;
-# cm-zero3 is cm under zero3, which splits no model compute, so that the
-# trainer's replicated branch (whole gradients cut for the aggregation and
-# the aggregate all-gathered back) runs on the card too; it is held as cm
+# cm-zero3 is cm under zero3, which splits no model compute: params and g
+# held in pieces over "model", each layer gathered over it in the pass,
+# the worker's 2 rows split over it and the gathered leaves' gradients
+# reduce-scattered; it is held as cm
 ROBUST_PLANS = ("cm", "mean", "cm-zero3")
 EXAMPLE_STEPS = 8
 # decode-minitron: decode_32k's cache with its batch of 128 cut to 8
@@ -4153,7 +4187,7 @@ def _robust_job(rank, devices):
 def train_robust(card):
     """train-robust-8rank: eight gloo ranks on cuda:0, then the same job on
     the CPU in the same ranks; returns the card run's launches summed over
-    the ranks: of cm and mean (the split), and of cm-zero3 (replicated)."""
+    the ranks: of cm and mean (the split), and of cm-zero3."""
     from repro_torch.launch.mesh import spawn
 
     t0 = _run_header(
@@ -4890,8 +4924,8 @@ MOE_TIMEOUT = 900  # seconds for a spawned job
 
 
 def _small_split_run(arch, mesh_shape, coins=MOE_COINS, shard_mode="tp"):
-    """The smoke config of ``arch`` (a cross-attention model's gates
-    opened) on ``mesh_shape`` (its ranks on cuda:0, or one rank; a (pod,
+    """The smoke config of ``arch`` (``_small_config``; a cross-attention
+    model's gates opened) on ``mesh_shape`` (its ranks on cuda:0, or one rank; a (pod,
     data, model) mesh with the pods the workers) under ``shard_mode``
     for the rounds ``coins``: per step this rank's params and g leaves
     (numpy), its held bytes and their ``param_specs`` sum, the choices
@@ -4901,7 +4935,6 @@ def _small_split_run(arch, mesh_shape, coins=MOE_COINS, shard_mode="tp"):
 
     from repro_torch.api.mesh_exec import (collective_counts,
                                            reset_collective_counts)
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.kernels import ops
@@ -4911,7 +4944,7 @@ def _small_split_run(arch, mesh_shape, coins=MOE_COINS, shard_mode="tp"):
     from repro_torch.models import init_params, moe
     from repro_torch.sharding.rules import local_shape, param_specs
 
-    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cfg = _small_config(arch)
     mesh = _split_mesh(mesh_shape)
     # the default plan and gamma; one honest worker
     tc = ByzTrainConfig(shard_mode=shard_mode, worker_axes_override=(
@@ -5215,13 +5248,12 @@ def _check_small(name, archs, whole, jobs, counts, coins, rel, drops,
     key on their path), held bytes, the MoE layers' dropped choices (where
     ``drops``), the trainer's kernels on every rank; adds the launches to
     ``counts``."""
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.models import init_params
     from repro_torch.sharding.rules import _map_with_name
 
     for arch in archs:
-        cfg = get_smoke_config(arch).replace(dtype="float32")
+        cfg = _small_config(arch)
         names = tree_flatten(_map_with_name(
             lambda leaf, _: leaf, init_params(0, cfg, device="meta")))[0]
         one = whole[arch]
@@ -5423,41 +5455,36 @@ JAMBA_G_RMS = 0.15
 SSM_TIMEOUT = 900  # seconds for a spawned job
 
 
-def _mamba2_wide_whole(card, work):
-    """train-tp-mamba2-wide's one-rank whole run in this process: its
-    step-0 loss and g^0 (written to disk); returns the file and the
-    loss."""
+def _wide_whole(card, work, what, cfg, reduced, key, rows=None):
+    """A wide split run's one-rank whole run (in ``_whole_job``'s
+    process), on the weights and batches its split starts from
+    (``_tp_wide_start``; gates opened): the step-0 loss (on the second
+    batch) and g^0 (on the first, written to disk); returns {``key``_g0:
+    the file, ``key``_loss0: the loss}."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
     from repro_torch.launch.train import worker_grads
     from repro_torch.models import apply_train, init_params, param_count
 
-    t0 = _run_header(
-        "train-tp-mamba2-wide (one rank, whole)", card,
-        f"n_layers 48 -> 4, train_4k's batch 256 -> 1 (seq {TRAIN_SEQ}); "
-        "d_model 1,536, d_inner 3,072, 48 heads of 64, state 128, chunk "
-        "256, vocab 50,280, bf16, remat on")
-    cfg = get_config("mamba2_780m", **MAMBA2_WIDE)
-    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
-               for k in range(2)]
-    params = init_params(MODEL_SEED, cfg)
+    t0 = _run_header(f"{what} (one rank, whole)", card, reduced)
+    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg,
+                               *(rows or (1, TRAIN_SEQ))) for k in range(2)]
+    params = _open_gates(init_params(MODEL_SEED, cfg), cfg)
     with torch.no_grad():
         loss0 = float(apply_train(params, cfg, batches[1])[0])
     g0, ms = _timed(lambda: worker_grads(params, cfg, batches[0]))
     if not all(bool(torch.isfinite(g).all()) for g in g0):
-        raise AssertionError("train-tp-mamba2-wide: the whole g^0 not "
-                             "finite")
+        raise AssertionError(f"{what}: the whole g^0 not finite")
     peak = _peak_gb()
-    path = str(work / "mamba2_wide_g0.pt")
+    path = str(Path(work) / f"{key}_wide_g0.pt")
     _save([g.cpu() for g in g0], path)
     print(f"    {param_count(cfg):,} parameters; loss at x^0 on step 0's "
           f"batch {loss0:.6f}; g^0 in {ms:.1f} ms, peak {peak:.2f} GB; "
           f"wall {time.perf_counter() - t0:.3f} s")
     del params, g0
     torch.cuda.empty_cache()
-    return {"mamba2_g0": path, "mamba2_loss0": loss0}
+    return {f"{key}_g0": path, f"{key}_loss0": loss0}
 
 
 def _ssm_whole(card, work):
@@ -5465,7 +5492,12 @@ def _ssm_whole(card, work):
     train-tp-mamba2-wide's and train-tp-jamba-wide's."""
     from repro_torch.configs import get_config
 
-    out = _mamba2_wide_whole(card, Path(work))
+    out = _wide_whole(
+        card, work, "train-tp-mamba2-wide",
+        get_config("mamba2_780m", **MAMBA2_WIDE),
+        f"n_layers 48 -> 4, train_4k's batch 256 -> 1 (seq {TRAIN_SEQ}); "
+        "d_model 1,536, d_inner 3,072, 48 heads of 64, state 128, chunk "
+        "256, vocab 50,280, bf16, remat on", "mamba2")
     t0 = _run_header(
         "train-tp-jamba-wide (one rank, whole)", card,
         "n_layers 32 -> 4 (the first 4 positions of its period: ssm/dense, "
@@ -5569,10 +5601,11 @@ FSDP_WIDE = dict(n_layers=2)
 FSDP_WIDE_ROWS = (2, 2048)
 FSDP_WIDE_MESH = (1, 2, 2)
 FSDP_WIDE_COINS = (True, False)
-FSDP_WIDE_G0 = "fsdp_wide_g0.pt"  # the one-rank run's g^0, in the work dir
 
 
-def _fsdp_config(arch):
+def _small_config(arch):
+    """The small runs' config of ``arch``: the smoke config in f32, or
+    ``TP_TINY`` for "tiny"."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import ModelConfig
 
@@ -5606,7 +5639,7 @@ def _fsdp_small_run(arch, mesh_shape):
                                             local_shape, only_axis,
                                             param_specs)
 
-    cfg = _fsdp_config(arch)
+    cfg = _small_config(arch)
     mesh = _split_mesh(mesh_shape)
     waxes = ("pod",) if len(mesh_shape) == 3 else ()
     workers = mesh_shape[0]
@@ -5667,62 +5700,36 @@ def _fsdp_small_run(arch, mesh_shape):
                        mesh.get_local_rank("model"))}
 
 
-def _fsdp_job(rank, work):
-    """Phase 14's part of a rank of the shared 4-rank spawn: fsdp-small on
-    both meshes, then, once the whole runs' process is done
-    (``_wait_for``), fsdp-wide against the one-rank run's g^0 file in
-    ``work``."""
-    import torch
-
+def _fsdp_job(rank, one=None):
+    """Phase 14's part of a rank of the shared 4-rank spawn: fsdp-wide
+    against the one-rank run's g^0 file (``one``) or, without it,
+    fsdp-small on both meshes."""
     from repro_torch.configs import get_config
 
     t = time.perf_counter()
+    if one:
+        out = {"wide": _tp_wide_run(
+            one["fsdp_g0"], get_config("minitron_8b", **FSDP_WIDE),
+            FSDP_WIDE_COINS, mesh_shape=FSDP_WIDE_MESH, shard_mode="fsdp_tp",
+            rows=FSDP_WIDE_ROWS)}
+        out["wide_s"] = time.perf_counter() - t
+        return out
     out = {"small": {(arch, shape): _fsdp_small_run(arch, shape)
                      for shape in FSDP_MESHES for arch in FSDP_ARCHS}}
-    torch.cuda.empty_cache()
     out["small_s"] = time.perf_counter() - t
-    out["wait_s"] = _wait_for(work, WHOLE_DONE)
-    t = time.perf_counter()
-    out["wide"] = _tp_wide_run(
-        str(Path(work) / FSDP_WIDE_G0), get_config("minitron_8b",
-                                                   **FSDP_WIDE),
-        FSDP_WIDE_COINS, mesh_shape=FSDP_WIDE_MESH, shard_mode="fsdp_tp",
-        rows=FSDP_WIDE_ROWS)
-    out["wide_s"] = time.perf_counter() - t
     return out
 
 
 def _fsdp_wide_whole(card, work):
-    """fsdp-wide's one-rank whole run: its step-0 loss and g^0 (written to
-    disk) on the same weights and batches."""
-    import torch
-
+    """fsdp-wide's one-rank whole run (``_wide_whole``), which zero3-wide
+    is held to as well."""
     from repro_torch.configs import get_config
-    from repro_torch.data import synthetic_batch
-    from repro_torch.launch.train import worker_grads
-    from repro_torch.models import apply_train, init_params
 
-    t0 = _run_header(
-        "fsdp-wide (one rank, whole)", card,
+    return _wide_whole(
+        card, work, "fsdp-wide", get_config("minitron_8b", **FSDP_WIDE),
         f"n_layers 32 -> 2, train_4k's batch 256 x 4,096 -> "
-        f"{FSDP_WIDE_ROWS[0]} x {FSDP_WIDE_ROWS[1]:,}; bf16, remat on")
-    cfg = get_config("minitron_8b", **FSDP_WIDE)
-    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, *FSDP_WIDE_ROWS)
-               for k in range(2)]
-    params = init_params(MODEL_SEED, cfg)
-    with torch.no_grad():
-        loss0 = float(apply_train(params, cfg, batches[1])[0])
-    g0, ms = _timed(lambda: worker_grads(params, cfg, batches[0]))
-    if not all(bool(torch.isfinite(g).all()) for g in g0):
-        raise AssertionError("fsdp-wide: the whole g^0 not finite")
-    peak = _peak_gb()
-    path = str(work / FSDP_WIDE_G0)
-    _save([g.cpu() for g in g0], path)
-    print(f"    loss at x^0 on step 0's batch {loss0:.6f}; g^0 in {ms:.1f} "
-          f"ms, peak {peak:.2f} GB; wall {time.perf_counter() - t0:.3f} s")
-    del params, g0
-    torch.cuda.empty_cache()
-    return {"fsdp_g0": path, "fsdp_loss0": loss0}
+        f"{FSDP_WIDE_ROWS[0]} x {FSDP_WIDE_ROWS[1]:,}; bf16, remat on",
+        "fsdp", FSDP_WIDE_ROWS)
 
 
 def fsdp_path(card, jobs, one):
@@ -5849,40 +5856,16 @@ VISION_G0_REL = 5e-2
 
 
 def _vision_wide_whole(card, work):
-    """vision-wide's one-rank whole run (in ``_whole_job``'s process): its
-    step-0 loss and g^0 (written to disk)."""
-    import torch
-
+    """vision-wide's one-rank whole run (``_wide_whole``)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import synthetic_batch
-    from repro_torch.launch.train import worker_grads
-    from repro_torch.models import apply_train, init_params, param_count
 
-    t0 = _run_header(
-        "vision-wide (one rank, whole)", card,
+    return _wide_whole(
+        card, work, "vision-wide", get_config(VISION_ARCH, **VISION_WIDE),
         "n_layers 100 -> 2 (the first 2 positions of its period: "
         "cross/dense, attn/dense), train_4k's batch 256 -> 1 (seq "
         f"{TRAIN_SEQ}); d_model 8,192, 64 heads, 8 kv heads, d_ff 28,672, "
         "vocab 128,256, 1,601 vision tokens, bf16, remat on, gates "
-        f"{VISION_GATE}")
-    cfg = get_config(VISION_ARCH, **VISION_WIDE)
-    batches = [synthetic_batch(MODEL_SEED + 1 + k, cfg, 1, TRAIN_SEQ)
-               for k in range(2)]
-    params = _open_gates(init_params(MODEL_SEED, cfg), cfg)
-    with torch.no_grad():
-        loss0 = float(apply_train(params, cfg, batches[1])[0])
-    g0, ms = _timed(lambda: worker_grads(params, cfg, batches[0]))
-    if not all(bool(torch.isfinite(g).all()) for g in g0):
-        raise AssertionError("vision-wide: the whole g^0 not finite")
-    peak = _peak_gb()
-    path = str(Path(work) / "vision_wide_g0.pt")
-    _save([g.cpu() for g in g0], path)
-    print(f"    {param_count(cfg):,} parameters; loss at x^0 on step 0's "
-          f"batch {loss0:.6f}; g^0 in {ms:.1f} ms, peak {peak:.2f} GB; "
-          f"wall {time.perf_counter() - t0:.3f} s")
-    del params, g0
-    torch.cuda.empty_cache()
-    return {"vision_g0": path, "vision_loss0": loss0}
+        f"{VISION_GATE}", "vision")
 
 
 def _vision_job(rank, mesh_shape, one):
@@ -5904,67 +5887,258 @@ def _vision_job(rank, mesh_shape, one):
     return out
 
 
-def vision_path(card, whole, one, jobs):
-    """Phase 15's checks: the split of cross-attention (its runs in
-    ``split_paths``); returns the split runs' launch counts."""
+def _family_path(phase, name, arch, small, coins, rel, card, whole, one,
+                 jobs, wide, reduced):
+    """The checks of a family's split (phases 15-16): ``name``-small,
+    ``_small_split_run`` of ``arch`` on each (mesh, mode) of ``small``
+    against the one-rank NCCL run (``whole``), and ``name``-wide, the
+    2-rank spawn's ``_tp_wide_run`` (``jobs``' "wide") against the
+    one-rank whole run's ``wide`` = (loss key of ``one``, loss rtol, g^0
+    limit); returns the runs' launch counts."""
     import torch
 
     from repro_torch.kernels import ops
 
-    print("tensor-parallel split of cross-attention (llama-3.2-vision-90b)")
     t0 = time.perf_counter()
     counts = {run: dict.fromkeys(ops.launch_counts(), 0)
-              for run in ("train-vision-small", "train-vision-wide")}
-    print(f"  vision-small on {card}; reduced: none (the smoke config of "
-          f"llama-3.2-vision-90b, f32, remat on, gates {VISION_GATE}; batch "
-          f"2 x 32, {len(VISION_COINS)} rounds on a tape, coins "
-          f"{VISION_COINS}); " + ", ".join(
-              f"{shape} {mode}" for shape, mode in VISION_SMALL)
+              for run in (f"train-{name}-small", f"train-{name}-wide")}
+    print(f"  {name}-small on {card}; reduced: {reduced}; " + ", ".join(
+        f"{shape} {mode}" for shape, mode in small)
           + " (the pod the worker, its rows split over \"data\"), gloo "
           "ranks on cuda:0, each against the one-rank NCCL run")
-    small = {shape: [{"small": {VISION_ARCH: rep[shape]}}
-                     for rep in jobs[(1, 2) if shape == (1, 2) else (1, 4)]]
-             for shape, _ in VISION_SMALL}
-    _check_small("vision-small", (VISION_ARCH,), whole, small,
-                 counts["train-vision-small"], VISION_COINS, VISION_REL,
-                 drops=False)
-    wide = [rep["wide"] for rep in jobs[(1, 2)]]
-    print(f"  vision-wide on {card}: the trainer on the (1, 2) mesh, 2 gloo "
-          f"ranks on cuda:0, rounds {VISION_WIDE_COINS} (True: full)")
-    _check_wide("vision-wide", wide, one["vision_loss0"], "the one-rank run",
-                VISION_LOSS_RTOL, VISION_G0_REL)
-    for rep in wide:
+    by_shape = {shape: [{"small": {arch: rep[shape]}}
+                        for rep in jobs[(1, 2) if shape == (1, 2)
+                                        else (1, 4)]]
+                for shape, _ in small}
+    _check_small(f"{name}-small", (arch,), whole, by_shape,
+                 counts[f"train-{name}-small"], coins, rel, drops=False)
+    for shape, mode in small:  # the rows split over "data": summed
+        for rep in by_shape[shape]:
+            colls = rep["small"][arch]["collectives"]
+            if len(shape) == 3 and "reduce_scatter" not in colls:
+                raise AssertionError(f"{name}-small {shape}: rows split "
+                                     "over \"data\" and no reduce-scatter")
+    reps = [rep["wide"] for rep in jobs[(1, 2)]]
+    key, loss_rtol, g0_rel = wide
+    print(f"  {name}-wide on {card}: the trainer on the (1, 2) mesh, 2 gloo "
+          f"ranks on cuda:0, rounds {tuple(r['full'] for r in reps[0]['rounds'])}"
+          " (True: full)")
+    _check_wide(f"{name}-wide", reps, one[key], "the one-rank run",
+                loss_rtol, g0_rel)
+    for rep in reps:
         for rnd in rep["rounds"]:
             for a, b in rnd["launches"].items():
-                counts["train-vision-wide"][a] += b
+                counts[f"train-{name}-wide"][a] += b
     for run, c in counts.items():
         missing = [k for k in TRAINER_KERNELS if not c.get(k)]
         if missing:
             raise AssertionError(f"{run}: {missing} not launched")
     torch.cuda.empty_cache()
-    print(f"  phase 15 checks {time.perf_counter() - t0:.3f} s")
+    print(f"  phase {phase} checks {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def vision_path(card, whole, one, jobs):
+    """Phase 15's checks: the split of cross-attention (its runs in
+    ``split_paths``); returns the split runs' launch counts."""
+    print("tensor-parallel split of cross-attention (llama-3.2-vision-90b)")
+    return _family_path(
+        15, "vision", VISION_ARCH, VISION_SMALL, VISION_COINS, VISION_REL,
+        card, whole, one, jobs,
+        ("vision_loss0", VISION_LOSS_RTOL, VISION_G0_REL),
+        "none (the smoke config of llama-3.2-vision-90b, f32, remat on, "
+        f"gates {VISION_GATE}; batch 2 x 32, {len(VISION_COINS)} rounds on "
+        f"a tape, coins {VISION_COINS})")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the split of frame inputs (hubert-xlarge)
+# ---------------------------------------------------------------------------
+
+FRAMES_ARCH = "hubert_xlarge"
+# frames-small: the smoke config in f32 (remat on), the default config, a
+# full round then a difference round, against the one-rank card run:
+# under "tp" on (1, 2) and (1, 4), under fsdp_tp on (pod 1, data 2, model
+# 2) with the pod the worker (its 2 rows of frames, targets and mask split
+# over "data": each rank's count of kept positions differs, and the
+# cross-entropy adds them up)
+FRAMES_COINS = (True, False)
+FRAMES_SMALL = (((1, 2), "tp"), ((1, 4), "tp"), ((1, 2, 2), "fsdp_tp"))
+FRAMES_REL = 1e-5  # of each leaf's max-abs, against the one-rank card run
+# frames-wide: hubert-xlarge at full width, the first 4 of its 48 layers,
+# bf16, remat, one row of TRAIN_SEQ frames with the pipeline's targets and
+# mask, split on (1, 2) against a one-rank whole run of the same weights
+# and batches; its step-0 loss at FRAMES_LOSS_RTOL and its g^0 pieces at
+# FRAMES_G0_REL of each leaf's max-abs, set between the sound reading and
+# the reading with the frame projection's gather summing its gradient over
+# "model" (tests/test_torch_wide_limits.py on the CPU at d_model 256;
+# PERF.md, phase 16)
+FRAMES_WIDE = dict(n_layers=4)
+FRAMES_WIDE_COINS = (True, False)
+FRAMES_LOSS_RTOL = 2e-4
+FRAMES_G0_REL = 5e-2
+
+
+def _frames_wide_whole(card, work):
+    """frames-wide's one-rank whole run (``_wide_whole``)."""
+    from repro_torch.configs import get_config
+
+    return _wide_whole(
+        card, work, "frames-wide", get_config(FRAMES_ARCH, **FRAMES_WIDE),
+        "n_layers 48 -> 4, train_4k's batch 256 -> 1 (seq "
+        f"{TRAIN_SEQ} frames); d_model 1,280, 16 heads of 80, d_ff 5,120, "
+        "frame_dim 512, vocab 504, not causal, 65% of the positions "
+        "masked in, bf16, remat on", "frames")
+
+
+def _frames_job(rank, mesh_shape, one):
+    """Phase 16's part of a rank of the shared spawns: frames-small on
+    ``mesh_shape`` (None: none; the 4-rank spawn: (1, 4) under "tp" and
+    (pod 1, data 2, model 2) under fsdp_tp) or, given the one-rank run's
+    files (``one``), frames-wide."""
+    out = {}
+    for shape, mode in FRAMES_SMALL:
+        if mesh_shape and math.prod(shape) == math.prod(mesh_shape):
+            out[shape] = _small_split_run(FRAMES_ARCH, shape, FRAMES_COINS,
+                                          mode)
+    if one:
+        from repro_torch.configs import get_config
+
+        out["wide"] = _tp_wide_run(
+            one["frames_g0"], get_config(FRAMES_ARCH, **FRAMES_WIDE),
+            FRAMES_WIDE_COINS)
+    return out
+
+
+def frames_path(card, whole, one, jobs):
+    """Phase 16's checks: the split of frame inputs (its runs in
+    ``split_paths``); returns the split runs' launch counts."""
+    print("tensor-parallel split of frame inputs (hubert-xlarge)")
+    return _family_path(
+        16, "frames", FRAMES_ARCH, FRAMES_SMALL, FRAMES_COINS, FRAMES_REL,
+        card, whole, one, jobs,
+        ("frames_loss0", FRAMES_LOSS_RTOL, FRAMES_G0_REL),
+        "none (the smoke config of hubert-xlarge, f32, remat on; batch 2 "
+        f"x 32 frames, {len(FRAMES_COINS)} rounds on a tape, coins "
+        f"{FRAMES_COINS})")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: zero3's pieces over "model"
+# ---------------------------------------------------------------------------
+
+ZERO3_ARCHS = ("tiny", "deepseek_v3_671b")
+# zero3-small: the default config, a full round then a difference round
+# (v3's one-rank run is phase 12's, on the same coins), on (1, 2), the
+# worker's 2 rows split over "model", and on (1, 4), where 4 does not
+# divide them and every rank runs both, against the one-rank card run
+ZERO3_COINS = MOE_COINS
+ZERO3_SMALL = ((1, 2), (1, 4))
+ZERO3_REL = 1e-5  # of each leaf's max-abs, against the one-rank card run
+# zero3-wide: fsdp-wide's model, weights and 2 x 2,048 rows on (1, 2)
+# under zero3 (the rows split over "model"), one full round, held to
+# fsdp-wide's whole run at its limits; the reduce-scatter left out reads
+# far past them (tests/test_torch_wide_limits.py; PERF.md, phase 17).  A
+# full round aggregates the raw gradients: of rows 1-3 it launches the
+# coordinate median alone (zero3-small's difference rounds launch all 3)
+ZERO3_WIDE_COINS = (True,)
+
+
+def _zero3_job(rank, mesh_shape, one):
+    """Phase 17's part of a rank of the shared spawns: zero3-small on
+    ``mesh_shape`` (None: none) or, given fsdp-wide's one-rank run
+    (``one``), zero3-wide."""
+    out = {shape: {arch: _small_split_run(arch, shape, ZERO3_COINS,
+                                          "zero3")
+                   for arch in ZERO3_ARCHS}
+           for shape in ZERO3_SMALL if shape == mesh_shape}
+    if one:
+        from repro_torch.configs import get_config
+
+        out["wide"] = _tp_wide_run(
+            one["fsdp_g0"], get_config("minitron_8b", **FSDP_WIDE),
+            ZERO3_WIDE_COINS, mesh_shape=(1, 2), shard_mode="zero3",
+            rows=FSDP_WIDE_ROWS)
+    return out
+
+
+def zero3_path(card, whole, one, jobs):
+    """Phase 17's checks: zero3's pieces over "model" (its runs in
+    ``split_paths``; ``whole`` the one-rank NCCL runs, ``one`` fsdp-wide's
+    whole run); returns the runs' launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    print('zero3: params and g held in pieces over "model", each layer '
+          'gathered over it, the rows split over it')
+    t0 = time.perf_counter()
+    counts = {run: dict.fromkeys(ops.launch_counts(), 0)
+              for run in ("train-zero3-small", "train-zero3-wide")}
+    print(f"  zero3-small on {card}; reduced: none (the mesh trainer's "
+          "test model and the smoke config of deepseek-v3-671b, f32; batch "
+          f"2 x 32, {len(ZERO3_COINS)} rounds on a tape, coins "
+          f"{ZERO3_COINS}); {ZERO3_SMALL[0]} (the rows split over "
+          f"\"model\") and {ZERO3_SMALL[1]} (every rank runs both rows), gloo "
+          "ranks on cuda:0, each against the one-rank NCCL run")
+    small = {shape: [{"small": rep[shape]} for rep in jobs[shape]]
+             for shape in ZERO3_SMALL}
+    _check_small("zero3-small", ZERO3_ARCHS, whole, small,
+                 counts["train-zero3-small"], ZERO3_COINS, ZERO3_REL,
+                 drops=False)
+    for shape, reps in small.items():
+        for rank, rep in enumerate(reps):
+            for arch, r in rep["small"].items():
+                colls = r["collectives"]
+                # the rows split on (1, 2): the gathered leaves' gradients
+                # reduce-scattered; on (1, 4) each rank narrows its own
+                split = shape == (1, 2)
+                if ("reduce_scatter" in colls) != split or \
+                        "all_gather" not in colls:
+                    raise AssertionError(
+                        f"zero3-small {arch} {shape} rank {rank}: "
+                        f"collectives {colls}")
+    reps = [rep["wide"] for rep in jobs[(1, 2)]]
+    print(f"  zero3-wide on {card}; reduced: fsdp-wide's (n_layers 32 -> 2, "
+          f"{FSDP_WIDE_ROWS[0]} x {FSDP_WIDE_ROWS[1]:,} rows, split over "
+          "\"model\"), (1, 2) mesh, 2 gloo ranks on cuda:0, rounds "
+          f"{ZERO3_WIDE_COINS} (True: full)")
+    _check_wide("zero3-wide", reps, one["fsdp_loss0"],
+                "fsdp-wide's one-rank run", FSDP_WIDE_LOSS_RTOL,
+                TP_WIDE_G0_REL)
+    for rep in reps:
+        for rnd in rep["rounds"]:
+            if not rnd["collectives"].get("reduce_scatter"):
+                raise AssertionError("zero3-wide: no reduce-scatter")
+            for a, b in rnd["launches"].items():
+                counts["train-zero3-wide"][a] += b
+    for run, c in counts.items():
+        want = TRAINER_KERNELS if run == "train-zero3-small" else [
+            k for k in TRAINER_KERNELS if k == "coordinate_median"]
+        missing = [k for k in want if not c.get(k)]
+        if missing:
+            raise AssertionError(f"{run}: {missing} not launched")
+    torch.cuda.empty_cache()
+    print(f"  phase 17 checks {time.perf_counter() - t0:.3f} s")
     return counts
 
 
 # ---------------------------------------------------------------------------
-# the runs of phases 11-15: one process of whole runs, one spawn of 2
-# ranks and one of 4 for every split, side by side
+# the runs of phases 11-17: the one-rank whole runs in a process of their
+# own beside the build; one spawn of 2 ranks and one of 4 for every split
 # ---------------------------------------------------------------------------
 
 SPLIT_TIMEOUT = 900  # seconds for a spawned job, or a wait for a marker
-# markers in the work dir: the whole runs' process past phase 12 (the
-# card's peak), at its end, or failed; the 2-rank spawn's wide runs free
-# to start (the whole runs' files and readings in WIDE_FILES), or not
-WHOLE_PEAK, WHOLE_DONE, WHOLE_FAILED = "whole.12", "whole.done", \
-    "whole.failed"
+# markers in the work dir: the 2-rank spawn's wide runs free to start
+# (the whole runs' files and readings in WIDE_FILES), or not
 WIDE_GO, WIDE_STOP, WIDE_FILES = "wide.go", "wide.stop", "wide.pkl"
 
 
 def _whole_job(rank, card, work):
-    """The one-rank whole runs of phases 12-15, in a process of their own:
-    the segments they leave the allocator (cuBLAS's workspaces pin two of
-    3.7 GB after the full-experts gradient) stay out of the way of the
-    split's ranks, which share the card; the seconds of each phase's."""
+    """The one-rank whole runs of phases 12-16, in a process of their own
+    (the segments they leave the allocator, cuBLAS's workspaces pin two of
+    3.7 GB after the full-experts gradient, die with it); each phase's
+    seconds."""
     import gc
 
     import torch
@@ -5973,28 +6147,57 @@ def _whole_job(rank, card, work):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     work, out, secs = Path(work), {}, {}
-    try:
-        for phase, fn in ((12, lambda: {**_v3_wide_whole(card, work),
-                                        **_v3_full_whole(card, work)}),
-                          (13, lambda: _ssm_whole(card, work)),
-                          (14, lambda: _fsdp_wide_whole(card, work)),
-                          (15, lambda: _vision_wide_whole(card, work))):
-            t = time.perf_counter()
-            out[phase] = fn()
-            secs[phase] = time.perf_counter() - t
-            gc.collect()
-            torch.cuda.empty_cache()
-            if phase == 12:
-                (work / WHOLE_PEAK).touch()
-    except BaseException:
-        (work / WHOLE_FAILED).touch()
-        raise
-    (work / WHOLE_DONE).touch()
+    for phase, fn in ((12, lambda: {**_v3_wide_whole(card, work),
+                                    **_v3_full_whole(card, work)}),
+                      (13, lambda: _ssm_whole(card, work)),
+                      (14, lambda: _fsdp_wide_whole(card, work)),
+                      (15, lambda: _vision_wide_whole(card, work)),
+                      (16, lambda: _frames_wide_whole(card, work))):
+        t = time.perf_counter()
+        out[phase] = fn()
+        secs[phase] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
     out["seconds"] = secs
     return out
 
 
-def _wait_for(work, done, failed=WHOLE_FAILED):
+class WholeRuns:
+    """``_whole_job`` in a spawned process, waited for in a thread: started
+    once phase 9 has left the card, beside nvcc's tail, and joined before
+    phase 2, whose device times must not share the card."""
+
+    def __init__(self, card, work):
+        from repro_torch.launch.mesh import spawn
+
+        self.out, self.err, self.t0 = None, None, time.perf_counter()
+
+        def run():
+            try:
+                self.out = spawn(_whole_job, 1, (card, str(work)),
+                                 timeout=SPLIT_TIMEOUT)[0]
+            except BaseException as err:  # noqa: BLE001 — raised in join
+                self.err = err
+            self.wall = time.perf_counter() - self.t0
+
+        sys.stdout.flush()  # ahead of the spawned process's lines
+        self.thread = threading.Thread(target=run)
+        self.thread.start()
+
+    def join(self):
+        """The whole runs' readings and files (raises if they failed)."""
+        t = time.perf_counter()
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        print(f"the whole runs' process of phases 12-16: {self.wall:.3f} s, "
+              f"of which {time.perf_counter() - t:.3f} s after the build; "
+              "by phase " + ", ".join(f"{p} {v:.3f} s" for p, v in
+                                      self.out["seconds"].items()))
+        return self.out
+
+
+def _wait_for(work, done, failed):
     """Return the seconds until the marker ``done`` is in ``work``; raise
     if ``failed`` is there first or neither comes in SPLIT_TIMEOUT s."""
     work, t = Path(work), time.monotonic()
@@ -6008,13 +6211,13 @@ def _wait_for(work, done, failed=WHOLE_FAILED):
 
 
 def _split_job(rank, mesh_shape, work):
-    """One rank of a shared spawn on ``mesh_shape``: phases 11-13's and
-    15's small split runs, then on 4 ranks phase 14's (its fsdp-wide
-    waits for the whole runs' process); the 2 ranks start their small
-    runs once the whole runs are past phase 12 (the card's peak) and
-    their wide runs once the 4-rank spawn has ended (the whole runs'
-    files and readings in ``work``); the seconds of each phase's part
-    and of the waits."""
+    """One rank of a shared spawn on ``mesh_shape``, the whole runs' files
+    and readings in ``work``: on 4 ranks phase 14's fsdp-wide first (about
+    40 GB on the card), then the marker ``WIDE_GO``, then every phase's
+    small split runs; on 2 ranks the small split runs and frames-wide (a
+    few GB each) beside fsdp-wide, then, once ``WIDE_GO`` is there, the
+    other wide runs (up to 75 GB); the seconds of each phase's part and
+    of the wait."""
     import gc
     import pickle
 
@@ -6032,55 +6235,59 @@ def _split_job(rank, mesh_shape, work):
             gc.collect()
             torch.cuda.empty_cache()
 
-    if wide:
-        waits["peak"] = _wait_for(work, WHOLE_PEAK)
     torch.set_num_threads(1)
     torch.cuda.set_device(0)
-    run([(11, lambda: _tp_job(rank, mesh_shape, None)),
-         (12, lambda: _moe_job(rank, mesh_shape, None, None, None)),
-         (13, lambda: _ssm_job(rank, mesh_shape, None)),
-         (15, lambda: _vision_job(rank, mesh_shape, None))])
+    with open(work / WIDE_FILES, "rb") as f:
+        files = pickle.load(f)
+    small = [(11, lambda: _tp_job(rank, mesh_shape, None)),
+             (12, lambda: _moe_job(rank, mesh_shape, None, None, None)),
+             (13, lambda: _ssm_job(rank, mesh_shape, None)),
+             (15, lambda: _vision_job(rank, mesh_shape, None)),
+             (16, lambda: _frames_job(rank, mesh_shape, None)),
+             (17, lambda: _zero3_job(rank, mesh_shape, None))]
     if wide:
+        run(small + [(16, lambda: _frames_job(rank, None, files[16]))])
         waits["go"] = _wait_for(work, WIDE_GO, WIDE_STOP)
-        with open(work / WIDE_FILES, "rb") as f:
-            files = pickle.load(f)
         run([(11, lambda: _tp_job(rank, None, files["g0"])),
              (12, lambda: _moe_job(rank, None, files[12]["g0"],
                                    files[12]["ref"],
                                    files[12]["wide_routes"])),
              (13, lambda: _ssm_job(rank, None, files[13])),
-             (15, lambda: _vision_job(rank, None, files[15]))])
-    else:  # last: its fsdp-wide waits for the whole runs' process
-        run([(14, lambda: _fsdp_job(rank, work))])
-        waits["whole"] = out[14]["wait_s"]
-        secs[14] -= waits["whole"]
+             (15, lambda: _vision_job(rank, None, files[15])),
+             (17, lambda: _zero3_job(rank, None, files[14]))])
+    else:
+        run([(14, lambda: _fsdp_job(rank, files[14]))])
+        torch.distributed.barrier()  # every rank's fsdp-wide has let go
+        if rank == 0:
+            (work / WIDE_GO).touch()
+        run(small + [(14, lambda: _fsdp_job(rank))])
     out["seconds"], out["waits"] = secs, waits
     return out
 
 
-def split_paths(card):
-    """The runs of phases 11-15 (their checks follow, phase by phase): the
-    one-rank NCCL runs of the small configs in this process; then three
-    processes side by side on the card: the one-rank whole runs, one
-    spawn of 4 gloo ranks on cuda:0 and one of 2, which between them run
-    every phase's split (``_split_job``); returns each phase's runs and
-    the seconds its parts took."""
+def split_paths(card, work, whole):
+    """The runs of phases 11-17 (their checks follow, phase by phase): the
+    one-rank NCCL runs of the small configs in this process; then one
+    spawn of 4 gloo ranks on cuda:0 and one of 2 side by side, which
+    between them run every phase's split (``_split_job``), the 2-rank
+    spawn's larger wide runs after the 4-rank spawn's fsdp-wide (the card
+    cannot hold both);
+    ``whole``: the one-rank whole runs' readings and files in ``work``
+    (``WholeRuns``); returns each phase's runs and the seconds its parts
+    took."""
     import os
     import pickle
-    import shutil
 
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import spawn
 
-    print("the split runs of phases 11-15")
+    print("the split runs of phases 11-17")
     t0 = time.perf_counter()
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke_split"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     torch.cuda.set_device(0)
-    secs = dict.fromkeys((11, 12, 13, 14, 15), 0.0)
+    secs = dict.fromkeys(range(11, 18), 0.0)
+    secs.update({p: v for p, v in whole["seconds"].items()})
     ones = {}
     dist.init_process_group("nccl", init_method="file://" + os.path.join(
         work, "rendezvous"), rank=0, world_size=1)
@@ -6092,7 +6299,14 @@ def split_paths(card):
                 (13, lambda: {arch: _small_split_run(arch, (1, 1), SSM_COINS)
                               for arch in SSM_ARCHS}),
                 (15, lambda: {VISION_ARCH: _small_split_run(
-                    VISION_ARCH, (1, 1), VISION_COINS)})):
+                    VISION_ARCH, (1, 1), VISION_COINS)}),
+                (16, lambda: {FRAMES_ARCH: _small_split_run(
+                    FRAMES_ARCH, (1, 1), FRAMES_COINS)}),
+                # v3's one-rank run is phase 12's: the same coins
+                (17, lambda: {"tiny": _small_split_run("tiny", (1, 1),
+                                                       ZERO3_COINS),
+                              "deepseek_v3_671b":
+                              ones[12]["deepseek_v3_671b"]})):
             t = time.perf_counter()
             ones[phase] = fn()
             secs[phase] += time.perf_counter() - t
@@ -6100,6 +6314,8 @@ def split_paths(card):
         dist.destroy_process_group()
     print(f"  one-rank NCCL runs of the small configs "
           f"{time.perf_counter() - t0:.3f} s")
+    with open(work / WIDE_FILES, "wb") as f:
+        pickle.dump({"g0": PHASE10["g0"], **whole}, f)
     env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     walls, runs, errs = {}, {}, {}
 
@@ -6116,56 +6332,38 @@ def split_paths(card):
         # two ranks of moe-v3-full-experts share the card at some 36 GB each
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         sys.stdout.flush()  # ahead of the spawned processes' lines
-        # the whole runs (up to 70 GB on the card) beside the small runs
-        # of both spawns (a few GB; the 2-rank one's after phase 12's
-        # whole runs, the peak); the 4-rank spawn's fsdp-wide after the
-        # whole runs, the 2-rank spawn's wide runs after both
-        threads = [threading.Thread(target=run, args=a) for a in (
-            ("whole", _whole_job, 1, (card, str(work))),
-            ((1, 2), _split_job, 2, ((1, 2), str(work))))]
-        for thread in threads:
-            thread.start()
-        go = False
+        # the 4-rank spawn's fsdp-wide beside the 2-rank spawn's small
+        # runs, then the 2-rank spawn's wide runs beside the 4-rank
+        # spawn's small runs (``_split_job``)
+        thread = threading.Thread(target=run, args=(
+            (1, 2), _split_job, 2, ((1, 2), str(work))))
+        thread.start()
         try:
             run((1, 4), _split_job, 4, ((1, 4), str(work)))
-            threads[0].join()
-            if not errs:
-                with open(work / WIDE_FILES, "wb") as f:
-                    pickle.dump({"g0": PHASE10["g0"], **runs["whole"][0]}, f)
-                go = True
         finally:
-            (work / (WIDE_GO if go else WIDE_STOP)).touch()
-            for thread in threads:
-                thread.join()
-        for key in ("whole", (1, 4), (1, 2)):
+            if errs:  # the 2-rank spawn waits for no WIDE_GO
+                (work / WIDE_STOP).touch()
+            thread.join()
+        for key in ((1, 4), (1, 2)):
             if key in errs:
                 raise errs[key]
-        one = runs["whole"][0]
         jobs = {shape: runs[shape] for shape in ((1, 4), (1, 2))}
-        for phase, v in one["seconds"].items():
-            secs[phase] += v
         for reports in jobs.values():
             for phase in secs:
                 secs[phase] += max(r["seconds"].get(phase, 0.0)
                                    for r in reports)
-    finally:  # the whole runs' files on disk; train-minitron-wide's g^0
-        shutil.rmtree(work, ignore_errors=True)
+    finally:  # train-minitron-wide's g^0
         Path(PHASE10["g0"]).unlink(missing_ok=True)
         if env is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
     torch.cuda.empty_cache()
-    waits = {k: max(r["waits"][k] for reports in jobs.values()
-                    for r in reports if k in r["waits"])
-             for k in ("whole", "peak", "go")}
-    print(f"  the whole runs' process {walls['whole']:.3f} s beside the "
-          f"(1, 4) spawn {walls[(1, 4)]:.3f} s (its fsdp-wide waited "
-          f"{waits['whole']:.3f} s for them) and the (1, 2) spawn "
-          f"{walls[(1, 2)]:.3f} s (its small runs waited {waits['peak']:.3f}"
-          f" s for the whole runs' phase 12, its wide runs {waits['go']:.3f}"
-          " s for the (1, 4) spawn); the runs by phase "
-          "(the slowest rank's part of each spawn, the whole runs' part): "
+    go = max(r["waits"]["go"] for r in jobs[(1, 2)])
+    print(f"  the (1, 4) spawn {walls[(1, 4)]:.3f} s beside the (1, 2) spawn "
+          f"{walls[(1, 2)]:.3f} s (its wide runs waited {go:.3f} s for the "
+          "(1, 4) spawn's fsdp-wide); the runs by phase (the slowest rank's "
+          "part of each spawn, the whole runs' part): "
           + ", ".join(f"{p} {v:.3f} s" for p, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.3f} s")
 
@@ -6173,10 +6371,12 @@ def split_paths(card):
         return {shape: [r[phase] for r in jobs[shape]] for shape in jobs
                 if phase in jobs[shape][0]}
 
-    return {11: (ones[11], of(11)), 12: (ones[12], one[12], of(12)),
-            13: (ones[13], one[13], of(13)),
-            14: (of(14)[(1, 4)], one[14]),
-            15: (ones[15], one[15], of(15))}, secs
+    return {11: (ones[11], of(11)), 12: (ones[12], whole[12], of(12)),
+            13: (ones[13], whole[13], of(13)),
+            14: (of(14)[(1, 4)], whole[14]),
+            15: (ones[15], whole[15], of(15)),
+            16: (ones[16], whole[16], of(16)),
+            17: (ones[17], whole[14], of(17))}, secs
 
 
 def main():
@@ -6202,22 +6402,45 @@ def main():
     from repro_torch.kernels import _build
 
     # nvcc runs on the host while phase 9, which reaches no kernel, runs
-    # on the card
+    # on the card, then the whole runs of phases 12-16 (no kernel either)
     building = _build.start_all()
     sys.stdout.flush()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_split"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    nvcc, whole = {}, None
     try:
-        models_path(card)
-    finally:  # no nvcc outlives the script
-        secs = _build.finish_all(building)
-    print(f"built {', '.join(_build.SOURCES)} for sm_90a in {secs:.1f} s "
-          f"into {_build.BUILD_DIR} (phase 9 ran meanwhile)")
-    for name in _build.SOURCES:  # ptxas -v: per kernel instantiation
-        log = _build.build_log(name)
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-              f"registers, {sum(1 for v in spills if v)} with spill stores "
-              f"(at most {max(spills)} bytes)")
+        try:
+            models_path(card)
+            torch.cuda.empty_cache()
+            whole = WholeRuns(card, work)
+        finally:  # no nvcc outlives the script
+            secs = _build.finish_all(building, nvcc)
+        print(f"built {', '.join(_build.SOURCES)} for sm_90a in {secs:.1f} s"
+              f" into {_build.BUILD_DIR} (phase 9 and then the whole runs "
+              "ran meanwhile)")
+        for name in _build.SOURCES:  # ptxas -v: per kernel instantiation
+            log = _build.build_log(name)
+            regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+            spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                                 log)]
+            took = f"nvcc {nvcc[name]:.1f} s, " if name in nvcc else ""
+            print(f"  {name}: {took}{len(regs)} kernels, {min(regs)}-"
+                  f"{max(regs)} registers, {sum(1 for v in spills if v)} "
+                  f"with spill stores (at most {max(spills)} bytes)")
+        phases = kernel_phases(card, work, whole.join())
+    finally:  # the whole runs' files, once their process has ended
+        if whole is not None:
+            whole.thread.join()
+        shutil.rmtree(work, ignore_errors=True)
+    _result(card, phases)
+
+
+def kernel_phases(card, work, whole):
+    """Phases 2-8, 10 and 11-17 (``whole``: the whole runs' readings and
+    files in ``work``); returns every run's launch counts, the checks' and
+    times' for the kernels line."""
+    import torch
 
     # 2. kernel vs plain version
     checks = Checks()
@@ -6276,21 +6499,29 @@ def main():
     # 10. the mesh trainer and the decode launcher
     counts.update(train_path(card))
 
-    # 11-15: the runs of every split (shared spawns), then each phase's
+    # 11-17: the runs of every split (shared spawns), then each phase's
     # checks: 11 the tensor-parallel split and the dry run, 12 the split
     # of the MoE and MLA decoders, 13 of the SSM and hybrid decoders, 14
-    # fsdp_tp's split over "data", 15 the split of cross-attention
-    runs, secs = split_paths(card)
+    # fsdp_tp's split over "data", 15 the split of cross-attention, 16 of
+    # frame inputs, 17 zero3's pieces over "model"
+    runs, secs = split_paths(card, work, whole)
     for phase, check in ((11, tp_path), (12, moe_tp_path),
                          (13, ssm_tp_path), (14, fsdp_path),
-                         (15, vision_path)):
+                         (15, vision_path), (16, frames_path),
+                         (17, zero3_path)):
         t = time.perf_counter()
         counts.update(check(card, *runs[phase]))
         secs[phase] += time.perf_counter() - t
-    print("phases 11-15, runs and checks: " + ", ".join(
+    print("phases 11-17, runs and checks: " + ", ".join(
         f"phase {p} {v:.3f} s" for p, v in secs.items()))
+    return counts, checks, times
 
-    # 16. the kernels line, the card, the result
+
+def _result(card, phases):
+    """Phase 18: the kernels line, the card, the result."""
+    import torch
+
+    counts, checks, times = phases
     meta = {  # source, TPU kernel, the run of the path it serves
         "row_norms": ("csrc/row_norms.cu", "clip_aggregate.py:53",
                       "clipped"),

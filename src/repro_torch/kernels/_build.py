@@ -165,18 +165,25 @@ def start_all(names=SOURCES):
     together, and return at once: the caller may run work that needs no
     kernel meanwhile, then waits in :func:`finish_all` (given what this
     returns)."""
-    return time.perf_counter(), {name: _start_build(name) for name in names}
+    t0, wall0 = time.perf_counter(), time.time()
+    return t0, {name: _start_build(name) for name in names}, wall0
 
 
-def finish_all(started) -> float:
+def finish_all(started, seconds=None) -> float:
     """Wait for the builds :func:`start_all` started; raises if one
     failed, after every nvcc has ended.  Returns the wall seconds since
-    they started."""
-    t0, jobs = started
+    they started; with ``seconds`` (a dict), each source's nvcc seconds
+    go into it by name: until its library (or, failed, its log) was last
+    written, so that a source that ended before this call is timed too."""
+    t0, jobs, wall0 = started
     errors = []
     for name, job in jobs.items():
         if job is None:
             continue
+        job[0].wait()
+        if seconds is not None:
+            done = job[2] if job[2].exists() else job[3]
+            seconds[name] = done.stat().st_mtime - wall0
         try:
             _finish_build(name, job)
         except KernelError as e:  # wait for every nvcc before raising

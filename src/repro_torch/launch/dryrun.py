@@ -10,12 +10,16 @@ rank 0 of a process group of the mesh's size on torch's "fake" backend
 tensors (shapes and dtypes, nothing allocated, nothing computed):
 
   train    ``launch.train.make_train_step`` on the rank's held state
-           (``abstract_state(..., mesh)``: its pieces under the
-           tensor-parallel split, ``sharding.rules.model_split``; under
-           fsdp_tp its "data" x "model" pieces, each layer gathered over
-           "data" in the period loop) and the global batch (with the pods
-           the workers, as under fsdp_tp on the multi-pod mesh, the
-           worker's rows split over "data"), for one difference round
+           (``abstract_state(..., mesh)``: its ``param_specs`` pieces,
+           ``sharding.rules.held_specs``: under the tensor-parallel split,
+           ``model_split``, its "model" pieces, under fsdp_tp its "data" x
+           "model" pieces, each layer gathered over "data" in the period
+           loop; under zero3 its pieces over "model", each layer gathered
+           over "model", the worker's rows split over it) and the global
+           batch (with the pods the workers, as under fsdp_tp on the
+           multi-pod mesh, the worker's rows split over "data"; its piece
+           split over "model" too under zero3, as the reference's
+           ``batch_specs``), for one difference round
            (two gradients, the clip and the aggregation: the larger of
            the two rounds);
   prefill  ``launch.serve.make_prefill_step`` and
@@ -205,7 +209,9 @@ def _train(cfg, shape, mesh, tc, result):
     batch = input_specs(cfg, shape)
     waxes = tuple(tc.worker_axes_override) or worker_axes(mesh)
     W = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in waxes)
-    bpiece = _piece(mesh, batch, batch_specs(mesh, batch, waxes))
+    # zero3 splits each worker's rows over "model" too
+    baxes = waxes + (("model",) if tc.shard_mode == "zero3" else ())
+    bpiece = _piece(mesh, batch, batch_specs(mesh, batch, baxes))
     # one difference round over every worker
     tape = TrainTape(c=np.array([False]), sampled=np.ones((1, W), bool),
                      order=np.arange(W)[None])

@@ -6,14 +6,11 @@ Mapping: a worker is a coordinate of the mesh's worker axes ("pod" and
 runs in manual SPMD, as ``repro_torch.api.mesh_exec`` does: every rank
 calls the step with its held state and the same global batch, and gets
 back its held new state.  What a rank holds is ``sharding.rules.
-held_specs``: under the "tp" split (``model_split``: the decoders on
-token inputs, attention (dense, MoE or MLA), Mamba-2 SSM or hybrids of
-both, and cross-attention to vision tokens, under "tp" or "fsdp_tp") on
-a "model" axis of M > 1 ranks, its "model"
-piece of every split leaf of params and g (under fsdp_tp its "data" x
-"model" piece, as the reference's ``state_specs`` places its state), and
-the norms and scalars whole; otherwise every leaf whole.
-``initial_state`` builds it from whole params.  Within a step, a rank
+held_specs``, the reference's ``state_specs``: its ``param_specs``
+piece of every leaf of params and g (under "tp" its "model" piece, under
+fsdp_tp its "data" x "model" piece, under zero3 its piece of the "fsdp"
+slot over "model"), the norms and scalars whole.  ``initial_state``
+builds it from whole params.  Within a step, a rank
 
 1. draws the round's randomness (the coin c_k, the cohort, the attack's
    and the compressor's seeds, Bucketing's order) from one CPU
@@ -23,55 +20,56 @@ the norms and scalars whole; otherwise every leaf whole.
 2. takes x^{k+1} = x^k - gamma g^k (in f32, cast back) and its worker's
    gradient at x^{k+1} (and, on difference rounds, at x^k) on its
    worker's rows of the batch (worker i: rows i*b:(i+1)*b), by
-   ``torch.autograd.grad`` over the held leaves, remat kept; under the
-   split inside a ``model_axis`` block, so that the ranks of a worker's
-   "model" axis compute its gradient once between them, each its pieces
-   (``models.tp``).  Under fsdp_tp each layer's leaves are gathered over
-   "data" before use; where "data" is a worker axis each of its ranks is
-   another worker, and the worker's gradient of a gathered leaf stays
-   whole over "data" (the reference's per-worker gradient, ``DataAxis``
-   "keep"); where it is not (pod workers), the worker's rows split over
-   "data" when its size divides them (rank r: rows r*b/|data| on), the
-   loss's sums over rows add up the "data" ranks, and a reduce-scatter
-   sums the gradients of the gathered leaves (an all-reduce those of the
-   whole ones);
+   ``torch.autograd.grad`` over the held leaves, remat kept; inside a
+   ``model_axis`` block, so that the ranks of a worker's "model" axis
+   compute its gradient once between them, each its pieces: under "tp"
+   and fsdp_tp by Megatron's split (``models.tp``), under zero3 by the
+   whole pass on each rank's share of the rows.  Under fsdp_tp each
+   layer's leaves are gathered over "data" before use, under zero3 over
+   "model"; where "data" is a worker axis each of its ranks is another
+   worker, and the worker's gradient of a gathered leaf stays whole over
+   "data" (the reference's per-worker gradient, ``DataAxis`` "keep");
+   where the axis is not a worker axis (fsdp_tp's "data" with pod
+   workers, zero3's "model"), the worker's rows split over it when its
+   size divides them (rank r: rows r*b/size on), the loss's sums over
+   rows add up its ranks, and a reduce-scatter sums the gradients of the
+   gathered leaves (an all-reduce those of the whole ones); where its
+   size does not divide them, every rank runs them all and keeps its
+   piece of the gradient;
 3. forms its worker's message: the gradient (full rounds) or the
    gradient difference, leafwise RandK'd (``CompressSpec(kind=
    "rand_fraction")``), then corrupted by the attack if the worker is
    byzantine;
-4. cuts its aggregation piece out of its message per ``param_specs``
-   with the worker axes stripped (``sharding.rules``): under the split
-   the message already is that piece (the held piece with the worker
-   axes stripped), where the compute is replicated the piece of the
-   whole leaf; hands the pieces to the plan's mesh step
-   (``plan.build(mesh)``) as ``base_specs``; and takes the aggregate back
-   to the held piece: all-gathered over the axes that the aggregation
-   splits and the held piece does not (the replicated branch), narrowed
-   along those that the held piece splits and the aggregation does not
-   (fsdp_tp's "data" when it is a worker axis); g^{k+1} = g^k + agg
+4. hands its message, the held piece with the worker axes stripped,
+   to the plan's mesh step (``plan.build(mesh)``) with ``param_specs``
+   stripped of the worker axes as ``base_specs`` (the message already
+   is that piece); and takes the aggregate back to the held piece:
+   narrowed along the axes that the held piece splits and the
+   aggregation does not (fsdp_tp's "data" when it is a worker axis);
+   nothing is gathered back; g^{k+1} = g^k + agg
    (difference rounds, clipped at lambda = alpha gamma ||g^k||, the norm
    of the whole g: each piece's squares summed over the axes that split
    it, the whole leaves counted once) or agg (full rounds, no clip).
 
 Differences from the reference, each for a reason:
 
-- **The split is Megatron's, written out, for token inputs.**
-  The reference's GSPMD splits every family's forward and backward pass
-  over "model"; the port splits the attention decoders, dense, MoE
-  (arctic) and MLA (deepseek-v3), the SSM and hybrid decoders (mamba2,
-  jamba: the Mamba-2 mixer's heads, ``in_proj`` and ``conv_w`` fetched
-  whole once a layer since their pieces cut across its packed parts) and
-  the cross-attention decoder (llama-3.2-vision: the heads split, the
-  vision tokens replicated, the gate after the sum) alike
-  (``models.tp``), and runs frame inputs replicated along "model"
-  (``model_split`` says "replicated"): there every rank holds
-  params and g whole, computes its worker's whole gradient, cuts its
-  piece for the aggregation and all-gathers the aggregate back.  zero3
-  splits no model compute either.  Under "tp" with pod workers every
-  "data" rank of a pod runs the worker's whole rows (the same numbers,
-  computed again on each); the rows split over "data" under fsdp_tp
-  only.  Where a rank's heads reach past its
-  pieces (fewer kv heads than ranks) it all-gathers those weights.
+- **The split is Megatron's, written out.**  The reference's GSPMD
+  splits every family's forward and backward pass over "model"; the
+  port splits the attention decoders, dense, MoE (arctic) and MLA
+  (deepseek-v3), the SSM and hybrid decoders (mamba2, jamba: the Mamba-2
+  mixer's heads, ``in_proj`` and ``conv_w`` fetched whole once a layer
+  since their pieces cut across its packed parts), the cross-attention
+  decoder (llama-3.2-vision: the heads split, the vision tokens
+  replicated, the gate after the sum) and the audio encoder (hubert: the
+  frame projection column-split and gathered back to the residual)
+  alike (``models.tp``).  zero3 splits no model compute: each layer is
+  gathered over "model" in the period loop and the rows split over it,
+  as the reference's ``override_data_axes(("model",))`` places them.
+  Under "tp" with pod workers every "data" rank of a pod runs the
+  worker's whole rows (the same numbers, computed again on each); the
+  rows split over "data" under fsdp_tp only.  Where a rank's heads reach
+  past its pieces (fewer kv heads than ranks) it all-gathers those
+  weights.
 - **Draws are of whole leaves.**  RandK's uniforms and gauss's noise are
   drawn per whole leaf, as before, and a rank keeps its piece of them,
   so that the split replays the whole run's draws exactly.
@@ -99,8 +97,7 @@ import torch
 
 from ..api import AggregatorSpec, ClipSpec, PlanError, ScheduleSpec
 from ..api import ServerPlan
-from ..api.mesh_exec import (_all_gather, _count, _gather_leaf, _spec_axes,
-                             leaf_agg_of)
+from ..api.mesh_exec import _all_gather, _count, _spec_axes, leaf_agg_of
 from ..core.tree_utils import tree_flatten, tree_map, tree_norm
 from ..core.tree_utils import tree_unflatten
 from ..models.model import ModelConfig, apply_train, init_params
@@ -366,18 +363,17 @@ def _is_none(x) -> bool:
 
 def model_axis_of(mesh, model_cfg: ModelConfig, shard_mode: str = "tp",
                   worker_axes: Optional[tuple] = None) -> Optional[ModelAxis]:
-    """The "model" axis a worker's pass splits over on ``mesh``: a
-    ``ModelAxis`` (with this rank's ``held_specs``; under fsdp_tp its
-    ``DataAxis`` too, "data" a worker axis where ``worker_axes``, the
-    run's, name it: by default the mesh's) when ``model_split(model_cfg,
-    shard_mode)`` is "tp" and the axis has more than one rank, else None
-    (the pass runs whole)."""
+    """The axis a worker's pass runs on over ``mesh``: a ``ModelAxis`` on
+    "model", with this rank's "model" ``held_specs`` where Megatron's
+    split is on (``model_split`` "tp" and more than one "model" rank) and
+    the ``DataAxis`` of the pieces held besides: under fsdp_tp over
+    "data" (a worker axis where ``worker_axes``, the run's, name it: by
+    default the mesh's), under zero3 over "model" itself (not a worker
+    axis); None where nothing is split (the pass runs whole)."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if "model" not in names or model_split(model_cfg, shard_mode) != "tp":
+    if "model" not in names:
         return None
     size = axis_size(mesh, "model")
-    if size == 1:
-        return None
     held = held_specs(mesh, model_cfg, init_params(0, model_cfg,
                                                    device="meta"), shard_mode)
     leaves, treedef = tree_flatten(held, is_leaf=lambda x: isinstance(x, P))
@@ -386,22 +382,29 @@ def model_axis_of(mesh, model_cfg: ModelConfig, shard_mode: str = "tp",
         return tree_unflatten(treedef, [only_axis(sp, axes) for sp in leaves])
 
     data = None
-    if any("data" in _spec_axes(sp) for sp in leaves):
+    if shard_mode == "zero3":
+        if size > 1:
+            data = DataAxis(model_group(mesh), mesh.get_local_rank("model"),
+                            size, on("model"), worker=False)
+    elif any("data" in _spec_axes(sp) for sp in leaves):
         waxes = default_worker_axes(mesh) if worker_axes is None \
             else tuple(worker_axes)
         data = DataAxis(mesh.get_group("data"), mesh.get_local_rank("data"),
                         axis_size(mesh, "data"), on("data"),
                         worker="data" in waxes)
+    megatron = model_split(model_cfg, shard_mode) == "tp" and size > 1
+    if not megatron and data is None:
+        return None
     return ModelAxis(model_group(mesh), mesh.get_local_rank("model"), size,
-                     on("model"), data)
+                     on("model") if megatron else None, data)
 
 
 def held_norm(g_leaves, axis: Optional[ModelAxis], held) -> torch.Tensor:
     """||g|| of the whole g from this rank's pieces ``g_leaves`` (their
     held specs ``held``, in flatten order): each piece's squares summed
-    over the axes that split it ("model", "data" or both; ``axis`` and
-    its ``data``), the whole leaves' counted once (a collective on the
-    split's groups)."""
+    over the axes that split it ("model", "data" or both; ``axis`` and,
+    under fsdp_tp, its ``data``), the whole leaves' counted once (a
+    collective on the split's groups)."""
     if axis is None:
         return tree_norm(g_leaves)
     kinds = [("model" in _spec_axes(sp), "data" in _spec_axes(sp))
@@ -418,7 +421,7 @@ def held_norm(g_leaves, axis: Optional[ModelAxis], held) -> torch.Tensor:
     torch.distributed.all_reduce(parts, group=axis.group)
     _count("all_reduce", parts, axis.group)
     total = parts[0] + ssq((False, True))
-    if axis.data is not None:
+    if any(k[1] for k in kinds):  # pieces split over "data"
         torch.distributed.all_reduce(total, group=axis.data.group)
         _count("all_reduce", total, axis.data.group)
     return torch.sqrt(total + parts[1] + ssq((False, False)))
@@ -541,24 +544,16 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
         return tree_flatten(state_sharding(mesh, specs),
                             is_leaf=lambda x: isinstance(x, LocalShard))[0]
 
-    # each leaf's aggregation spec (param_specs, worker axes stripped),
-    # the piece the rank holds, and the message's extent: the held piece
-    # with the worker axes stripped (a worker's gradient is whole over
-    # them).  The message is cut along the axes of the aggregation spec
-    # that it does not split; the aggregate comes back to the held piece
-    # gathered over the axes that the held piece does not split and
-    # narrowed along those that the aggregation spec does not
-    specs = [_strip(sp, waxes) for sp in flat_specs(param_specs(
-        mesh, model_cfg, whole, mode=cfg.shard_mode))]
+    # the piece the rank holds (param_specs) and the message's extent,
+    # the aggregation's spec: the held piece with the worker axes
+    # stripped (a worker's gradient is whole over them).  The aggregate
+    # comes back to the held piece narrowed along the worker axes that
+    # the held piece splits (fsdp_tp's "data" when it is a worker axis)
     held = flat_specs(held_specs(mesh, model_cfg, whole, cfg.shard_mode))
-    msg = [_strip(hp, waxes) for hp in held]
-    cuts = shards([P(*(e if m is None else None for e, m in zip(sp, mp)))
-                   for sp, mp in zip(specs, msg)])
-    backs = [P(*(e if h is None else None for e, h in zip(sp, hp)))
-             for sp, hp in zip(specs, held)]
+    specs = [_strip(hp, waxes) for hp in held]
     narrows = shards([P(*(h if e is None else None for e, h in zip(sp, hp)))
                       for sp, hp in zip(specs, held)])
-    msg_cuts = shards(msg)
+    msg_cuts = shards(specs)
     del whole
 
     def noise_pieces(noise):
@@ -569,8 +564,6 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
 
     def back(agg, i):
         """Leaf i's aggregate, back to the held piece."""
-        if any(backs[i]):
-            agg = _gather_leaf(agg[None], backs[i], mesh, ())[0]
         return narrows[i](agg) if any(narrows[i].spec) else agg
 
     def draws(state, tape):
@@ -608,11 +601,11 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
                 q_key = tape.randk[k][w]
         return c, sampled, order, att_key, q_key, gen.get_state()
 
-    def corrupt(msgs, dev, sampled, att_key, cuts):
+    def corrupt(msgs, dev, sampled, att_key):
         """This rank's pieces (1, *piece) of its worker's wire message."""
         good = ~byz.to(dev)
         if omniscient and cfg.n_byz > 0:
-            pieces = [cut(m)[None] for m, cut in zip(msgs, cuts)]
+            pieces = [m[None] for m in msgs]
             rows = pieces
             for ax in reversed(waxes):
                 rows = [_all_gather(r, mesh, ax) for r in rows]
@@ -635,7 +628,7 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
                 [m[None] for m in msgs], good_mask=good[w:w + 1],
                 sampled=sampled[w:w + 1], key=key)
             msgs = [m[0] for m in msgs]
-        return [cut(m)[None] for m, cut in zip(msgs, cuts)]
+        return [m[None] for m in msgs]
 
     def train_step(state: MeshTrainState, batch, tape=None):
         c, sampled, order, att_key, q_key, next_key = draws(state, tape)
@@ -671,7 +664,7 @@ def make_train_step(model_cfg: ModelConfig, mesh, cfg: ByzTrainConfig,
                 msgs = _leafwise_randk(
                     q_key, msgs, compress_frac, *(
                         (shapes, msg_cuts) if axis is not None else ()))
-        pieces = corrupt(msgs, dev, sampled, att_key, cuts)
+        pieces = corrupt(msgs, dev, sampled, att_key)
         del msgs
         tree_w = tree_unflatten(treedef, pieces)
         spec_tree = tree_unflatten(treedef, specs)

@@ -24,25 +24,25 @@ Entry points:
   gather_params(pieces, mesh, cfg, mode)     -> and the whole tree back
 
 Inside a ``sharding.constraints.model_axis`` block on a "model" axis of
-more than one rank, ``apply_train`` runs the tensor-parallel split of a
-decoder on token inputs (``models.tp``; ``sharding.rules.model_split``;
-the VLM's vision tokens too) on this
-rank's pieces (``shard_params``): the embedding and unembedding split on
-the vocabulary, the attention heads (GQA, MLA or the cross-attention to
-the vision tokens), the Mamba-2 mixer's heads and the MLP's hidden
-dimension column- then row-split, the MoE
-layer's experts split over the axis, the dense prefix and the MTP head
-split alike.  It reads
-the axis once and hands it to every layer, so that a layer recomputed
-under ``torch.utils.checkpoint`` splits as its forward pass did.  Under
-fsdp_tp the pieces are split over "data" too (``ModelAxis.data``): each
-layer's leaves are gathered over "data" at the start of its step in the
-period loop (``tp.gather_from_data``), so that under remat they are
-gathered again in the recompute; the embedding, the unembedding and the
-MTP head once a step, where ``apply_train`` uses them.  With the
-worker's rows split over "data", the cross-entropy's sums over rows
-(and the MoE routing's, ``models.moe.route``) add up the axis's ranks,
-so that every rank's loss is the worker's.
+more than one rank, ``apply_train`` runs the tensor-parallel split
+(``models.tp``; ``sharding.rules.model_split``) on this rank's pieces
+(``shard_params``): the embedding and unembedding split on the
+vocabulary, frame inputs' ``frontend`` column-split and gathered back to
+the whole residual, the attention heads (GQA, MLA or the cross-attention
+to the vision tokens), the Mamba-2 mixer's heads and the MLP's hidden
+dimension column- then row-split, the MoE layer's experts split over the
+axis, the dense prefix and the MTP head split alike.  It reads the axis
+once and hands it to every layer, so that a layer recomputed under
+``torch.utils.checkpoint`` splits as its forward pass did.  Where the
+pieces are split over another axis too (``ModelAxis.data``: "data" under
+fsdp_tp; under zero3, whose pass is not split otherwise, "model"
+itself), each layer's leaves are gathered over it at the start of its
+step in the period loop (``tp.gather_from_data``), so that under remat
+they are gathered again in the recompute; the leaves outside the loop
+once a step, where ``apply_train`` uses them.  With the worker's rows
+split over that axis, the cross-entropy's sums over rows (and the MoE
+routing's, ``models.moe.route``) add up the axis's ranks, so that every
+rank's loss is the worker's.
 
 Gradients are taken with ``torch.autograd.grad`` over the tree's leaves.
 Modality stubs: hubert consumes precomputed frame embeddings, the VLM
@@ -215,10 +215,12 @@ def _apply_layer(
     tp=None,
     held=None,
     ff=0,
+    rows=None,
 ):
     """Returns (x, new_cache, aux) where aux = (lb_loss, z_loss).  ``tp``:
     the ``ModelAxis`` of the split, or None; ``held``: the layer's held
-    specs under it; ``ff``: a dense MLP's hidden width (0: ``d_ff``)."""
+    specs under it; ``ff``: a dense MLP's hidden width (0: ``d_ff``);
+    ``rows``: the axis the worker's rows are split over, or None."""
     h = rmsnorm(layer["norm1"], x)
     new_cache = cache
     if mixer == "attn":
@@ -259,7 +261,7 @@ def _apply_layer(
     else:
         mo = moe_mod.moe_forward(layer["mlp"], cfg, h,
                                  capacity_factor=cfg.capacity_factor, tp=tp,
-                                 held=held and held["mlp"])
+                                 held=held and held["mlp"], rows=rows)
         x = x + mo.out
         if "mlp_dense" in layer:
             x = x + swiglu_forward(layer["mlp_dense"], h, tp=tp,
@@ -390,10 +392,16 @@ def gather_params(pieces, mesh, cfg: ModelConfig, mode: str = "tp"):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, cfg: ModelConfig, batch, tp=None):
-    """The input embedding; ``tp``: the axis the embedding's vocabulary
-    is split over, or None."""
+    """The input embedding; ``tp``: the axis it is split over (the
+    vocabulary's rows of ``embed``, or the output columns of frame
+    inputs' ``frontend``), or None."""
     if cfg.input_kind == "frames":
-        x = batch["frames"].to(cfg.jdtype) @ params["frontend"]
+        x = batch["frames"].to(params["frontend"].dtype) @ params["frontend"]
+        if tp is not None:
+            # a column split, gathered back to the whole residual: its
+            # backward keeps this rank's columns of a gradient that is the
+            # same on every rank (the layers' copy_to_model summed it)
+            x = tp_mod.gather_replicated(x, tp, -1)
     elif tp is not None:
         x = tp_mod.vocab_parallel_embed(params["embed"], batch["tokens"], tp)
     else:
@@ -448,33 +456,33 @@ def _unstack(tree, n: int, tp=None, held=None, data=None) -> list:
             for i in range(n)]
 
 
-def _whole_over_data(tree, tp):
+def _whole_over_data(tree, data):
     """A layer's tree (``_unstack``) with each ``tp.DataSlice`` gathered
-    over "data" (inside a ``tp.LayerSlice`` too, before the fetch from
-    the owner: the ranks of a "data" group share their "model"
-    coordinate, so they are owners or anchors together)."""
-    if tp is None or tp.data is None:
+    over ``data`` (the ``DataAxis``; inside a ``tp.LayerSlice`` too,
+    before the fetch from the owner: the ranks of a "data" group share
+    their "model" coordinate, so they are owners or anchors together)."""
+    if data is None:
         return tree
     leaves, treedef = tree_flatten(tree)
 
     def whole(x):
         if isinstance(x, tp_mod.DataSlice):
-            return x.whole(tp.data)
+            return x.whole(data)
         if isinstance(x, tp_mod.LayerSlice) and isinstance(
                 x.local, tp_mod.DataSlice):
-            return tp_mod.LayerSlice(x.local.whole(tp.data), x.owner)
+            return tp_mod.LayerSlice(x.local.whole(data), x.owner)
         return x
 
     return tree_unflatten(treedef, [whole(x) for x in leaves])
 
 
-def _data_of(tp, key):
-    """(the "data" specs, the gradient sinks) of ``params[key]`` under
-    fsdp_tp's "data" split, or None."""
-    if tp is None or tp.data is None:
+def _data_of(data, key):
+    """(the specs on ``data``'s axis, the gradient sinks) of
+    ``params[key]``, or None."""
+    if data is None:
         return None
-    sinks = tp.data.sinks
-    return tp.data.held[key], None if sinks is None else sinks[key]
+    sinks = data.sinks
+    return data.held[key], None if sinks is None else sinks[key]
 
 
 def _specs(held):
@@ -510,9 +518,12 @@ def _maybe_remat(cfg: ModelConfig, fn):
 
 
 def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
-               caches=None, cache_index=None, window=0, tp=None):
+               caches=None, cache_index=None, window=0, tp=None, data=None,
+               rows=None):
     """Run the prefix layers then the periodic body (``tp``: the split's
-    axis, or None).
+    axis, or None; ``data``: the ``DataAxis`` each layer's leaves are
+    gathered over, or None; ``rows``: the axis the worker's rows are split
+    over, or None).
 
     ``caches``: None (training/prefill without cache) or a dict
     {"prefix": stacked, "body": tuple of stacked per position} matching
@@ -521,16 +532,16 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
     new_caches = {"prefix": None, "body": None}
 
     def prefix_step(h, aux, layer, cache):
-        layer = _whole_over_data(layer, tp)
+        layer = _whole_over_data(layer, data)
         h, nc, (lb, zl) = _apply_layer(
             layer, cfg, "attn", "dense", h, positions=positions, vision=vision,
             cache=cache, cache_index=cache_index, window=window, tp=tp,
-            held=prefix_held, ff=cfg.first_dense_ff,
+            held=prefix_held, ff=cfg.first_dense_ff, rows=rows,
         )
         return h, aux + torch.stack([lb, zl]), nc
 
     def body_step(h, aux, layers, caches_slice):
-        layers = _whole_over_data(layers, tp)
+        layers = _whole_over_data(layers, data)
         new_slices = []
         for pos in range(cfg.period):
             cache = None if caches_slice is None else caches_slice[pos]
@@ -538,7 +549,7 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
                 layers[pos], cfg, cfg.mixer_pattern[pos], cfg.mlp_pattern[pos], h,
                 positions=positions, vision=vision, cache=cache,
                 cache_index=cache_index, window=window, tp=tp,
-                held=layer_held[pos],
+                held=layer_held[pos], rows=rows,
             )
             aux = aux + torch.stack([lb, zl])
             new_slices.append(nc)
@@ -552,7 +563,7 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
         held = None if tp is None else tp.held["prefix"]
         prefix_held = held and _layer_held(held)
         layers = _unstack(params["prefix"], n, tp, held,
-                          _data_of(tp, "prefix"))
+                          _data_of(data, "prefix"))
         pc = None if caches is None else _unstack(caches["prefix"], n)
         out = []
         for i in range(n):
@@ -565,9 +576,9 @@ def _run_stack(params, cfg: ModelConfig, x, *, positions, vision=None,
     n = cfg.n_periods
     body_held = (None,) * cfg.period if tp is None else tp.held["body"]
     layer_held = [h and _layer_held(h) for h in body_held]
-    data = _data_of(tp, "body")
-    per_pos = [_unstack(p, n, tp, h, data and (data[0][pos], data[1] and
-                                               data[1][pos]))
+    body = _data_of(data, "body")
+    per_pos = [_unstack(p, n, tp, h, body and (body[0][pos], body[1] and
+                                               body[1][pos]))
                for pos, (p, h) in enumerate(zip(params["body"], body_held))]
     per_pos_caches = (None if caches is None
                       else [_unstack(c, n) for c in caches["body"]])
@@ -614,9 +625,10 @@ def _chunked_ce(cfg, h, unembed, targets, valid, tp=None, rows=None):
     (B, S, vocab) tensor never exists at once.  With ``tp``, the axis the
     unembedding's vocabulary is split over, each chunk's cross-entropy is
     the vocabulary-parallel one (its all-reduces run again when the chunk
-    is recomputed).  With ``rows``, the "data" axis the worker's rows are
-    split over, the loss's sum and its count of valid positions add up
-    the axis's ranks, whether or not the vocabulary is split."""
+    is recomputed).  With ``rows``, the axis the worker's rows are split
+    over, the loss's sum and its count of valid positions add up the
+    axis's ranks, whether or not the vocabulary is split (a masked loss's
+    count differs from rank to rank)."""
     B, S, D = h.shape
     Q = min(cfg.logit_chunk, S)
     n_chunks = -(-S // Q)
@@ -648,60 +660,53 @@ def _positions(B, S, device):
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def _top_whole_over_data(params, tp):
-    """``params`` with the leaves outside the period loop (the embedding,
-    the unembedding, the MTP head) gathered over "data" once, where they
-    are split over it (fsdp_tp); the stacked prefix and body are gathered
-    a layer at a time in their steps."""
-    if tp.data is None:
-        return params
+def _top_whole_over_data(params, data):
+    """``params`` with the leaves outside the period loop (the embedding
+    or the frame projection, the unembedding, the MTP head) gathered over
+    ``data`` (the ``DataAxis``) once, where they are split over it; the
+    stacked prefix and body are gathered a layer at a time in their
+    steps."""
     out = dict(params)
     for key in out:
         if key in ("prefix", "body"):
             continue
-        dspecs, dsinks = _data_of(tp, key)
+        dspecs, dsinks = _data_of(data, key)
         leaves, treedef = tree_flatten(out[key])
         specs = _specs(dspecs)[0]
         sinks = ([None] * len(leaves) if dsinks is None
                  else tree_flatten(dsinks, is_leaf=lambda x: x is None)[0])
         out[key] = tree_unflatten(treedef, [
             x if not any(sp) else tp_mod.gather_from_data(
-                x, tp.data, next(j for j, e in enumerate(sp) if e), sk)
+                x, data, next(j for j, e in enumerate(sp) if e), sk)
             for x, sp, sk in zip(leaves, specs, sinks)])
     return out
 
 
 def apply_train(params, cfg: ModelConfig, batch):
     """Next-token (or masked-prediction) training loss.  Returns (loss, aux
-    dict).  Inside a ``model_axis`` block of more than one rank, the
-    tensor-parallel split on this rank's pieces (module docstring): the
-    same loss on every rank of the axis."""
-    tp = current_model_axis()
-    held = None
-    if tp is not None:
-        from repro_torch.sharding.rules import model_split
-
-        if model_split(cfg) != "tp":
-            raise ValueError(
-                f"{cfg.name}: the tensor-parallel split covers token inputs "
-                "only (with vision tokens for cross-attention), not frame "
-                f"inputs (sharding.rules.model_split is "
-                f"{model_split(cfg)!r}); run it whole, outside a model_axis "
-                "block")
-        held = tp.held
-        params = _top_whole_over_data(params, tp)
-    # the axes the embedding and the unembedding are split over, or None
-    tp_embed = tp if held and tp_mod.split_on(held["embed"], 0) else None
+    dict).  Inside a ``model_axis`` block (module docstring), the split on
+    this rank's pieces: the same loss on every rank of the axis."""
+    axis = current_model_axis()
+    tp = None if axis is None else axis.megatron  # Megatron's split, or None
+    data = None if axis is None else axis.data
+    held = None if tp is None else tp.held
+    if data is not None:
+        params = _top_whole_over_data(params, data)
+    # the axes the embedding (or the frame projection's output columns)
+    # and the unembedding are split over, or None
+    frames = cfg.input_kind == "frames"
+    tp_embed = tp if held and tp_mod.split_on(
+        held["frontend"] if frames else held["embed"], int(frames)) else None
     tp_unembed = tp if held and tp_mod.split_on(held["unembed"], 1) else None
-    # the "data" axis the worker's rows are split over, or None
-    rows = None if tp is None else tp.rows_axis()
+    # the axis the worker's rows are split over, or None
+    rows = None if axis is None else axis.rows_axis()
     x = _embed_inputs(params, cfg, batch, tp_embed)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
     x, _, aux = _run_stack(
         params, cfg, x, positions=positions, vision=vision,
-        window=cfg.sliding_window, tp=tp,
+        window=cfg.sliding_window, tp=tp, data=data, rows=rows,
     )
     h = rmsnorm(params["final_norm"], x)
 
@@ -711,7 +716,8 @@ def apply_train(params, cfg: ModelConfig, batch):
         if valid is None:
             valid = torch.ones(targets.shape, dtype=torch.bool,
                                device=targets.device)
-        loss = _chunked_ce(cfg, h, params["unembed"], targets, valid)
+        loss = _chunked_ce(cfg, h, params["unembed"], targets, valid,
+                           tp_unembed, rows)
     else:
         tokens = batch["tokens"]
         pad = torch.nn.functional.pad
@@ -737,7 +743,7 @@ def apply_train(params, cfg: ModelConfig, batch):
                 hm = hm @ mtp["proj"]
             hm, _, _ = _apply_layer(
                 mtp["layer"], cfg, "attn", "dense", hm, positions=positions,
-                tp=tp, held=mheld and mheld["layer"],
+                tp=tp, held=mheld and mheld["layer"], rows=rows,
             )
             hm = rmsnorm(mtp["norm"], hm)
             t2 = pad(tokens[:, 2:], (0, 2))

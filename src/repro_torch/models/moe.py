@@ -32,16 +32,17 @@ shared experts' row-split partial joins that combine, and one
 the rank's ``split_range`` through ``take``; a rank with no expert adds a
 zero partial and runs the same collectives.
 
-With the worker's rows split over "data" (fsdp_tp with pod workers,
-``ModelAxis.rows_axis``), the routing's sums over tokens are the
-worker's: the load-balance means and the z-loss add up the "data" ranks'
-sums (``tp.reduce_from_data``), the capacity is that of the worker's T
-tokens, and each (token, choice)'s slot counts the earlier "data" ranks'
-tokens through an exclusive prefix of their per-choice counts, so that
-the choices dropped are exactly those of the whole batch.  Each rank then
-scatters its own tokens into its experts' buffers at those slots: the
-buffers stay the worker's capacity (the reference's buffers are
-replicated over "data" too).
+With the worker's rows split over an axis (``rows``: "data" under
+fsdp_tp with pod workers, "model" under zero3; ``ModelAxis.rows_axis``),
+the routing's sums over tokens are the worker's: the load-balance means
+and the z-loss add up the axis's ranks' sums (``tp.reduce_from_data``),
+the capacity is that of the worker's T tokens, and each (token,
+choice)'s slot counts the earlier ranks' tokens through an exclusive
+prefix of their per-choice counts, so that the choices dropped are
+exactly those of the whole batch.  Each rank then scatters its own
+tokens into its experts' buffers at those slots: the buffers stay the
+worker's capacity (the reference's buffers are replicated over the axis
+too).
 """
 from __future__ import annotations
 
@@ -175,7 +176,7 @@ def route(params, cfg, xt, capacity_factor: float, rows=None):
     """The routing half of the layer on tokens ``xt`` (T, D): the gates
     (T, K), the experts (T, K), each (token, choice)'s slot in its
     expert's buffer and whether it was kept, the capacity, and the aux
-    losses (lb, z).  ``rows``: the "data" axis the worker's tokens are
+    losses (lb, z).  ``rows``: the axis the worker's tokens are
     split over (``xt`` this rank's block of them, in rank order), or
     None; the slots, keeps, capacity and losses are then the whole
     batch's."""
@@ -247,10 +248,11 @@ def route(params, cfg, xt, capacity_factor: float, rows=None):
 
 
 def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25, tp=None,
-                held=None):
+                held=None, rows=None):
     """x: (B, S, D).  Returns MoEOutput.  With ``tp`` (a ``ModelAxis``)
-    and ``held`` (the layer's held specs), this rank's block of experts
-    (module docstring)."""
+    and ``held`` (the layer's held specs), this rank's block of experts;
+    ``rows``: the axis the worker's rows are split over, or None (module
+    docstring)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
@@ -258,8 +260,7 @@ def moe_forward(params, cfg, x, *, capacity_factor: float = 1.25, tp=None,
     # the routing, on the replicated tokens under the split: the same on
     # every rank, and so are its gradients (to the router and to x)
     gate_vals, expert_ids, positions, keeps, capacity, (lb_loss, z_loss) = \
-        route(params, cfg, xt, capacity_factor,
-              None if tp is None else tp.rows_axis())
+        route(params, cfg, xt, capacity_factor, rows)
     for tally in _TALLIES:
         tally[0] = tally[0] + torch.sum(~keeps).detach()
     if tp is None:

@@ -15,11 +15,13 @@ enters it around a worker's forward and backward pass;
 ``models.model.apply_train`` reads it once (:func:`current_model_axis`)
 and hands it down, so that a layer recomputed under activation
 checkpointing (in the backward pass, maybe on another thread) splits as
-its forward pass did.  With no context, or an
-axis of size 1, the models run whole, exactly as before.  Under fsdp_tp
-the axis also carries the "data" axis that the held pieces are split
-over (a :class:`DataAxis`): each layer's leaves come whole over it just
-before use (``models.tp.gather_from_data``).
+its forward pass did.  With no context, or an axis of size 1 that
+carries no "data" axis, the models run whole, exactly as before.  The
+axis may also carry the axis that the held pieces are split over besides
+Megatron's (a :class:`DataAxis`): "data" under fsdp_tp, and under zero3,
+whose pass runs whole (``ModelAxis.held`` None: Megatron's split off),
+"model" itself; each layer's leaves come whole over it just before use
+(``models.tp.gather_from_data``).
 
 Logical names:
   "data"   -> batch-like dims      -> ("pod","data") if pod axis else "data"
@@ -69,16 +71,18 @@ _MODEL_AXIS = contextvars.ContextVar("model_axis", default=None)
 
 @dataclasses.dataclass(frozen=True)
 class DataAxis:
-    """The "data" axis that a rank's held pieces are split over besides
-    "model" (fsdp_tp): ``group`` (the ranks that differ only along
-    "data"), this rank's coordinate ``rank``, its ``size``; ``held``, the
-    params tree's ``P`` of the "data" entries of the held specs (the
-    leaves gathered over the axis before use); ``worker``, whether "data"
-    is a worker axis (each of its ranks another worker); ``rows``,
-    whether the worker's batch rows are split over it (a pass's choice:
-    "data" not a worker axis and its size dividing the rows); ``sinks``,
-    where "data" is a worker axis, the tree of buffers (whole over "data")
-    into which the gradient of each gathered leaf is written."""
+    """The axis that a rank's held pieces are split over besides
+    Megatron's: "data" under fsdp_tp, "model" under zero3 (whose pass is
+    not split over "model" otherwise).  ``group`` (the ranks that differ
+    only along the axis), this rank's coordinate ``rank``, its ``size``;
+    ``held``, the params tree's ``P`` of the held specs' entries on the
+    axis (the leaves gathered over it before use); ``worker``, whether it
+    is a worker axis (each of its ranks another worker: fsdp_tp's "data"
+    with "data" workers); ``rows``, whether the worker's batch rows are
+    split over it (a pass's choice: not a worker axis and its size
+    dividing the rows); ``sinks``, where it is a worker axis, the tree of
+    buffers (whole over the axis) into which the gradient of each
+    gathered leaf is written."""
 
     group: object
     rank: int
@@ -107,8 +111,10 @@ class ModelAxis:
     differ only along "model", in coordinate order), this rank's
     coordinate ``rank`` on it, its ``size``, and ``held``: the params
     tree's ``P`` of the "model" pieces (``sharding.rules.held_specs``),
-    from which the models read which leaves are split; ``data``: the
-    :class:`DataAxis` of fsdp_tp's pieces, or None."""
+    from which the models read which leaves are split, or None where
+    Megatron's split is off (zero3; a "model" axis of one rank); ``data``:
+    the :class:`DataAxis` of the pieces held besides Megatron's (fsdp_tp's
+    "data", zero3's "model"), or None."""
 
     group: object
     rank: int
@@ -116,9 +122,15 @@ class ModelAxis:
     held: object = dataclasses.field(compare=False)
     data: Optional[DataAxis] = None
 
+    @property
+    def megatron(self) -> Optional["ModelAxis"]:
+        """This axis where Megatron's split is on, else None: what the
+        models take as ``tp``."""
+        return self if self.held is not None and self.size > 1 else None
+
     def rows_axis(self) -> Optional[DataAxis]:
-        """The "data" axis the worker's rows are split over in this pass,
-        or None: where the sums over rows (the loss's count, the MoE
+        """The axis the worker's rows are split over in this pass, or
+        None: where the sums over rows (the loss's count, the MoE
         routing's means and slots) must add up the axis's ranks."""
         return self.data if self.data is not None and self.data.rows \
             else None
@@ -142,9 +154,12 @@ class model_axis:
 
 def current_model_axis() -> Optional[ModelAxis]:
     """The :class:`ModelAxis` of the enclosing :class:`model_axis` block,
-    or None when there is none or its size is 1 (nothing is split)."""
+    or None when there is none, or its size is 1 and it carries no
+    :class:`DataAxis` (nothing is split)."""
     axis = _MODEL_AXIS.get()
-    return axis if axis is not None and axis.size > 1 else None
+    if axis is None or (axis.size <= 1 and axis.data is None):
+        return None
+    return axis
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,16 +26,19 @@ out of a whole tensor (the trainer cuts its worker's whole gradient with
 it before the mesh aggregation, ``repro_torch.launch.train``).
 
 Which part of that the model compute follows is :func:`model_split`:
-"tp" for the token decoders (GQA, MHA or MLA attention, the Mamba-2
-mixer, or both interleaved; the SwiGLU MLP, the MoE layer or none; token
-inputs) and the cross-attention decoder (text tokens with vision tokens
-as the cross-attention's keys and values), whose forward and backward
-passes split over "model" as ``models.tp`` writes out, so that a rank
-holds only its pieces (:func:`held_specs`: under fsdp_tp its "data" x
-"model" pieces, each layer's leaves gathered over "data" just before
-use, as the reference's GSPMD gathers them inside its layer scan);
-"replicated" for frame inputs and for zero3, whose ranks hold every
-leaf whole and compute it whole.
+"tp" for every family under "tp" and fsdp_tp (the token decoders: GQA,
+MHA or MLA attention, the Mamba-2 mixer, or both interleaved; the SwiGLU
+MLP, the MoE layer or none; the cross-attention decoder, with vision
+tokens as the cross-attention's keys and values; the audio encoder on
+frame inputs, its ``frontend`` column-split), whose forward and backward
+passes split over "model" as ``models.tp`` writes out; "zero3" under
+zero3, whose pass runs whole on the rank's rows (split over "model"
+where it divides them), each layer's leaves gathered over "model" just
+before use.  Either way a rank holds only its pieces (:func:`held_specs`,
+the reference's ``state_specs``: its ``param_specs`` pieces; under
+fsdp_tp its "data" x "model" pieces, each layer's leaves gathered over
+"data" just before use, as the reference's GSPMD gathers them inside its
+layer scan).
 """
 from __future__ import annotations
 
@@ -100,18 +103,16 @@ _FSDP_THRESHOLD = 60e9
 
 def model_split(cfg, mode: str = "tp") -> str:
     """How a worker's forward and backward pass runs over "model": "tp"
-    (Megatron's column and row split, ``models.tp``) for the decoders
-    whose mixers are attention (GQA or MLA), Mamba-2 (SSM, and the
-    hybrids of both) or cross-attention to vision tokens, whose MLPs are
-    dense, MoE or none (a dense prefix and an MTP head included) and
-    whose inputs are tokens (with vision tokens for cross-attention),
-    under "tp" or "fsdp_tp"; "replicated" (every rank computes the whole
-    pass) for frame inputs, which the split does not cover yet, and
-    under zero3, which by definition splits no model compute."""
-    covered = (set(cfg.mixer_pattern) <= {"attn", "ssm", "cross"}
-               and set(cfg.mlp_pattern) <= {"dense", "moe", "none"}
-               and cfg.input_kind in ("tokens", "tokens+vision"))
-    return "tp" if covered and mode in ("tp", "fsdp_tp") else "replicated"
+    (Megatron's column and row split, ``models.tp``) under "tp" and
+    fsdp_tp, for every family ``models`` builds (attention, GQA or MLA,
+    Mamba-2 and the hybrids of both, cross-attention to vision tokens;
+    dense, MoE or no MLP, a dense prefix and an MTP head included; token
+    or frame inputs); "zero3" under zero3, which splits no model compute:
+    the pass runs whole on the rank's share of the worker's rows, each
+    layer's leaves gathered over "model" (``models.tp.gather_from_data``
+    on the "model" group)."""
+    del cfg  # every family splits
+    return "zero3" if mode == "zero3" else "tp"
 
 
 def needs_fsdp(cfg, param_count: Optional[int] = None) -> bool:
@@ -199,20 +200,12 @@ def only_axis(spec, axes) -> P:
 
 
 def held_specs(mesh, cfg, params_shape, mode: str = "tp"):
-    """Tree of ``P``: the piece of each leaf a rank holds.  Under the "tp"
-    split on a mesh whose "model" axis has more than one rank, the
-    "model" entries of ``param_specs`` and, under fsdp_tp, its "data"
-    entries too (the reference's ``state_specs``: params and g held in
-    "data" x "model" pieces); otherwise every leaf whole.
-    ``params_shape``: the whole tree (meta tensors do)."""
-    split = (model_split(cfg, mode) == "tp"
-             and _sizes(mesh).get("model", 1) > 1)
-    axes = ("data", "model") if mode == "fsdp_tp" else ("model",)
-    leaves, treedef = tree_flatten(
-        param_specs(mesh, cfg, params_shape, mode=mode),
-        is_leaf=lambda x: isinstance(x, P))
-    return tree_unflatten(treedef, [
-        only_axis(sp, axes if split else ()) for sp in leaves])
+    """Tree of ``P``: the piece of each leaf a rank holds, its
+    ``param_specs`` piece (the reference's ``state_specs``): under "tp"
+    its "model" piece, under fsdp_tp its "data" x "model" piece, under
+    zero3 its piece of the "fsdp" slot over "model".  ``params_shape``:
+    the whole tree (meta tensors do)."""
+    return param_specs(mesh, cfg, params_shape, mode=mode)
 
 
 def local_shape(mesh, shape, spec) -> tuple:

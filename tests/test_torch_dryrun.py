@@ -8,10 +8,11 @@ must exit 0 with a JSON of the reference's keys for every combination
 but hubert's decode, which is skipped.  A reference subprocess computes,
 from the reference's own ``param_specs`` on a ``jax.sharding.
 AbstractMesh`` and its ``init_params`` shapes, the bytes of a rank's
-pieces of every leaf; the dry run's held state must be twice that (params
-and g) plus the key and the step for the split (dense) architectures, and
-the whole leaves' for the replicated ones.  The reference also gives
-``abstract_scoring_inputs``'s shapes and dtypes.
+pieces of every leaf, under "tp" and under zero3; the dry run's held
+state must be twice the "tp" pieces (params and g) plus the key and the
+step for every architecture, which all split, and a zero3 trace's twice
+the zero3 pieces.  The reference also gives ``abstract_scoring_inputs``'s
+shapes and dtypes.
 """
 import json
 import os
@@ -29,7 +30,7 @@ KEYS = ("arch", "shape", "multi_pod", "mode", "smoke", "mesh", "n_chips",
         "collectives", "model_split", "rank")
 DENSE = ("minitron_8b", "stablelm_12b", "deepseek_7b", "yi_34b",
          "arctic_480b", "deepseek_v3_671b", "mamba2_780m", "jamba_v01_52b",
-         "llama32_vision_90b")
+         "llama32_vision_90b", "hubert_xlarge")
 TIMEOUT = 900
 
 REF_SCRIPT = r"""
@@ -41,7 +42,7 @@ from repro.launch.serve import abstract_scoring_inputs
 from repro.models.model import init_params
 from repro.sharding.rules import param_specs
 
-out = {"pieces": {}, "whole": {}}
+out = {"pieces": {}, "whole": {}, "zero3": {}}
 for mesh_name, sizes, names in (("2x2", (2, 2), ("data", "model")),
                                 ("2x2x2", (2, 2, 2), ("pod", "data", "model"))):
     mesh = jax.sharding.AbstractMesh(sizes, names)
@@ -50,20 +51,22 @@ for mesh_name, sizes, names in (("2x2", (2, 2), ("data", "model")),
         cfg = get_smoke_config(arch)
         shapes = jax.eval_shape(partial(init_params, cfg=cfg),
                                 jax.random.PRNGKey(0))
-        specs = param_specs(mesh, cfg, shapes, mode="tp")
-        piece = whole = 0
-        for leaf, sp in zip(jax.tree_util.tree_leaves(shapes),
-                            jax.tree_util.tree_leaves(
-                                specs, is_leaf=lambda x: isinstance(
-                                    x, jax.sharding.PartitionSpec))):
-            n = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
-            whole += n
-            for entry in sp:
-                for ax in (entry if isinstance(entry, tuple) else (entry,)):
-                    if ax is not None:
-                        n //= shape[ax]
-            piece += n
-        out["pieces"][f"{arch}@{mesh_name}"] = piece
+        for mode, key in (("tp", "pieces"), ("zero3", "zero3")):
+            specs = param_specs(mesh, cfg, shapes, mode=mode)
+            piece = whole = 0
+            for leaf, sp in zip(jax.tree_util.tree_leaves(shapes),
+                                jax.tree_util.tree_leaves(
+                                    specs, is_leaf=lambda x: isinstance(
+                                        x, jax.sharding.PartitionSpec))):
+                n = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+                whole += n
+                for entry in sp:
+                    for ax in (entry if isinstance(entry, tuple)
+                               else (entry,)):
+                        if ax is not None:
+                            n //= shape[ax]
+                piece += n
+            out[key][f"{arch}@{mesh_name}"] = piece
         out["whole"][f"{arch}@{mesh_name}"] = whole
 out["scoring"] = [[list(s.shape), str(s.dtype)]
                   for s in abstract_scoring_inputs(3, 5, 7)]
@@ -161,8 +164,7 @@ def test_smoke_sweep_writes_every_combination(runs, mesh):
             assert rec["n_chips"] == (4 if mesh == "2x2" else 8)
             assert rec["cost"]["flops"] > 0, (arch, shape)
             assert rec["memory"]["temp_size_in_bytes"] > 0, (arch, shape)
-            want = ("tp" if arch in DENSE else "replicated") \
-                if rec["mode"] == "train" else "none"
+            want = "tp" if rec["mode"] == "train" else "none"
             assert rec["model_split"] == want, (arch, shape)
 
 
@@ -177,10 +179,12 @@ def test_held_state_bytes_follow_the_reference_specs(runs, mesh):
         if rec["mode"] != "train":
             continue
         key = f"{arch}@{mesh}"
-        params = ref["pieces"][key] if arch in DENSE else ref["whole"][key]
-        assert rec["state_bytes"] == 2 * params + extra, (arch, rec)
-        if arch in DENSE:  # the split's collectives ran
-            assert rec["collectives"]["bytes"]["all-reduce"] > 0
+        assert arch in DENSE
+        assert rec["state_bytes"] == 2 * ref["pieces"][key] + extra, \
+            (arch, rec)
+        assert ref["pieces"][key] < ref["whole"][key], arch
+        # the split's collectives ran
+        assert rec["collectives"]["bytes"]["all-reduce"] > 0
 
 
 def test_full_size_minitron_holds_a_sixteenth_of_the_split_leaves():
@@ -390,3 +394,29 @@ def test_smoke_fsdp_held_bytes_are_the_param_specs_pieces(mesh):
     kinds = rec["collectives"]["bytes"]
     assert kinds["all-gather"] > 0
     assert ("reduce-scatter" in kinds) == pods, kinds
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_smoke_zero3_held_bytes_are_the_reference_zero3_pieces(runs, mesh):
+    """deepseek-v3's smoke config traced under zero3 by ``run_one``: the
+    held state is twice the reference's zero3 pieces (the "fsdp" slots
+    over "model", computed in ``REF_SCRIPT``) plus the key and the step;
+    each layer is gathered over "model" and, the worker's rows split over
+    it, the gathered leaves' gradients reduce-scattered."""
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.train import ByzTrainConfig, train_key
+
+    arch = "deepseek_v3_671b"
+    _, ref = runs()
+    tc = ByzTrainConfig(shard_mode="zero3", n_byz=1)
+    rec = run_one(arch, "train_4k", multi_pod=False, smoke=True, mesh=mesh,
+                  train_cfg=tc, out_dir="", verbose=False)
+    assert "not_traced" not in rec, rec
+    assert rec["model_split"] == "zero3"
+    key = f"{arch}@{mesh}"
+    extra = train_key(0).numel() + 4  # the generator's state, the step
+    assert rec["state_bytes"] == 2 * ref["zero3"][key] + extra, \
+        (rec["state_bytes"], ref["zero3"][key])
+    assert ref["zero3"][key] < ref["whole"][key]
+    kinds = rec["collectives"]["bytes"]
+    assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0, kinds

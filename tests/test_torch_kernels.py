@@ -448,8 +448,9 @@ def test_build_starts_nvcc_and_returns(monkeypatch, tmp_path):
     """``_build.start_all`` starts one nvcc per source and returns before
     they end (the caller runs other work meanwhile); ``finish_all`` waits,
     keeps each nvcc's output as the library's build log, and raises after
-    every nvcc has ended when one failed.  A stand-in nvcc script plays
-    the compiler (this container has none)."""
+    every nvcc has ended when one failed, and gives each source's nvcc
+    seconds.  A stand-in nvcc script plays the compiler (this container
+    has none)."""
     import os
     import time
 
@@ -469,7 +470,10 @@ def test_build_starts_nvcc_and_returns(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     started = _build.start_all(("row_norms", "clipped_diff"))
     assert time.perf_counter() - started[0] < 0.4  # nvcc still running
-    assert _build.finish_all(started) >= 0.5
+    seconds = {}
+    assert _build.finish_all(started, seconds) >= 0.5
+    assert sorted(seconds) == ["clipped_diff", "row_norms"]
+    assert all(0.4 < v < 5 for v in seconds.values()), seconds
     assert "Used 32 registers" in _build.build_log("row_norms")
     assert _build._lib_path("clipped_diff").exists()
     assert _build.build_all(("row_norms",)) < 0.4  # built: no nvcc

@@ -98,11 +98,10 @@ def test_batch_and_cache_specs_match_the_reference(arch, mesh_name):
 @pytest.mark.parametrize("arch", list_archs())
 def test_fsdp_held_specs_are_the_reference_state_specs(shapes, arch,
                                                        mesh_name):
-    """Under fsdp_tp a rank of a split family holds the reference's state
+    """Under fsdp_tp a rank of every family holds the reference's state
     pieces (its ``state_specs`` are ``param_specs``): the "data" and the
-    "model" entries (the cross-attention decoder's too); the replicated
-    family, frame inputs, holds every leaf whole; under "tp" the "model"
-    entries alone."""
+    "model" entries (the cross-attention decoder's and the audio
+    encoder's too); under "tp" the "model" entries alone."""
     sizes, names = MESHES[mesh_name]
     rmesh, tmesh = RMesh(sizes, names), AbstractMesh(sizes, names)
     rshape, tshape = shapes[arch]
@@ -110,11 +109,8 @@ def test_fsdp_held_specs_are_the_reference_state_specs(shapes, arch,
     want = _ref_specs(R.param_specs(rmesh, ref_config(arch), rshape,
                                     mode="fsdp_tp"))
     got = _port_specs(T.held_specs(tmesh, cfg, tshape, "fsdp_tp"))
-    if T.model_split(cfg, "fsdp_tp") == "tp":
-        assert got == want, (arch, mesh_name)
-        assert any("data" in sp for sp in got), arch
-    else:
-        assert cfg.input_kind == "frames", arch
-        assert all(not any(sp) for sp in got), arch
+    assert T.model_split(cfg, "fsdp_tp") == "tp", arch
+    assert got == want, (arch, mesh_name)
+    assert any("data" in sp for sp in got), arch
     tp = _port_specs(T.held_specs(tmesh, cfg, tshape, "tp"))
     assert all("data" not in sp for sp in tp), arch

@@ -19,7 +19,15 @@ One spawn of 4 ranks does all the work, in a module-scoped fixture:
   a logit chunk of 8 so that the cross-entropy runs over chunks;
 * the held pieces' shapes, which must be ``param_specs``'s local ones,
   and ``gather_params`` of the pieces, which must give the whole params
-  back bit for bit.
+  back bit for bit;
+* frame inputs (hubert-xlarge's smoke config) on the same meshes: the
+  front end and one encoder layer (the frame projection column-split and
+  gathered back to the residual, the non-causal attention and the MLP)
+  against the whole in f32 and f64 (the layers' f32 casts made f64), and
+  the whole smoke model as TINY is, with its vocabulary of 64 split and
+  with one of 63, which no "model" axis here divides (the unembedding
+  whole beside a split frame projection; the masked cross-entropy's sums
+  over the kept positions).
 """
 import numpy as np
 import pytest
@@ -36,6 +44,10 @@ GRAD_REL = 2e-6
 LOSS_RTOL = 1e-6
 MESHES = ((2, 2), (1, 4))
 SPAWN_TIMEOUT = 300
+# frame inputs: the smoke config's vocabulary, and one "model" does not
+# divide; the front end and layer of max-abs in f32 and in f64
+FRAMES_VOCABS = (64, 63)
+FRAMES_REL = {"f32": 1e-5, "f64": 1e-12}
 
 
 def _gradchecks(axis):
@@ -135,19 +147,81 @@ def _split_vs_whole(mesh, cfg=None, params=None):
     return loss, whole_loss, worst, shapes, want, same
 
 
+def _frames_layer_vs_whole(mesh, cfg, dtype):
+    """The frame front end and one encoder layer of ``cfg`` split on
+    ``mesh`` against the whole, in ``dtype`` (the layers' f32 casts made
+    ``dtype``): the worst error of max-abs over the output and every
+    gradient piece, and whether the frame projection was split."""
+    from repro_torch.core.tree_utils import (tree_flatten, tree_map,
+                                             tree_unflatten)
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.launch.train import model_axis_of
+    from repro_torch.models import init_params, layers, model
+    from repro_torch.models.model import shard_params
+    from repro_torch.models.tp import split_on
+
+    cfg = cfg.replace(n_layers=1)
+    params = tree_map(lambda x: x.to(dtype), init_params(0, cfg,
+                                                         device="cpu"))
+    frames = next(make_batch_iterator(cfg, 2, 32, seed=3, device="cpu"))[
+        "frames"].to(dtype)
+    ct = torch.randn(2, 32, cfg.d_model, dtype=dtype,
+                     generator=torch.Generator().manual_seed(4))
+    axis = model_axis_of(mesh, cfg)
+    split = bool(split_on(axis.held["frontend"], 1))
+
+    def run(p, tp):
+        leaves, treedef = tree_flatten(p)
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        tree = tree_unflatten(treedef, leaves)
+        x = model._embed_inputs(tree, cfg, {"frames": frames},
+                                tp if split else None)
+        x, _, _ = model._run_stack(tree, cfg, x, positions=model._positions(
+            2, 32, "cpu"), tp=tp)
+        return [x.detach(), *torch.autograd.grad((x * ct).sum(), leaves,
+                                                 allow_unused=True)]
+
+    f32 = layers.F32
+    layers.F32 = model.F32 = dtype
+    try:
+        whole = run(params, None)
+        got = run(shard_params(params, mesh, cfg), axis)
+    finally:
+        layers.F32 = model.F32 = f32
+    treedef = tree_flatten(params)[1]
+    want = [whole[0], *tree_flatten(shard_params(tree_unflatten(
+        treedef, [torch.zeros(()) if g is None else g for g in whole[1:]]),
+        mesh, cfg), is_leaf=lambda x: x is None)[0]]
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a is not None:  # the final norm and the unembedding are unused
+            worst = max(worst, float((a - b).abs().max() /
+                                     b.abs().max().clamp(min=1e-300)))
+    return worst, split
+
+
 def _tp_job(rank):
+    from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.train import model_axis_of
     from repro_torch.models import ModelConfig
 
     torch.set_num_threads(1)
     out = {}
+    hubert = get_smoke_config("hubert_xlarge").replace(dtype="float32",
+                                                       logit_chunk=8)
     for shape in MESHES:
         mesh = make_debug_mesh(*shape)
         if shape == (2, 2):
             out["gradcheck"] = _gradchecks(
                 model_axis_of(mesh, ModelConfig(**TINY)))
         out[shape] = _split_vs_whole(mesh)
+        for vocab in FRAMES_VOCABS:
+            out[("frames", shape, vocab)] = _split_vs_whole(
+                mesh, hubert.replace(vocab=vocab))
+        for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            out[("frames-layer", shape, name)] = _frames_layer_vs_whole(
+                mesh, hubert, dtype)
     return out
 
 
@@ -184,32 +258,43 @@ def test_held_pieces_have_param_specs_local_shapes(results, shape):
         assert same, rank
 
 
+@pytest.mark.parametrize("vocab", FRAMES_VOCABS)
+@pytest.mark.parametrize("shape", MESHES, ids=["2x2", "1x4"])
+def test_frames_split_matches_whole(results, shape, vocab):
+    for rank, out in enumerate(results):
+        loss, whole_loss, worst, shapes, want, same = out[("frames", shape,
+                                                           vocab)]
+        assert loss == pytest.approx(whole_loss, rel=LOSS_RTOL), rank
+        assert worst <= FRAMES_REL["f32"], (rank, worst)
+        assert shapes == want, rank
+        assert same, rank
+    assert len({out[("frames", shape, vocab)][0] for out in results}) == 1
+
+
+@pytest.mark.parametrize("dtype", list(FRAMES_REL))
+@pytest.mark.parametrize("shape", MESHES, ids=["2x2", "1x4"])
+def test_frames_layer_split_matches_whole(results, shape, dtype):
+    for rank, out in enumerate(results):
+        worst, split = out[("frames-layer", shape, dtype)]
+        assert split, rank  # the frame projection column-split
+        assert worst <= FRAMES_REL[dtype], (rank, worst)
+
+
 def test_model_split_names_the_dense_family():
+    """Every family splits over "model" under "tp" and fsdp_tp, the audio
+    encoder on frame inputs too; zero3 splits no model compute (its pass
+    runs whole on the rank's rows, each layer gathered over "model")."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.registry import list_archs
     from repro_torch.sharding.rules import model_split
 
     dense = {"minitron_8b", "yi_34b", "stablelm_12b", "deepseek_7b",
              "arctic_480b", "deepseek_v3_671b", "mamba2_780m",
-             "jamba_v01_52b", "llama32_vision_90b"}
+             "jamba_v01_52b", "llama32_vision_90b", "hubert_xlarge"}
+    assert dense == set(list_archs())
     for arch in list_archs():
-        want = "tp" if arch in dense else "replicated"
-        assert model_split(get_config(arch)) == want, arch
-        assert model_split(get_smoke_config(arch)) == want, arch
-        assert model_split(get_config(arch), "zero3") == "replicated"
+        assert model_split(get_config(arch)) == "tp", arch
+        assert model_split(get_smoke_config(arch)) == "tp", arch
+        assert model_split(get_config(arch), "zero3") == "zero3"
     assert np.all([model_split(get_config(a), "fsdp_tp") == "tp"
                    for a in dense])
-
-
-def test_split_refuses_a_family_it_does_not_cover():
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import apply_train, init_params
-    from repro_torch.sharding.constraints import ModelAxis, model_axis
-
-    cfg = get_smoke_config("hubert_xlarge").replace(dtype="float32")
-    params = init_params(0, cfg, device="meta")
-    frames = torch.zeros((1, 8, cfg.frame_dim), device="meta")
-    targets = torch.zeros((1, 8), dtype=torch.int32, device="meta")
-    with model_axis(ModelAxis(None, 0, 2, None)):
-        with pytest.raises(ValueError, match="not frame inputs"):
-            apply_train(params, cfg, {"frames": frames, "targets": targets})

@@ -15,24 +15,26 @@ placement; gauss with mean on the sharded placement and ``fsdp_tp``, at
 gamma 1e-3 (at 0.3 the full round's unclipped mean of the 10-sigma noise
 moves every weight by ~0.75, and from there the two packages' rounding
 differences grow to 0.3 of a leaf in one step); the default plan under
-``zero3``, which splits no model compute (the trainer's replicated
-branch: whole gradients, cut for the aggregation and all-gathered back);
-and the default plan again on (2, 4), two workers, where the "model"
+``zero3``, which splits no model compute: each rank holds its pieces of
+the "fsdp" slots over "model", gathers each leaf over "model" in the
+pass, runs its share of the worker's rows (2 rows, split over "model")
+and reduce-scatters the gathered leaves' gradients; and the default
+plan again on (2, 4), two workers, where the "model"
 axis of 4 cuts ``wk`` and ``wv`` into half kv heads and leaves the
 stacked MLP leaves whole.  The
 reference's state is placed per its ``state_specs`` and the step's
 output shardings pinned to them, as examples/train_marina_pp.py places
 it, so that its step compiles once.  One spawn of 8 ranks replays them
-on a ``TrainTape``.  Each rank holds its pieces under the
-tensor-parallel split (``held_specs``: the "model" entries of
-``param_specs``, and under fsdp_tp its "data" entries too) and computes
-its worker's gradient of them only (under fsdp_tp each layer's leaves
+on a ``TrainTape``.  Each rank holds its ``param_specs`` pieces
+(``held_specs``: the "model" entries, under fsdp_tp the "data" entries
+too, under zero3 the "fsdp" slots over "model") and computes its
+worker's gradient of them only (under fsdp_tp each layer's leaves
 gathered over "data", the worker's gradient of them kept whole over
 "data", "data" being the worker axis); its params and g must have
 exactly ``param_specs``'s local shapes (every split run) and lie within
 1e-5 of each leaf's max-abs of the matching slices of the reference's
 after every step (the port's f32 arithmetic differs from XLA's by
-reduction order), and under "tp" the ranks along "data" (the same
+reduction order), and outside fsdp_tp the ranks along "data" (the same
 pieces) must equal each other bit for bit.
 
 The port's own draws: the example module (``repro_torch.train_marina_pp
@@ -271,9 +273,9 @@ def _replay_job(rank, ref_path, spec=TINY, runs=RUNS, loose=()):
     leaf's max-abs) of its pieces against the reference's slices, the raw
     bytes of params and g, and whether every leaf has ``param_specs``'s
     local shape; with the run's "model" coordinate, the collectives of
-    its first difference round, whether its model compute was replicated
-    (no ``model_axis_of``) and the collectives of one worker gradient at
-    the starting params.  Leaves named in ``loose`` (the last key on their
+    its first difference round, whether its pass ran whole (no
+    ``model_axis_of``) and the collectives of one worker gradient at the
+    starting params.  Leaves named in ``loose`` (the last key on their
     path) are left out of a step's worst error, and their own worst error
     is appended to the step's row."""
     import hashlib
@@ -445,16 +447,17 @@ def test_trainer_follows_the_reference_on_eight_ranks(replay):
                 assert worst <= REL, (rank, name, k, worst)
                 if configs[config].shard_mode == "fsdp_tp":
                     continue  # each rank its own "data" x "model" piece
-                # the ranks along "data" hold the same pieces; where the
-                # compute is replicated, every rank holds the same whole g
+                # the ranks along "data" hold the same pieces
+                assert not replicated, (rank, name)
                 same = [o[name][1][k][1] for o in results
-                        if replicated or o[name][0] == coord]
+                        if o[name][0] == coord]
                 assert len(same) > 1 and set(same) == {digest}, \
                     (rank, name, k)
 
 
 @pytest.mark.parametrize("run", ["default-bf", "alie-randk-naive",
-                                 "default-bf-2x4", "gauss-mean-fsdp"])
+                                 "default-bf-2x4", "gauss-mean-fsdp",
+                                 "default-zero3"])
 def test_trainer_ranks_hold_param_specs_pieces(replay, run):
     _, results = replay
     for rank, out in enumerate(results):
@@ -491,15 +494,18 @@ def test_trainer_collectives_of_the_split(replay):
         assert {"all_gather", "all_reduce"} <= set(out["alie-randk-naive"][2])
 
 
-def test_trainer_replicated_branch_gathers_the_aggregate_back(replay):
-    """zero3 splits no model compute (``model_split`` "replicated"): each
-    rank computes its worker's whole gradient, cuts its piece per
-    ``param_specs`` (the "fsdp" slots on "model"), and all-gathers the
-    aggregated pieces back to whole leaves over "model"; its replay
-    against the reference (whole g, every rank the same) is
+def test_zero3_gathers_no_aggregate_and_reduce_scatters_gradients(replay):
+    """zero3 splits no model compute: each rank holds its pieces of the
+    "fsdp" slots over "model" (``param_specs`` under zero3), gathers each
+    split leaf whole over "model" in the pass and, the worker's 2 rows
+    split over "model", reduce-scatters the gathered leaves' gradients;
+    the aggregate is the held piece, so nothing is gathered back.  Its
+    replay against the reference is
     ``test_trainer_follows_the_reference_on_eight_ranks``.  In a
     difference round a rank all-gathers the W clip factors, per leaf the
-    sharded placement's chunks of its piece, and each split leaf whole."""
+    sharded placement's chunks of its piece, and each split leaf whole
+    once a gradient (two: at x^{k+1} and at x^k), and reduce-scatters
+    each split leaf's whole gradient once a gradient."""
     from repro_torch.core.tree_utils import tree_flatten
     from repro_torch.launch.mesh import P
     from repro_torch.models import ModelConfig, init_params
@@ -513,13 +519,17 @@ def test_trainer_replicated_branch_gathers_the_aggregate_back(replay):
         0, cfg, device="meta"), "zero3"), is_leaf=lambda x: isinstance(x, P))[0]
     pieces = [int(np.prod(local_shape(mesh, x.shape, sp)))
               for x, sp in zip(whole, specs)]
-    back = sum(4 * x.numel() for x, sp in zip(whole, specs) if any(sp))
-    assert back > 0
-    want = 4 * W + sum(4 * (-(-n // W)) * W for n in pieces) + back
+    split = sum(4 * x.numel() for x, sp in zip(whole, specs) if any(sp))
+    assert split > 0
+    want = 4 * W + sum(4 * (-(-n // W)) * W for n in pieces) + 2 * split
     _, results = replay
     for rank, out in enumerate(results):
-        assert out["default-zero3"][3], rank
-        assert not any(out[name][3] for name, _, _ in RUNS
-                       if name != "default-zero3"), rank
-        counts = out["default-zero3"][2]
+        assert not out["default-zero3"][3], rank
+        counts, one = out["default-zero3"][2], out["default-zero3"][4]
         assert counts["all_gather"]["bytes"] == want, (rank, counts)
+        assert counts["reduce_scatter"]["bytes"] == 2 * split, (rank, counts)
+        # one worker gradient: each split leaf gathered and its gradient
+        # reduce-scattered once, the whole leaves' gradients all-reduced
+        assert one["all_gather"]["bytes"] == split, (rank, one)
+        assert one["reduce_scatter"]["bytes"] == split, (rank, one)
+        assert one["all_reduce"]["calls"] >= 1, (rank, one)

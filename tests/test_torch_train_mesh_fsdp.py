@@ -29,11 +29,16 @@ on all of them (the same slots, keeps, capacity, load-balance and z
 losses, with choices dropped), and the mamba2 and jamba smoke configs
 under fsdp_tp (rows split over "data", and "data" a worker axis), TINY
 with a vocabulary of 255, which "model" does not divide, and the
-llama-3.2-vision smoke config with its gates opened (both with their
-rows split over "data", the vision rows with the tokens), against the
-whole model: the same loss, gradient pieces within 1e-5 of max-abs; and
-the llama-3.2-vision case once more in f64 (the layers' f32 casts made
-f64), within 1e-12.
+llama-3.2-vision smoke config with its gates opened and the hubert-xlarge
+smoke config on frame inputs (each with its rows split over "data", the
+vision rows with the tokens, the frames, targets and mask together),
+against the whole model: the same loss, gradient pieces within 1e-5 of
+max-abs; the llama-3.2-vision case once more in f64 (the layers' f32
+casts made f64), within 1e-12; and the deepseek-v3 and jamba smoke
+configs under zero3 (each rank its pieces of the "fsdp" slots over
+"model", each layer gathered over "model", the rows split over it; and
+v3 on 3 rows, which 2 does not divide, so that every rank runs them all
+and keeps its piece of the gradient), within 1e-5.
 
 JAX runs only in the reference subprocess.
 """
@@ -261,12 +266,14 @@ def _route_checks(data):
     return diffs, (got[4], whole[4]), int((~whole[3]).sum())
 
 
-def _split_checks(arch, mesh_shape, waxes, f64=False):
+def _split_checks(arch, mesh_shape, waxes, f64=False, mode="fsdp_tp",
+                  rows=4):
     """The smoke config of ``arch`` (f32, or with ``f64`` its params, its
     vision rows and the layers' f32 casts f64; or ``SPLIT_MODELS[arch]``)
-    under fsdp_tp on this rank of ``mesh_shape``: (its loss, the whole
-    model's, the worst error of its gradient pieces of max-abs against
-    the slices of the whole gradient, that leaf's index and name)."""
+    under ``mode`` on this rank of ``mesh_shape``, on a batch of
+    ``rows``: (its loss, the whole model's, the worst error of its
+    gradient pieces of max-abs against the slices of the whole gradient,
+    that leaf's index and name)."""
     from repro_torch.api.mesh_exec import _local_piece
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.tree_utils import tree_flatten, tree_map
@@ -287,19 +294,19 @@ def _split_checks(arch, mesh_shape, waxes, f64=False):
         cfg = get_smoke_config(arch).replace(dtype="float32")
     mesh = _mesh(mesh_shape)
     params = open_gates(init_params(0, cfg, device="cpu"), cfg)
-    batch = next(make_batch_iterator(cfg, 4, 32, seed=3, device="cpu"))
+    batch = next(make_batch_iterator(cfg, rows, 32, seed=3, device="cpu"))
     if f64:
         params = tree_map(lambda x: x.double(), params)
         batch = {k: v.double() if v.is_floating_point() else v
                  for k, v in batch.items()}
     with _casts_to(torch.float64 if f64 else None):
         whole = worker_grads(params, cfg, batch)
-        held = shard_params(params, mesh, cfg, "fsdp_tp")
-        axis = model_axis_of(mesh, cfg, "fsdp_tp", waxes)
+        held = shard_params(params, mesh, cfg, mode)
+        axis = model_axis_of(mesh, cfg, mode, waxes)
         got = worker_grads(held, cfg, batch, axis)
-        losses = (train_loss(held, cfg, batch, mesh, "fsdp_tp", waxes),
+        losses = (train_loss(held, cfg, batch, mesh, mode, waxes),
                   train_loss(params, cfg, batch))
-    specs = tree_flatten(held_specs(mesh, cfg, params, "fsdp_tp"),
+    specs = tree_flatten(held_specs(mesh, cfg, params, mode),
                          is_leaf=lambda x: isinstance(x, P))[0]
     names = tree_flatten(_map_with_name(lambda name, _: name, params))[0]
     worst, where = 0.0, None
@@ -347,7 +354,13 @@ SPLITS = (("mamba2_780m", (1, 2, 2), ("pod",)),
           ("jamba_v01_52b", (1, 2, 2), ("pod",)),
           ("jamba_v01_52b", (2, 2), ("data",)),
           ("tiny_v255", (1, 2, 2), ("pod",)),
-          ("llama32_vision_90b", (1, 2, 2), ("pod",)))
+          ("llama32_vision_90b", (1, 2, 2), ("pod",)),
+          ("hubert_xlarge", (1, 2, 2), ("pod",)))
+# zero3 by family, (arch, mesh, rows): the rows split over "model" (4 on
+# 2 ranks), and not (3 on 2: every rank runs them all)
+ZERO3_SPLITS = (("deepseek_v3_671b", (2, 2), 4),
+                ("jamba_v01_52b", (2, 2), 4),
+                ("deepseek_v3_671b", (2, 2), 3))
 # the cross-attention decoder's split in f64: the split's own error is
 # rounding, so it vanishes there (chip_smoke.py's vision-small runs the
 # same split on (pod 1, data 2, model 2) in f32 on the card)
@@ -367,6 +380,9 @@ def _unit_job(rank):
     for run in SPLITS:
         out[run] = _split_checks(*run)
     out["vision-f64"] = _split_checks(*VISION_F64, f64=True)
+    for arch, shape, rows in ZERO3_SPLITS:
+        out[("zero3", arch, rows)] = _split_checks(
+            arch, shape, ("data",), mode="zero3", rows=rows)
     dist.barrier()
     return out
 
@@ -389,6 +405,15 @@ def test_data_gather_against_plain_twin(units, size, mode):
 def test_ssm_and_hybrid_split_over_data_match_the_whole_model(units, run):
     for rank, out in enumerate(units):
         loss, whole, worst, where = out[run]
+        assert loss == pytest.approx(whole, rel=1e-6), (rank, run)
+        assert worst <= REL, (rank, run, worst, where)
+
+
+@pytest.mark.parametrize("run", ZERO3_SPLITS,
+                         ids=lambda r: f"{r[0]}-{r[2]}rows")
+def test_zero3_split_over_model_matches_the_whole_model(units, run):
+    for rank, out in enumerate(units):
+        loss, whole, worst, where = out[("zero3", run[0], run[2])]
         assert loss == pytest.approx(whole, rel=1e-6), (rank, run)
         assert worst <= REL, (rank, run, worst, where)
 

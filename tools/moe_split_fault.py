@@ -61,6 +61,15 @@ def _job(rank, ref_path, fault):
     return cs._v3_full_split(ref_path)
 
 
+def _whole(rank, card, work):
+    """moe-v3-full-experts' one-rank whole run, in a process of its own."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the script's runs
+    return cs._v3_full_whole(card, Path(work))
+
+
 def _reading(rep):
     def rel(key):
         return abs(rep[key] - rep["want_loss"]) / abs(rep["want_loss"])
@@ -105,7 +114,7 @@ def main():
                                     "g_rel": cs.V3_G_REL}}
     try:
         sys.stdout.flush()
-        whole = spawn(cs._v3_whole_job, 1, (card, str(work)),
+        whole = spawn(_whole, 1, (card, str(work)),
                       timeout=cs.MOE_TIMEOUT)[0]
         # the ranks share the card at some 36 GB each (as phase 12)
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
