@@ -8,8 +8,8 @@ Phases (any failure raises, prints no result and exits non-zero):
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of ``src/repro_torch/kernels/csrc`` built with nvcc (one process
    per source, started together; phase 9, which reaches no kernel, runs
-   on the card meanwhile, then the one-rank whole runs of phases 12-16,
-   which reach no kernel either, in a process of their own, joined
+   on the card meanwhile, then the one-rank whole runs of phases 12-16
+   and 18, which reach no kernel either, in a process of their own, joined
    before phase 2), the build's wall seconds, each source's nvcc seconds
    and its ptxas registers and spills.
 2. Kernel vs plain version on the card.  Fig. 1's kernels: row norms
@@ -429,12 +429,31 @@ Phases (any failure raises, prints no result and exits non-zero):
     a (1, 2) mesh, one full round: held bytes exactly the zero3 pieces,
     the step-0 loss and g^0 against fsdp-wide's whole run at its limits;
     ms, peak GB and collectives by kind).
-    Phases 11-17 run their splits first (``split_paths``: the one-rank
+18. The split of prefill and decode (``make_prefill_step`` and
+    ``make_serve_step`` with a mesh: params in their ``param_specs``
+    pieces, the decode cache in its ``cache_specs`` pieces, the attention
+    caches' length over "model"): serve-split-small (the configs, inputs
+    and meshes of ``tests/test_torch_serve_split.py``: every family's
+    smoke config in f32 and minitron's with a sliding window, a prefill
+    and 4 decode steps at write positions 6-9 of 16 on (1, 2) and (1, 4)
+    under "tp", (2, 2) under fsdp_tp and (1, 2, 2) under "tp", gloo ranks
+    on cuda:0; each rank's logits and cache pieces within 1e-5 of max-abs
+    of a one-rank NCCL run's, the next tokens equal); serve-tp-wide
+    (minitron-8b at full width, 2 of 32 layers, bf16, on (1, 2): a
+    prefill of prefill_32k's 32,768 positions at batch 1, 8 decode steps
+    on decode_32k's cache of 32,768 at batch 8 from index 16,380, across
+    the blocks' boundary at 16,384, then timed steps at the cache's end)
+    and serve-v3-wide (deepseek-v3 with train-tp-v3-wide's cut, decoding
+    on its latent cache alike, routed as the whole run routed): the
+    whole one-rank runs in the whole runs' process, the logits, next
+    tokens and written cache slots held at ``SERVE_WIDE_REL``; ms a
+    token, peak GB and held bytes a rank.
+    Phases 11-18 run their splits first (``split_paths``: the one-rank
     NCCL runs; one spawn of 4 gloo ranks and one of 2 side by side,
     shared by every phase, the 2-rank spawn's wide runs after the 4-rank
     spawn; the whole runs they are held to ran beside the build), then
     each phase's checks, and print each phase's seconds.
-18. A ``{"kernels": [...]}`` line, then the card line, then the result.
+19. A ``{"kernels": [...]}`` line, then the card line, then the result.
     A kernel's ``launches`` are those of the run of the path it serves
     (``path``; "entry-points" for clipped_diff's and the bucketed
     median's, which no engine calls); ``launches_by_path`` has its counts
@@ -6124,7 +6143,458 @@ def zero3_path(card, whole, one, jobs):
 
 
 # ---------------------------------------------------------------------------
-# the runs of phases 11-17: the one-rank whole runs in a process of their
+# phase 18: the split of prefill and decode
+# ---------------------------------------------------------------------------
+
+# serve-split-small: tests/test_torch_serve_split.py's configs ("window":
+# minitron-8b's with a sliding window of SERVE_WINDOW, whose writes past it
+# clamp), inputs and meshes, each rank against the one-rank NCCL run
+SERVE_ARCHS = ("minitron_8b", "deepseek_v3_671b", "arctic_480b",
+               "mamba2_780m", "jamba_v01_52b", "llama32_vision_90b",
+               "hubert_xlarge", "window")
+SERVE_SMALL = (((1, 2), "tp"), ((1, 4), "tp"), ((2, 2), "fsdp_tp"),
+               ((1, 2, 2), "tp"))
+SERVE_B, SERVE_S, SERVE_L, SERVE_WINDOW = 4, 12, 16, 8
+SERVE_IDX = (6, 7, 8, 9)  # across the blocks' boundary at 8 on every mesh
+SERVE_REL = 1e-5  # of max-abs, against the one-rank card run
+# serve-tp-wide (with a prefill) and serve-v3-wide (decode, the MoE routed
+# as the whole run routed: bf16 top-k ties move otherwise)
+SERVE_WIDE = {"serve-tp-wide": ("minitron_8b", dict(n_layers=2)),
+              "serve-v3-wide": ("deepseek_v3_671b", V3_WIDE)}
+SERVE_WIDE_START = DECODE_LEN // 2 - 4  # 8 steps across 16,384
+SERVE_WIDE_STEPS, SERVE_WIDE_TIMED = 8, 5
+# the wide runs' logits and written cache slots against the whole run's,
+# of max-abs: bf16 products summed in other orders; a CPU rehearsal at
+# reduced width (d_model 256, prefill and cache 1,024; tests/
+# test_torch_wide_limits.py) read at most 1.42e-2 sound (prefill 7.4e-3,
+# slots 9.5e-3) and 1.70, or NaN, with the softmax's merge over "model"
+# left out; the share of next tokens equal to the whole run's 0.969-1.0
+# sound, 0.0-0.031 with the fault
+SERVE_WIDE_REL = 1e-1
+SERVE_WIDE_AGREE = 0.9
+
+
+def _serve_config(arch):
+    """serve-split-small's f32 config of ``arch``."""
+    from repro_torch.configs import get_smoke_config
+
+    if arch == "window":
+        return get_smoke_config("minitron_8b").replace(
+            dtype="float32", sliding_window=SERVE_WINDOW)
+    return get_smoke_config(arch).replace(dtype="float32")
+
+
+def _serve_inputs(arch):
+    """(params, prefill batch, decode cache, the decode steps' tokens) of
+    ``arch`` on the CPU, from seeds, as ``tests/test_torch_serve_split.py``
+    makes them: the cache normal values at every position."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree_utils import tree_flatten, tree_unflatten
+    from repro_torch.models import init_cache, init_params
+
+    cfg = _serve_config(arch)
+    rs = np.random.RandomState(SERVE_ARCHS.index(arch))
+    params = _open_gates(init_params(0, cfg, device="cpu"), cfg)
+    if cfg.input_kind == "frames":
+        batch = {"frames": rs.randn(SERVE_B, SERVE_S, cfg.frame_dim)}
+    else:
+        batch = {"tokens": rs.randint(0, cfg.vocab, (SERVE_B, SERVE_S))}
+    if cfg.input_kind == "tokens+vision":
+        batch["vision"] = rs.randn(SERVE_B, cfg.n_vision_tokens, cfg.d_model)
+    batch = {k: torch.from_numpy(v.astype(np.int32 if k == "tokens" else
+                                          np.float32))
+             for k, v in batch.items()}
+    if not cfg.causal:
+        return cfg, params, batch, None, None
+    leaves, treedef = tree_flatten(init_cache(cfg, SERVE_B, SERVE_L,
+                                              device="meta"))
+    cache = tree_unflatten(treedef, [torch.from_numpy(rs.randn(
+        *x.shape).astype(np.float32)) for x in leaves])
+    tokens = [torch.from_numpy(rs.randint(0, cfg.vocab, (SERVE_B, 1)).astype(
+        np.int32)) for _ in SERVE_IDX]
+    return cfg, params, batch, cache, tokens
+
+
+def _serve_small_run(arch, mesh_shape, mode="tp"):
+    """serve-split-small's run of ``arch`` on this rank of ``mesh_shape``
+    (one rank: the whole steps): the prefill's logits, each decode step's
+    logits and next tokens and the cache after it (numpy), this rank's
+    coordinates and the collectives."""
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models.model import (cache_to_numpy, shard_cache,
+                                          shard_params)
+
+    cfg, params, batch, cache, tokens = _serve_inputs(arch)
+    mesh = _split_mesh(mesh_shape)
+    held = shard_params(_to(params, "cuda"), mesh, cfg, mode)
+    batch = _to(batch, "cuda")
+    reset_collective_counts()
+    out = {"prefill": make_prefill_step(cfg, mesh, mode)(
+        held, batch).cpu().numpy(),
+        "coords": {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}}
+    if cache is not None:
+        cache = shard_cache(_to(cache, "cuda"), mesh, cfg)
+        step = make_serve_step(cfg, mesh, mode)
+        for t, idx in enumerate(SERVE_IDX):
+            db = {"tokens": tokens[t].cuda()}
+            if "vision" in batch:
+                db["vision"] = batch["vision"]
+            nxt, logits, cache = step(held, db, cache, idx)
+            out[f"logits{t}"] = logits.cpu().numpy()
+            out[f"next{t}"] = nxt.cpu().numpy()
+            out[f"cache{t}"] = tree_flatten(cache_to_numpy(cache))[0]
+    torch.cuda.synchronize()
+    out["collectives"] = collective_counts()
+    return out
+
+
+def _serve_cache_piece(arch, mesh_shape, leaves, coords):
+    """The pieces of the whole cache ``leaves`` (flatten order) that a rank
+    at ``coords`` of ``mesh_shape`` holds (``cache_specs`` on an abstract
+    mesh)."""
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import init_cache
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import cache_specs
+
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    sizes = dict(zip(names, mesh_shape))
+    cfg = _serve_config(arch)
+    specs = tree_flatten(cache_specs(AbstractMesh(mesh_shape, names), cfg,
+                                     init_cache(cfg, SERVE_B, SERVE_L,
+                                                device="meta")),
+                         is_leaf=lambda x: isinstance(x, P))[0]
+    out = []
+    for x, sp in zip(leaves, specs):
+        for j, entry in enumerate(sp):
+            if entry is not None:
+                w = x.shape[j] // sizes[entry]
+                x = x.take(range(coords[entry] * w,
+                                 (coords[entry] + 1) * w), axis=j)
+        out.append(x)
+    return out
+
+
+def _or_inf(err: float) -> float:
+    """``err``, a NaN read as inf (so that ``max`` and ``<=`` see it)."""
+    return float("inf") if math.isnan(err) else err
+
+
+def _np_rel(got, want):
+    """max |got - want| of max |want| (numpy; NaN reads as inf)."""
+    import numpy as np
+
+    return _or_inf(float(np.abs(got - want).max() / max(
+        float(np.abs(want).max()), 1e-30)) if got.size else 0.0)
+
+
+def _serve_wide_cfg(name, **over):
+    from repro_torch.configs import get_config
+
+    arch, cut = SERVE_WIDE[name]
+    return get_config(arch, **{**cut, **over})
+
+
+def _serve_wide_cache(cfg, rows, length, device=None):
+    """A wide run's whole decode cache: normal values at every position,
+    from a seeded generator on ``device`` (the card by default), the
+    same in every process."""
+    import torch
+
+    from repro_torch._device import resolve_device
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.models import init_cache
+
+    dev = resolve_device(device)
+    cache = init_cache(cfg, rows, length, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 5)
+    for leaf in tree_flatten(cache)[0]:
+        leaf.normal_(generator=gen)
+    return cache
+
+
+def _serve_wide_whole(name, path, cfg=None, seq=PREFILL_SEQ,
+                      length=DECODE_LEN, rows=DECODE_B,
+                      start=SERVE_WIDE_START, timed=SERVE_WIDE_TIMED,
+                      device=None):
+    """A wide serve run's one-rank whole run (``cfg``: ``SERVE_WIDE``'s
+    by default): serve-tp-wide's prefill of ``seq`` positions at batch 1,
+    then ``SERVE_WIDE_STEPS`` decode steps of ``rows`` rows on a cache of
+    ``length`` positions from index ``start``, the MoE's routing
+    recorded; the logits, next tokens, routes and written cache slots go
+    to ``path``; with ``timed`` steps at the cache's end on the card,
+    their ms.  Returns the readings to print."""
+    import torch
+
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import init_params, moe
+
+    cfg = cfg or _serve_wide_cfg(name)
+    params = init_params(MODEL_SEED, cfg, device=device)
+    ref, info = {"logits": [], "next": []}, {}
+    if name == "serve-tp-wide":
+        batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, seq, device=device)
+        step = make_prefill_step(cfg)
+        if device is None:
+            ref["prefill"], info["prefill_ms"] = _timed(
+                lambda: step(params, batch))
+        else:
+            ref["prefill"] = step(params, batch)
+        ref["prefill"] = ref["prefill"].cpu()
+        del batch
+    cache = _serve_wide_cache(cfg, rows, length, device)
+    tokens = synthetic_batch(MODEL_SEED + 2, cfg, rows, SERVE_WIDE_STEPS,
+                             device=device)["tokens"]
+    step = make_serve_step(cfg)
+    with moe.record_routing() as routes:
+        for t in range(SERVE_WIDE_STEPS):
+            nxt, logits, cache = step(params, {"tokens": tokens[:, t:t + 1]},
+                                      cache, start + t)
+            ref["logits"].append(logits.cpu())
+            ref["next"].append(nxt.cpu())
+    ref["routes"] = [r.cpu() for r in routes]
+    ref["slots"] = [x.narrow(2, start, SERVE_WIDE_STEPS).cpu()
+                    for x in tree_flatten(cache)[0]]
+    if device is None:
+        info["ms"] = [_timed(lambda: step(params, {"tokens": nxt[:, None]},
+                                          cache, length - 1))[1]
+                      for _ in range(timed)]
+        info["peak_gb"] = _peak_gb()
+    info["held"] = sum(x.numel() * x.element_size() for x in
+                       tree_flatten((params, cache))[0])
+    _save(ref, path)
+    del params, cache
+    return info
+
+
+def _serve_wide_split(name, path, cfg=None, mesh_shape=(1, 2),
+                      seq=PREFILL_SEQ, length=DECODE_LEN, rows=DECODE_B,
+                      start=SERVE_WIDE_START, timed=SERVE_WIDE_TIMED,
+                      device=None):
+    """A wide serve run's split on this rank of ``mesh_shape`` under "tp"
+    (``_serve_wide_whole``'s arguments; its file ``path``): the same
+    weights' ``param_specs`` pieces and the same cache's ``cache_specs``
+    pieces, the prefill, the decode steps (routed by the whole run's
+    recorded routes), each against the whole run's: the logits' errors
+    of max-abs, the share of equal next tokens, the written slots of
+    this rank's block; held bytes, and on the card the steps' ms, peak GB
+    and one step's collectives."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.api.mesh_exec import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.model import shard_cache, shard_params
+
+    if device is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or _serve_wide_cfg(name)
+    mesh = _split_mesh(mesh_shape)
+    ref = torch.load(path, weights_only=True)
+    held = shard_params(init_params(MODEL_SEED, cfg, device=device), mesh,
+                        cfg)
+    out = {"errs": []}
+    if "prefill" in ref:
+        batch = synthetic_batch(MODEL_SEED + 1, cfg, 1, seq, device=device)
+        step = make_prefill_step(cfg, mesh)
+        logits, ms = _timed(lambda: step(held, batch)) if device is None \
+            else (step(held, batch), None)
+        out["prefill_err"], out["prefill_ms"] = _or_inf(_rel_err(
+            logits.cpu(), ref["prefill"])), ms
+        del batch, logits
+    cache = shard_cache(_serve_wide_cache(cfg, rows, length, device), mesh,
+                        cfg)
+    out["held"] = {w: sum(x.numel() * x.element_size()
+                          for x in tree_flatten(t)[0])
+                   for w, t in (("params", held), ("cache", cache))}
+    tokens = synthetic_batch(MODEL_SEED + 2, cfg, rows, SERVE_WIDE_STEPS,
+                             device=device)["tokens"]
+    step = make_serve_step(cfg, mesh)
+    agree = 0
+    with (moe.record_routing(ref["routes"]) if ref["routes"]
+          else contextlib.nullcontext()):
+        for t in range(SERVE_WIDE_STEPS):
+            reset_collective_counts()
+            nxt, logits, cache = step(held, {"tokens": tokens[:, t:t + 1]},
+                                      cache, start + t)
+            out["errs"].append(_or_inf(_rel_err(logits.cpu(),
+                                                ref["logits"][t])))
+            agree += int((nxt.cpu() == ref["next"][t]).sum())
+    out["collectives"] = collective_counts()
+    out["agree"] = agree / (rows * SERVE_WIDE_STEPS)
+    # the slots written into this rank's block of every cache leaf
+    rank, slots = mesh.get_local_rank("model"), []
+    for leaf, want in zip(tree_flatten(cache)[0], ref["slots"]):
+        width = leaf.shape[2]
+        for t in range(SERVE_WIDE_STEPS):
+            if (start + t) // width == rank:
+                slots.append(_or_inf(_rel_err(
+                    leaf.narrow(2, (start + t) % width, 1).cpu(),
+                    want.narrow(2, t, 1))))
+    out["slot_err"], out["slots"] = max(slots, default=0.0), len(slots)
+    out["leaves"] = len(ref["slots"])
+    if device is None:
+        out["ms"] = [_timed(lambda: step(held, {"tokens": nxt[:, None]},
+                                         cache, length - 1))[1]
+                     for _ in range(timed)]
+        out["peak_gb"] = _peak_gb()
+    del held, cache
+    return out
+
+
+def _serve_whole(card, work):
+    """Phase 18's one-rank whole runs (in ``_whole_job``'s process): both
+    wide runs' files, and their readings."""
+    import torch
+
+    from repro_torch.models import param_count
+
+    out = {}
+    for name in SERVE_WIDE:
+        cfg = _serve_wide_cfg(name)
+        t0 = _run_header(f"{name} (one rank, whole)", card,
+                         _serve_wide_reduced(name))
+        path = str(Path(work) / f"{name}.pt")
+        info = _serve_wide_whole(name, path)
+        out[name] = {"path": path, **info}
+        pre = (f"prefill of {PREFILL_SEQ:,} in {info['prefill_ms']:.1f} ms; "
+               if "prefill_ms" in info else "")
+        print(f"    {param_count(cfg):,} parameters; {pre}decode "
+              f"{statistics.median(info['ms']):.1f} ms a token at batch "
+              f"{DECODE_B} (median of {len(info['ms'])} at index "
+              f"{DECODE_LEN - 1}); held {info['held'] / 1e9:.3f} GB, peak "
+              f"{info['peak_gb']:.2f} GB; wall {time.perf_counter() - t0:.3f}"
+              " s")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_wide_reduced(name):
+    """How the wide serve run ``name`` is cut from its configuration."""
+    if name == "serve-tp-wide":
+        return (f"n_layers 32 -> 2; prefill_32k's batch 32 -> 1 (seq "
+                f"{PREFILL_SEQ:,}); decode_32k's batch 128 -> {DECODE_B} "
+                f"(cache {DECODE_LEN:,}); bf16")
+    return (f"train-tp-v3-wide's cut (n_layers 61 -> 2, the first dense, "
+            f"experts 256 -> 32); decode_32k's batch 128 -> {DECODE_B} "
+            f"(cache {DECODE_LEN:,}); bf16; no prefill")
+
+
+def _serve_job(rank, mesh_shape, one):
+    """Phase 18's part of a rank of the shared spawns: serve-split-small
+    on the meshes of ``mesh_shape``'s size (None: none) or, given the
+    whole runs' readings (``one``), both wide runs on (1, 2)."""
+    import torch
+
+    out = {}
+    for shape, mode in SERVE_SMALL:
+        if mesh_shape and math.prod(shape) == math.prod(mesh_shape):
+            out[shape] = {arch: _serve_small_run(arch, shape, mode)
+                          for arch in SERVE_ARCHS}
+    if one:
+        for name in SERVE_WIDE:
+            out[name] = _serve_wide_split(name, one[name]["path"])
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_split_path(card, ones, whole, jobs):
+    """Phase 18's checks (its runs in ``split_paths``; ``ones`` the
+    one-rank NCCL runs, ``whole`` the wide runs' whole readings); no
+    kernel is launched on this path."""
+    import torch
+
+    print("serve split: params in their param_specs pieces, the decode "
+          "cache in its cache_specs pieces (length over \"model\")")
+    t0 = time.perf_counter()
+    print(f"  serve-split-small on {card}; reduced: none (the smoke configs "
+          f"in f32, batch {SERVE_B}, prefill {SERVE_S}, cache {SERVE_L}, "
+          f"decode steps at {SERVE_IDX}); "
+          + ", ".join(f"{s} {m}" for s, m in SERVE_SMALL)
+          + ", gloo ranks on cuda:0, each against the one-rank NCCL run")
+    for shape, mode in SERVE_SMALL:
+        key = shape if math.prod(shape) == 2 else (1, 4)
+        worst = {}
+        for rank, rep in enumerate(jobs[key]):
+            for arch, r in rep[shape].items():
+                want = ones[arch]
+                errs = [_np_rel(r["prefill"], want["prefill"])]
+                same = True
+                for t in range(len(SERVE_IDX) if "logits0" in r else 0):
+                    errs.append(_np_rel(r[f"logits{t}"], want[f"logits{t}"]))
+                    same &= bool((r[f"next{t}"] == want[f"next{t}"]).all())
+                    errs += [_np_rel(a, b) for a, b in zip(
+                        r[f"cache{t}"], _serve_cache_piece(
+                            arch, shape, want[f"cache{t}"], r["coords"]))]
+                worst[arch] = max(worst.get(arch, 0.0), *errs)
+                if max(errs) > SERVE_REL or not same:
+                    raise AssertionError(
+                        f"serve-split-small {arch} {shape} {mode} rank "
+                        f"{rank}: {max(errs):.3e} of max-abs [{SERVE_REL:g}],"
+                        f" next tokens equal: {same}")
+                if not r["collectives"]:
+                    raise AssertionError(f"serve-split-small {arch} {shape}: "
+                                         "no collective ran")
+        print(f"    {shape} {mode}: worst of max-abs by arch "
+              + ", ".join(f"{a} {v:.3e}" for a, v in worst.items())
+              + f" [{SERVE_REL:g}]; next tokens equal")
+    for name in SERVE_WIDE:
+        one = whole[name]
+        print(f"  {name} on {card}; reduced: {_serve_wide_reduced(name)}; "
+              "(1, 2) mesh, 2 gloo ranks on cuda:0, against the whole run")
+        for rank, r in enumerate(rep[name] for rep in jobs[(1, 2)]):
+            pre = ""
+            if "prefill_err" in r:
+                pre = (f"prefill {r['prefill_err']:.3e} in "
+                       f"{r['prefill_ms']:.1f} ms (whole "
+                       f"{one['prefill_ms']:.1f}); ")
+            print(f"    rank {rank}: held params {r['held']['params']:,} B, "
+                  f"cache {r['held']['cache']:,} B (whole run "
+                  f"{one['held']:,} B); {pre}decode logits <= "
+                  f"{max(r['errs']):.3e} of max-abs [{SERVE_WIDE_REL:g}], "
+                  f"next tokens equal {r['agree']:.3f} "
+                  f"[{SERVE_WIDE_AGREE:g}], {r['slots']} written slots <= "
+                  f"{r['slot_err']:.3e}; {statistics.median(r['ms']):.1f} ms "
+                  f"a token (whole {statistics.median(one['ms']):.1f}), "
+                  f"peak {r['peak_gb']:.2f} GB; a step's collectives "
+                  + ", ".join(f"{k} {v['calls']} x {v['bytes']:,} B"
+                              for k, v in r["collectives"].items()))
+            bad = max(r["errs"] + [r.get("prefill_err", 0.0),
+                                   r["slot_err"]])
+            if not (bad <= SERVE_WIDE_REL and r["agree"] >= SERVE_WIDE_AGREE):
+                raise AssertionError(f"{name} rank {rank}: the split parts "
+                                     "from the whole run")
+        # every step's slot of every leaf was held by the rank whose
+        # block holds it
+        leaves = jobs[(1, 2)][0][name]["leaves"]
+        if sum(r[name]["slots"] for r in jobs[(1, 2)]) != \
+                leaves * SERVE_WIDE_STEPS:
+            raise AssertionError(f"{name}: written slots "
+                                 f"{[r[name]['slots'] for r in jobs[(1, 2)]]}"
+                                 f" for {leaves} leaves")
+    torch.cuda.empty_cache()
+    print(f"  phase 18 checks {time.perf_counter() - t0:.3f} s")
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# the runs of phases 11-18: the one-rank whole runs in a process of their
 # own beside the build; one spawn of 2 ranks and one of 4 for every split
 # ---------------------------------------------------------------------------
 
@@ -6135,8 +6605,8 @@ WIDE_GO, WIDE_STOP, WIDE_FILES = "wide.go", "wide.stop", "wide.pkl"
 
 
 def _whole_job(rank, card, work):
-    """The one-rank whole runs of phases 12-16, in a process of their own
-    (the segments they leave the allocator, cuBLAS's workspaces pin two of
+    """The one-rank whole runs of phases 12-16 and 18, in a process of
+    their own (the segments they leave the allocator, cuBLAS's workspaces pin two of
     3.7 GB after the full-experts gradient, die with it); each phase's
     seconds."""
     import gc
@@ -6152,7 +6622,8 @@ def _whole_job(rank, card, work):
                       (13, lambda: _ssm_whole(card, work)),
                       (14, lambda: _fsdp_wide_whole(card, work)),
                       (15, lambda: _vision_wide_whole(card, work)),
-                      (16, lambda: _frames_wide_whole(card, work))):
+                      (16, lambda: _frames_wide_whole(card, work)),
+                      (18, lambda: _serve_whole(card, work))):
         t = time.perf_counter()
         out[phase] = fn()
         secs[phase] = time.perf_counter() - t
@@ -6190,8 +6661,8 @@ class WholeRuns:
         self.thread.join()
         if self.err is not None:
             raise self.err
-        print(f"the whole runs' process of phases 12-16: {self.wall:.3f} s, "
-              f"of which {time.perf_counter() - t:.3f} s after the build; "
+        print(f"the whole runs' process of phases 12-16, 18: {self.wall:.3f}"
+              f" s, of which {time.perf_counter() - t:.3f} s after the build; "
               "by phase " + ", ".join(f"{p} {v:.3f} s" for p, v in
                                       self.out["seconds"].items()))
         return self.out
@@ -6244,9 +6715,12 @@ def _split_job(rank, mesh_shape, work):
              (13, lambda: _ssm_job(rank, mesh_shape, None)),
              (15, lambda: _vision_job(rank, mesh_shape, None)),
              (16, lambda: _frames_job(rank, mesh_shape, None)),
-             (17, lambda: _zero3_job(rank, mesh_shape, None))]
+             (17, lambda: _zero3_job(rank, mesh_shape, None)),
+             (18, lambda: _serve_job(rank, mesh_shape, None))]
     if wide:
-        run(small + [(16, lambda: _frames_job(rank, None, files[16]))])
+        # the serve runs (a few GB a rank at most) beside fsdp-wide too
+        run(small + [(16, lambda: _frames_job(rank, None, files[16])),
+                     (18, lambda: _serve_job(rank, None, files[18]))])
         waits["go"] = _wait_for(work, WIDE_GO, WIDE_STOP)
         run([(11, lambda: _tp_job(rank, None, files["g0"])),
              (12, lambda: _moe_job(rank, None, files[12]["g0"],
@@ -6266,7 +6740,7 @@ def _split_job(rank, mesh_shape, work):
 
 
 def split_paths(card, work, whole):
-    """The runs of phases 11-17 (their checks follow, phase by phase): the
+    """The runs of phases 11-18 (their checks follow, phase by phase): the
     one-rank NCCL runs of the small configs in this process; then one
     spawn of 4 gloo ranks on cuda:0 and one of 2 side by side, which
     between them run every phase's split (``_split_job``), the 2-rank
@@ -6283,10 +6757,10 @@ def split_paths(card, work, whole):
 
     from repro_torch.launch.mesh import spawn
 
-    print("the split runs of phases 11-17")
+    print("the split runs of phases 11-18")
     t0 = time.perf_counter()
     torch.cuda.set_device(0)
-    secs = dict.fromkeys(range(11, 18), 0.0)
+    secs = dict.fromkeys(range(11, 19), 0.0)
     secs.update({p: v for p, v in whole["seconds"].items()})
     ones = {}
     dist.init_process_group("nccl", init_method="file://" + os.path.join(
@@ -6306,7 +6780,9 @@ def split_paths(card, work, whole):
                 (17, lambda: {"tiny": _small_split_run("tiny", (1, 1),
                                                        ZERO3_COINS),
                               "deepseek_v3_671b":
-                              ones[12]["deepseek_v3_671b"]})):
+                              ones[12]["deepseek_v3_671b"]}),
+                (18, lambda: {arch: _serve_small_run(arch, (1, 1))
+                              for arch in SERVE_ARCHS})):
             t = time.perf_counter()
             ones[phase] = fn()
             secs[phase] += time.perf_counter() - t
@@ -6376,7 +6852,8 @@ def split_paths(card, work, whole):
             14: (of(14)[(1, 4)], whole[14]),
             15: (ones[15], whole[15], of(15)),
             16: (ones[16], whole[16], of(16)),
-            17: (ones[17], whole[14], of(17))}, secs
+            17: (ones[17], whole[14], of(17)),
+            18: (ones[18], whole[18], of(18))}, secs
 
 
 def main():
@@ -6402,7 +6879,8 @@ def main():
     from repro_torch.kernels import _build
 
     # nvcc runs on the host while phase 9, which reaches no kernel, runs
-    # on the card, then the whole runs of phases 12-16 (no kernel either)
+    # on the card, then the whole runs of phases 12-16, 18 (no kernel
+    # either)
     building = _build.start_all()
     sys.stdout.flush()
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_split"
@@ -6437,7 +6915,7 @@ def main():
 
 
 def kernel_phases(card, work, whole):
-    """Phases 2-8, 10 and 11-17 (``whole``: the whole runs' readings and
+    """Phases 2-8, 10 and 11-18 (``whole``: the whole runs' readings and
     files in ``work``); returns every run's launch counts, the checks' and
     times' for the kernels line."""
     import torch
@@ -6499,26 +6977,27 @@ def kernel_phases(card, work, whole):
     # 10. the mesh trainer and the decode launcher
     counts.update(train_path(card))
 
-    # 11-17: the runs of every split (shared spawns), then each phase's
+    # 11-18: the runs of every split (shared spawns), then each phase's
     # checks: 11 the tensor-parallel split and the dry run, 12 the split
     # of the MoE and MLA decoders, 13 of the SSM and hybrid decoders, 14
     # fsdp_tp's split over "data", 15 the split of cross-attention, 16 of
-    # frame inputs, 17 zero3's pieces over "model"
+    # frame inputs, 17 zero3's pieces over "model", 18 the split of
+    # prefill and decode
     runs, secs = split_paths(card, work, whole)
     for phase, check in ((11, tp_path), (12, moe_tp_path),
                          (13, ssm_tp_path), (14, fsdp_path),
                          (15, vision_path), (16, frames_path),
-                         (17, zero3_path)):
+                         (17, zero3_path), (18, serve_split_path)):
         t = time.perf_counter()
         counts.update(check(card, *runs[phase]))
         secs[phase] += time.perf_counter() - t
-    print("phases 11-17, runs and checks: " + ", ".join(
+    print("phases 11-18, runs and checks: " + ", ".join(
         f"phase {p} {v:.3f} s" for p, v in secs.items()))
     return counts, checks, times
 
 
 def _result(card, phases):
-    """Phase 18: the kernels line, the card, the result."""
+    """The kernels line, the card, the result."""
     import torch
 
     counts, checks, times = phases

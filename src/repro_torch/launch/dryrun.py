@@ -23,9 +23,17 @@ tensors (shapes and dtypes, nothing allocated, nothing computed):
            (two gradients, the clip and the aggregation: the larger of
            the two rounds);
   prefill  ``launch.serve.make_prefill_step`` and
-  decode   ``make_serve_step``, one process each: params whole, the batch
-           (and cache) split per ``batch_specs``; their ``model_split``
-           reads "none".
+  decode   ``make_serve_step`` on the mesh, one process each: under "tp"
+           and fsdp_tp the split step (``model_split`` "tp") on the
+           rank's ``param_specs`` pieces (under fsdp_tp each layer
+           gathered over "data" in the period loop) and, for decode, its
+           ``cache_specs`` pieces of the cache (``init_cache(...,
+           mesh=)``: the attention caches' length and the SSM states'
+           heads over "model", the rows over "data" where it divides
+           them), the rank's rows of the batch (those of its cache piece:
+           split over "data" alone, so both pods of the multi-pod mesh
+           run the same rows); under zero3 params whole, the batch and
+           cache split per ``batch_specs`` (``model_split`` "none").
 
 It records, under the reference's JSON keys:
 
@@ -47,7 +55,9 @@ It records, under the reference's JSON keys:
                                  (all-reduce 2x its result, reduce-scatter
                                  x its group: its input)
 
-plus ``model_split``, ``rank``, ``round`` and ``trace_s``.  The kernel
+plus ``model_split``, ``rank``, ``round``, ``trace_s``, ``state_bytes``
+(the rank's params, or its train state) and, for decode,
+``cache_bytes`` (its pieces of the cache).  The kernel
 wrappers take their plain path on "meta" tensors (they launch only on
 CUDA tensors), so the aggregation's arithmetic is the plain rule's
 (``plain_rule``).  A rule that needs a value (Krum's winner: ``.item()``
@@ -76,8 +86,8 @@ from ..configs.shapes import (SHAPES, Shape, decode_variant, input_specs,
                               mode_for)
 from ..core.tree_utils import tree_flatten, tree_leaves, tree_unflatten
 from ..models.model import init_cache, init_params, param_count
-from ..sharding.rules import batch_specs, local_shape, model_split
-from ..sharding.rules import needs_fsdp
+from ..sharding.rules import batch_specs, held_specs, local_shape
+from ..sharding.rules import model_split, needs_fsdp
 from .mesh import P, fake_world, worker_axes
 from .serve import make_prefill_step, make_serve_step
 from .train import (ByzTrainConfig, TrainTape,
@@ -231,44 +241,48 @@ def _train(cfg, shape, mesh, tc, result):
     result["plain_rule"] = resolve_plan(tc).aggregate.rule
 
 
-def _serve(cfg, shape, mesh, mode, result):
+def _serve(cfg, shape, mesh, mode, tc, result):
+    from ..api.mesh_exec import collective_counts
+
     batch = input_specs(cfg, shape)
-    waxes = worker_axes(mesh)
-    if mode == "prefill":
-        params = init_params(0, cfg, device="meta")
-        bpiece = _piece(mesh, batch, batch_specs(mesh, batch, waxes))
-        step = make_prefill_step(cfg)
-
-        def run():
-            with torch.no_grad():
-                return step(params, bpiece)
-
-        args = (params, bpiece)
+    split = tc.shard_mode != "zero3"
+    dcfg = cfg if mode == "prefill" else decode_variant(cfg, shape)
+    b = batch if mode == "prefill" else batch["batch"]
+    params = init_params(0, dcfg, device="meta")
+    if split:  # the rank's param_specs pieces, its rows of the batch
+        params = _piece(mesh, params, held_specs(mesh, dcfg, params,
+                                                 tc.shard_mode))
+        rows = _piece(mesh, b, batch_specs(mesh, b, ("data",)))
     else:
-        dcfg = decode_variant(cfg, shape)
-        params = init_params(0, dcfg, device="meta")
-        # the cache's batch dim as the batch's: the rank's rows
-        rows = _piece(mesh, batch["batch"],
-                      batch_specs(mesh, batch["batch"], waxes))
-        b = next(iter(rows.values())).shape[0]
-        cache_len = shape.seq_len
-        cache = init_cache(dcfg, b, cache_len, device="meta")
-        step = make_serve_step(dcfg)
+        b = rows = _piece(mesh, b, batch_specs(mesh, b, worker_axes(mesh)))
+    smesh = mesh if split else None
+    cache = None
+    if mode == "prefill":
+        step = make_prefill_step(dcfg, smesh, tc.shard_mode)
 
         def run():
-            return step(params, rows, cache, cache_len - 1)
+            return step(params, b)
+    else:
+        n = next(iter(rows.values())).shape[0]
+        cache = init_cache(dcfg, shape.global_batch if split else n,
+                           shape.seq_len, device="meta", mesh=smesh)
+        step = make_serve_step(dcfg, smesh, tc.shard_mode)
 
-        args = (params, rows, cache)
-    out, flops, peak = _traced(run, args)
-    result["model_split"] = "none"
+        def run():
+            return step(params, b, cache, shape.seq_len - 1)
+
+    out, flops, peak = _traced(run, (params, b, cache))
+    result["model_split"] = "tp" if split else "none"
     result["state_bytes"] = _nbytes(params)
+    if cache is not None:
+        result["cache_bytes"] = _nbytes(cache)
     result["memory"] = {
-        "argument_size_in_bytes": _nbytes(args),
+        "argument_size_in_bytes": _nbytes((params, rows, cache)),
         "output_size_in_bytes": _nbytes(out),
         "temp_size_in_bytes": peak,
     }
     result["cost"] = {"flops": float(flops)}
-    result["collectives"] = _collectives({})
+    result["collectives"] = _collectives(collective_counts())
 
 
 def run_one(arch: str, shape_name, *, multi_pod: bool,
@@ -315,7 +329,7 @@ def run_one(arch: str, shape_name, *, multi_pod: bool,
             if mode == "train":
                 _train(cfg, shape, dmesh, tc, result)
             else:
-                _serve(cfg, shape, dmesh, mode, result)
+                _serve(cfg, shape, dmesh, mode, tc, result)
         except (RuntimeError, NotImplementedError) as err:
             if "meta" not in str(err) and "item" not in str(err):
                 raise

@@ -36,6 +36,7 @@ resumed run regenerates the stream from its checkpointed cursor.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -48,6 +49,7 @@ from ..api import PlanError, ServerPlan
 from ..kernels.clip_aggregate import clip_factor
 from ..models.model import apply_decode, apply_prefill, init_cache, init_params
 from ..serve.server import round_key
+from ..sharding.constraints import model_axis
 
 __all__ = ["make_prefill_step", "make_serve_step", "abstract_serve_inputs",
            "decode_batch", "run_stream", "latency_ms", "make_scoring_step",
@@ -58,22 +60,120 @@ __all__ = ["make_prefill_step", "make_serve_step", "abstract_serve_inputs",
 # model serving (decode path)
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(model_cfg):
+class _ServeAxes:
+    """The axis a serving step runs on over ``mesh`` by the batch's row
+    count, with the held specs read once, here, so that a step (or the
+    dry run's trace of it) builds no params tree.  Under "tp" and fsdp_tp
+    the step splits as the trainer's pass does (``launch.train.
+    model_axis_of``: this rank's ``param_specs`` pieces, Megatron's split
+    over "model" and, under fsdp_tp, each layer gathered over "data"),
+    and the rows split over "data" where its size divides them, the rows
+    of the rank's ``cache_specs`` piece (on the multi-pod mesh both pods
+    run the same rows, as the cache is split over "data" alone); the MoE
+    routing's sums over the rows add up the "data" ranks, so that the
+    choices are the whole batch's.  Under zero3 (or with no mesh) the
+    step keeps whole params and runs whole."""
+
+    def __init__(self, mesh, model_cfg, shard_mode: str = "tp"):
+        from ..core.tree_utils import tree_flatten, tree_unflatten
+        from ..sharding.rules import held_specs, only_axis
+        from .mesh import P
+        from .train import model_axis_of
+
+        self.mesh, self.memo = mesh, {}
+        if mesh is None or shard_mode == "zero3":
+            self.mesh = None
+            return
+        self.base = model_axis_of(mesh, model_cfg, shard_mode, worker_axes=())
+        specs, treedef = tree_flatten(held_specs(
+            mesh, model_cfg, init_params(0, model_cfg, device="meta"),
+            shard_mode), is_leaf=lambda x: isinstance(x, P))
+        self.whole = tree_unflatten(treedef, [only_axis(sp, ())
+                                              for sp in specs])
+
+    def __call__(self, batch):
+        """(the ``ModelAxis`` of a step on ``batch``, a dict of tensors
+        with their rows on dim 0, or None where it runs whole; this
+        rank's slice of the rows)."""
+        n = next(iter(batch.values())).shape[0]
+        if n not in self.memo:
+            self.memo[n] = self._axis(n)
+        return self.memo[n]
+
+    def _axis(self, n_rows: int):
+        from ..sharding.constraints import DataAxis, ModelAxis, axis_size
+        from .mesh import model_group
+
+        mesh = self.mesh
+        if mesh is None:
+            return None, slice(None)
+        axis, size = self.base, axis_size(mesh, "data")
+        if size <= 1 or n_rows % size:
+            return axis, slice(None)
+        rank = mesh.get_local_rank("data")
+        if axis is None or axis.data is None:
+            # no piece split over "data" ("tp"): an axis for the rows alone
+            data = DataAxis(mesh.get_group("data"), rank, size, self.whole,
+                            worker=False)
+            if axis is None:  # a "model" axis of one rank
+                axis = ModelAxis(model_group(mesh), 0, 1, None)
+            axis = dataclasses.replace(axis, data=data)
+        axis = dataclasses.replace(axis, data=dataclasses.replace(
+            axis.data, rows=True, worker=False))
+        n = n_rows // size
+        return axis, slice(rank * n, (rank + 1) * n)
+
+
+def _rows_whole(x, axis):
+    """Every "data" rank's rows of ``x`` in coordinate order, where the
+    rows are split over it (``x`` itself otherwise)."""
+    rows = None if axis is None else axis.rows_axis()
+    if rows is None:
+        return x
+    from ..models.tp import gather_from_data_values
+
+    return gather_from_data_values(x, rows).flatten(0, 1)
+
+
+def make_prefill_step(model_cfg, mesh=None, shard_mode: str = "tp"):
+    """prefill_step(params, batch) -> the last position's logits (B, vocab)
+    f32 of the whole batch, on every rank.  With ``mesh``, ``params`` are
+    this rank's ``param_specs`` pieces (``models.model.shard_params``)
+    and the step runs the split on its rows (``_ServeAxes``), its
+    logits gathered whole; under zero3, whole params and a whole pass."""
+
+    axis_of = _ServeAxes(mesh, model_cfg, shard_mode)
+
     def prefill_step(params, batch):
-        return apply_prefill(params, model_cfg, batch)
+        axis, rows = axis_of(batch)
+        with torch.no_grad(), model_axis(axis):
+            logits = apply_prefill(params, model_cfg,
+                                   {k: v[rows] for k, v in batch.items()})
+            return _rows_whole(logits, axis)
 
     return prefill_step
 
 
-def make_serve_step(model_cfg):
+def make_serve_step(model_cfg, mesh=None, shard_mode: str = "tp"):
     """serve_step(params, batch, cache, cache_index) -> (next_token,
     logits, cache): greedy next tokens (B,) int32, the logits (B, vocab)
-    f32 and the cache with the step's keys and values written in."""
+    f32 and the cache with the step's keys and values written in.  With
+    ``mesh``, ``params`` are this rank's ``param_specs`` pieces and
+    ``cache`` its ``cache_specs`` pieces (``init_cache(..., mesh=)``,
+    ``models.model.shard_cache``): the split step on its rows
+    (``_ServeAxes``), the next tokens and logits of the whole batch
+    on every rank; under zero3, whole params and whatever cache it is
+    given, run whole."""
+
+    axis_of = _ServeAxes(mesh, model_cfg, shard_mode)
 
     def serve_step(params, batch, cache, cache_index):
-        with torch.no_grad():
-            logits, new_cache = apply_decode(params, model_cfg, batch, cache,
-                                             cache_index)
+        axis, rows = axis_of(batch)
+        with torch.no_grad(), model_axis(axis):
+            logits, new_cache = apply_decode(
+                params, model_cfg, {k: v[rows] for k, v in batch.items()},
+                cache, cache_index)
+            logits = _rows_whole(logits, axis)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, logits, new_cache
 

@@ -21,6 +21,20 @@ drawn or allocated (``param_count``).
 ``sharding.constraints.ModelAxis``, and ``held``, their leaves' held
 specs: with them they run this rank's part of Megatron's column and row
 split on the pieces it holds (``models.tp``); without them, whole.
+
+A decode step under the split holds the cache's length split over
+"model" (``sharding.rules.cache_specs``: rank r holds positions
+[r L/M, (r+1) L/M) of every kv head, or of the MLA latents).  The new
+token's queries, keys and values (or latents) are made whole on every
+rank from its column pieces (an all-gather of (B, 1, ...) values); the
+rank whose block holds the write position writes them, the start clamped
+against the whole length as ``_write_at`` clamps it; every rank scores
+all heads against its own positions, masked by their absolute
+positions; the maxima are taken over "model" first, so that each rank's
+exponentials are the whole pass's, and the sums of the exponentials and
+of the weighted values are summed over it (``_merge_sums``): the whole
+single pass's softmax up to the order of its sums.  The rank then keeps
+its heads' columns for its ``wo`` rows, as the training split does.
 """
 from __future__ import annotations
 
@@ -152,23 +166,37 @@ _NEG_INF = -1e30
 _KEEP_SCORES_BYTES = 8 << 30
 
 
-def _attend_chunk(q, k, v, mask):
+def _merge_sums(l, o, tp):
+    """The sums over "model" of the ranks' partial sums of exponentials
+    ``l`` (...) and weighted values ``o`` (..., d): one all-reduce of the
+    two side by side (``l``, ``o`` themselves when ``tp`` is None)."""
+    if tp is None:
+        return l, o
+    both = tp_mod.reduce_from_model(torch.cat([l[..., None], o], dim=-1),
+                                    tp)
+    return both[..., 0], both[..., 1:]
+
+
+def _attend_chunk(q, k, v, mask, tp=None):
     """Grouped chunk attention without KV expansion.
 
     q: (B,G,R,Tq,hd)  k/v: (B,G,Tk,hd)  mask: (1,1,1,Tq,Tk) or None.
     (G = kv heads, R = query heads per kv head.)  Returns (scores_max
     (B,G,R,Tq), exp_sum, weighted_v) in f32: the scores and the weighted
     values are f32 products of the (upcast) operands, as the reference's
-    ``preferred_element_type=F32``."""
+    ``preferred_element_type=F32``.  With ``tp`` the keys are this rank's
+    block of a length split over "model": the max is every rank's and the
+    two sums are summed over the axis (module docstring)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bgrqd,bgkd->bgrqk", q.to(F32), k.to(F32)) * scale
     if mask is not None:
         s = torch.where(mask, s, torch.tensor(_NEG_INF, dtype=F32,
                                               device=s.device))
-    m = torch.amax(s, dim=-1)
+    m = tp_mod.max_over_model(torch.amax(s, dim=-1), tp)
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p.to(v.dtype).to(F32), v.to(F32))
+    l, o = _merge_sums(l, o, tp)
     return m, l, o
 
 
@@ -181,11 +209,16 @@ def attention(
     window: int = 0,
     q_offset=0,
     chunk: int = 1024,
+    k_offset=0,
+    tp=None,
 ):
     """Grouped-query attention core.
 
     q: (B, Tq, H, hd);  k, v: (B, Tk, KV, hd); H % KV == 0.
-    ``q_offset``: absolute position of q[0] (decode: cache length).
+    ``q_offset``: absolute position of q[0] (decode: cache length);
+    ``k_offset``: that of k[0]; with ``tp`` (decode only) the keys are
+    this rank's block of a length split over "model" and the softmax is
+    merged over the axis (``_attend_chunk``).
     ``window > 0``: sliding-window attention (each query sees the last
     ``window`` keys) — the sub-quadratic variant used for long_500k.
     A loop over KV chunks with a running log-sum-exp merge (flash-style)
@@ -225,9 +258,11 @@ def attention(
     # are only (B,G,R,1,Tk) there, so chunking buys nothing.
     if Tk <= chunk or Tq == 1:
         need_mask = causal or window > 0
-        _, l, o = _attend_chunk(qh, kh, vh,
-                                mask_for(0, Tk) if need_mask else None)
+        _, l, o = _attend_chunk(qh, kh, vh, mask_for(k_offset, Tk)
+                                if need_mask else None, tp)
         return finish(o, l)
+    if tp is not None or k_offset:
+        raise ValueError("a length split over \"model\" is a decode step's")
 
     n_chunks = -(-Tk // chunk)
     pad = n_chunks * chunk - Tk
@@ -286,6 +321,35 @@ def _write_at(buf, update, index):
     return buf
 
 
+def _cache_owner(start: int, width: int, tp) -> int:
+    """The coordinate of the rank whose block of ``width`` positions of a
+    length split over "model" holds position ``start``."""
+    return start // width
+
+
+def _write_split(buf, update, index, tp):
+    """``_write_at`` on this rank's block of a cache whose length (dim 1)
+    is split over "model" in equal blocks: the start clamped against the
+    whole length, the one-token update written by the rank that holds
+    it (the others leave their block as it is).  Returns ``buf``."""
+    width, T = buf.shape[1], update.shape[1]
+    if T != 1:
+        raise ValueError("a length split over \"model\" writes one token")
+    start = max(0, min(int(index), width * tp.size - T))
+    if _cache_owner(start, width, tp) == tp.rank:
+        buf[:, start % width] = update[:, 0].to(buf.dtype)
+    return buf
+
+
+def _whole_columns(x, w, spec, tp):
+    """``x @ w`` whole on every rank from this rank's column piece ``w``
+    (all-gathered over the axis, ``tp.gather_replicated``), or from the
+    whole leaf where ``param_specs`` leaves it whole."""
+    if tp_mod.split_on(spec, 1) is None:
+        return x @ w
+    return tp_mod.gather_replicated(x @ w, tp, -1)
+
+
 def gqa_forward(
     params,
     cfg,
@@ -306,8 +370,8 @@ def gqa_forward(
     on its pieces (``_gqa_split``)."""
     if tp is not None:
         if cache is not None:
-            raise ValueError("the tensor-parallel split trains: it takes "
-                             "no decode cache")
+            return _gqa_decode_split(params, held, cfg, x, positions,
+                                     causal, window, cache, cache_index, tp)
         return _gqa_split(params, held, cfg, x, positions, causal, window,
                           tp), None
     B, T, d = x.shape
@@ -381,6 +445,31 @@ def _gqa_split(params, held, cfg, x, positions, causal, window, tp,
     return tp_mod.reduce_from_model(out @ wo, tp)
 
 
+def _gqa_decode_split(params, held, cfg, x, positions, causal, window,
+                      cache, cache_index, tp):
+    """A decode step of the attention on this rank's block of the cache's
+    length (module docstring): q, k and v of the new token whole from the
+    column pieces, the write by the block's owner, the softmax of every
+    head over the rank's positions merged over "model", then the columns
+    [lo, hi) of the heads' output that its ``wo`` rows take and the
+    row-split product all-reduced."""
+    B, T, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (_whole_columns(x, params[n], held[n], tp).reshape(B, T, h, hd)
+               for n, h in (("wq", H), ("wk", KV), ("wv", KV)))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    ck = _write_split(cache["k"], k, cache_index, tp)
+    cv = _write_split(cache["v"], v, cache_index, tp)
+    out = attention(q, ck, cv, causal=causal, window=window,
+                    q_offset=cache_index, k_offset=tp.rank * ck.shape[1],
+                    tp=tp).reshape(B, T, H * hd)
+    lo, hi = tp_mod.split_range(H * hd, tp)
+    wo = tp_mod.take(params["wo"], 0, held["wo"], lo, hi, tp)
+    return (tp_mod.reduce_from_model(out.narrow(2, lo, hi - lo) @ wo, tp),
+            {"k": ck, "v": cv})
+
+
 # ---------------------------------------------------------------------------
 # cross-attention (VLM layers: text queries, vision keys/values)
 # ---------------------------------------------------------------------------
@@ -444,12 +533,13 @@ def init_mla(rng: Draw, cfg, dtype):
 def mla_forward(params, cfg, x, *, positions, cache=None, cache_index=None,
                 window=0, tp=None, held=None):
     """cache: {'ckv': (B, L, rkv), 'krope': (B, L, rd)}.  With ``tp`` and
-    ``held``, this rank's heads on its pieces (``_mla_split``); the
-    decode cache stays whole."""
+    ``held``, this rank's heads on its pieces (``_mla_split``), or a
+    decode step on its block of the latent cache's length
+    (``_mla_decode_split``)."""
     if tp is not None:
         if cache is not None:
-            raise ValueError("the tensor-parallel split trains: it takes "
-                             "no decode cache")
+            return _mla_decode_split(params, held, cfg, x, positions, cache,
+                                     cache_index, window, tp)
         return _mla_split(params, held, cfg, x, positions, window, tp), None
     B, T, d = x.shape
     H, hd, rd = cfg.n_heads, cfg.head_dim, cfg.qk_rope_dim
@@ -566,6 +656,73 @@ def _mla_split(params, held, cfg, x, positions, window, tp):
     out = out.reshape(B, T, nh * nope).narrow(2, lo - h0 * nope, hi - lo)
     wo = tp_mod.take(params["wo"], 0, held["wo"], lo, hi, tp)
     return tp_mod.reduce_from_model(out @ wo, tp)
+
+
+def _mla_decode_split(params, held, cfg, x, positions, cache, cache_index,
+                      window, tp):
+    """The absorbed decode step of MLA on this rank's block of the latent
+    cache's length: the latents whole on every rank (as ``_mla_split``
+    forms them), written by the block's owner; the absorbed queries of
+    the rank's heads (all heads where the axis does not divide them)
+    all-gathered; the softmax of every head over the rank's positions and
+    its weighted latents merged over "model"; then ``w_uv`` and ``wo``
+    for the columns [lo, hi) of the heads' output, the row-split product
+    all-reduced."""
+    B, T, d = x.shape
+    H, nope, rd = cfg.n_heads, cfg.head_dim, cfg.qk_rope_dim
+    rkv = cfg.kv_lora_rank
+    if T != 1:
+        raise ValueError("a latent cache split over \"model\" decodes one "
+                         "token")
+    qa = rmsnorm(params["q_norm"], _whole_columns(x, params["wq_a"],
+                                                  held["wq_a"], tp))
+    kv_a = _whole_columns(x, params["wkv_a"], held["wkv_a"], tp)
+    ckv = rmsnorm(params["kv_norm"], kv_a[..., :rkv])
+    k_rope = apply_rope(kv_a[..., rkv:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    ckv = _write_split(cache["ckv"], ckv, cache_index, tp)
+    k_rope = _write_split(cache["krope"], k_rope, cache_index, tp)
+
+    # the heads whose queries this rank forms: its own block, gathered,
+    # where the axis divides the heads; otherwise every head
+    even = H % tp.size == 0
+    a0, a1 = (tp.rank * H // tp.size, (tp.rank + 1) * H // tp.size) \
+        if even else (0, H)
+    wq_b = tp_mod.take(params["wq_b"], 1, held["wq_b"], a0 * (nope + rd),
+                       a1 * (nope + rd), tp)
+    wkv_b = tp_mod.take(params["wkv_b"], 1, held["wkv_b"], a0 * 2 * nope,
+                        a1 * 2 * nope, tp).reshape(rkv, a1 - a0, 2 * nope)
+    q = (qa @ wq_b).reshape(B, T, a1 - a0, nope + rd)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    q_abs = torch.einsum("bthn,rhn->bthr", q[..., :nope], wkv_b[..., :nope])
+    if even:
+        q_abs = tp_mod.gather_replicated(q_abs, tp, 2)
+        q_rope = tp_mod.gather_replicated(q_rope, tp, 2)
+    s = torch.einsum("bthr,blr->bhtl", q_abs.to(F32), ckv.to(F32))
+    s = s + torch.einsum("bthr,blr->bhtl", q_rope.to(F32), k_rope.to(F32))
+    s = s / math.sqrt(nope + rd)
+    width = ckv.shape[1]
+    l_pos = tp.rank * width + torch.arange(width, device=x.device)
+    mask = l_pos[None, None, None, :] <= cache_index
+    if window:
+        mask = mask & (l_pos[None, None, None, :] > cache_index - window)
+    s = torch.where(mask, s, torch.tensor(_NEG_INF, dtype=F32,
+                                          device=s.device))
+    p = torch.exp(s - tp_mod.max_over_model(torch.amax(s, dim=-1), tp)[
+        ..., None])
+    l, o_lat = _merge_sums(torch.sum(p, dim=-1), torch.einsum(
+        "bhtl,blr->bhtr", p, ckv.to(F32)), tp)
+    o_lat = (o_lat / l[..., None]).transpose(1, 2)  # (B,1,H,rkv)
+
+    lo, hi = tp_mod.split_range(H * nope, tp)
+    h0, h1 = lo // nope, -(-hi // nope)  # the heads that cover [lo, hi)
+    out = torch.einsum("bthr,rhn->bthn", o_lat[:, :, h0:h1],
+                       wkv_b[:, h0 - a0:h1 - a0, nope:].to(F32)).to(x.dtype)
+    out = out.reshape(B, T, (h1 - h0) * nope).narrow(2, lo - h0 * nope,
+                                                     hi - lo)
+    wo = tp_mod.take(params["wo"], 0, held["wo"], lo, hi, tp)
+    return (tp_mod.reduce_from_model(out @ wo, tp),
+            {"ckv": ckv, "krope": k_rope})
 
 
 # ---------------------------------------------------------------------------

@@ -16,12 +16,18 @@ Entry points:
   param_count(cfg)                           -> int, on "meta": nothing allocated
   apply_train(params, cfg, batch)            -> (loss, aux) for the train_4k shape
   apply_prefill(params, cfg, batch)          -> last-position logits (prefill_32k)
-  init_cache(cfg, batch, cache_len, device)  -> decode cache tree
+  init_cache(cfg, batch, cache_len, device, mesh=None)
+                                             -> decode cache tree (with a mesh: this rank's pieces)
   apply_decode(params, cfg, batch, cache, i) -> (logits, cache)  (decode; cache updated in place)
   params_from_numpy(tree, device)            -> the reference's weights as a params tree
   params_to_numpy(tree)                      -> and back
+  cache_from_numpy(tree, cfg, device)        -> the reference's decode cache as a cache tree
+  cache_to_numpy(tree)                       -> and back
   shard_params(params, mesh, cfg, mode)      -> this rank's held pieces of whole params
   gather_params(pieces, mesh, cfg, mode)     -> and the whole tree back
+  shard_cache(cache, mesh, cfg)              -> this rank's cache_specs pieces of a whole cache
+  gather_cache(pieces, mesh, cfg, batch, cache_len)
+                                             -> and the whole cache back
 
 Inside a ``sharding.constraints.model_axis`` block on a "model" axis of
 more than one rank, ``apply_train`` runs the tensor-parallel split
@@ -44,6 +50,16 @@ split over that axis, the cross-entropy's sums over rows (and the MoE
 routing's, ``models.moe.route``) add up the axis's ranks, so that every
 rank's loss is the worker's.
 
+``apply_prefill`` and ``apply_decode`` split alike inside such a block,
+forward only (``launch.serve.make_prefill_step`` / ``make_serve_step``
+enter it): this rank's rows of the batch, the last position's logits
+through the vocabulary-split unembedding, gathered whole over the
+vocabulary.  A decode step holds this rank's ``cache_specs`` pieces of
+the cache (``init_cache(..., mesh=)``, ``shard_cache``): the attention
+caches' and the MLA latents' length split over "model" (``models.layers``
+writes and attends on its block), the SSM state's heads split over it
+(``models.ssm``), the rows over "data" where it divides them.
+
 Gradients are taken with ``torch.autograd.grad`` over the tree's leaves.
 Modality stubs: hubert consumes precomputed frame embeddings, the VLM
 consumes precomputed projected vision tokens.
@@ -52,7 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -91,8 +107,12 @@ __all__ = [
     "param_count",
     "params_from_numpy",
     "params_to_numpy",
+    "cache_from_numpy",
+    "cache_to_numpy",
     "shard_params",
     "gather_params",
+    "shard_cache",
+    "gather_cache",
 ]
 
 
@@ -242,7 +262,9 @@ def _apply_layer(
         new_cache = cache  # cross-attn kv are static vision tokens: no cache
     elif mixer == "ssm":
         if x.shape[1] == 1 and cache is not None:
-            out, new_cache = ssm_mod.mamba2_decode_step(layer["mixer"], cfg, h, cache)
+            out, new_cache = ssm_mod.mamba2_decode_step(
+                layer["mixer"], cfg, h, cache, tp=tp,
+                held=held and held["mixer"])
         else:
             out, new_cache = ssm_mod.mamba2_forward(
                 layer["mixer"], cfg, h, state=cache, tp=tp,
@@ -682,24 +704,45 @@ def _top_whole_over_data(params, data):
     return out
 
 
-def apply_train(params, cfg: ModelConfig, batch):
-    """Next-token (or masked-prediction) training loss.  Returns (loss, aux
-    dict).  Inside a ``model_axis`` block (module docstring), the split on
-    this rank's pieces: the same loss on every rank of the axis."""
+class _Split(NamedTuple):
+    """What a pass reads of the enclosing ``model_axis`` block: Megatron's
+    axis ``tp``, the ``DataAxis`` the held pieces are gathered over, the
+    axis the rows are split over (each None where there is none), and the
+    axes the embedding (or the frame projection's output columns) and
+    the unembedding are split over, or None."""
+
+    tp: Any
+    data: Any
+    rows: Any
+    embed: Any
+    unembed: Any
+
+
+def _split_of(params, cfg: ModelConfig):
+    """(``params`` with the leaves outside the period loop gathered over
+    "data" where they are split over it, the pass's ``_Split``)."""
     axis = current_model_axis()
     tp = None if axis is None else axis.megatron  # Megatron's split, or None
     data = None if axis is None else axis.data
     held = None if tp is None else tp.held
     if data is not None:
         params = _top_whole_over_data(params, data)
-    # the axes the embedding (or the frame projection's output columns)
-    # and the unembedding are split over, or None
     frames = cfg.input_kind == "frames"
-    tp_embed = tp if held and tp_mod.split_on(
+    embed = tp if held and tp_mod.split_on(
         held["frontend"] if frames else held["embed"], int(frames)) else None
-    tp_unembed = tp if held and tp_mod.split_on(held["unembed"], 1) else None
-    # the axis the worker's rows are split over, or None
+    unembed = tp if held and tp_mod.split_on(held["unembed"], 1) else None
     rows = None if axis is None else axis.rows_axis()
+    return params, _Split(tp, data, rows, embed, unembed)
+
+
+def apply_train(params, cfg: ModelConfig, batch):
+    """Next-token (or masked-prediction) training loss.  Returns (loss, aux
+    dict).  Inside a ``model_axis`` block (module docstring), the split on
+    this rank's pieces: the same loss on every rank of the axis."""
+    params, sp = _split_of(params, cfg)
+    tp, data, rows = sp.tp, sp.data, sp.rows
+    held = None if tp is None else tp.held
+    tp_embed, tp_unembed = sp.embed, sp.unembed
     x = _embed_inputs(params, cfg, batch, tp_embed)
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
@@ -758,17 +801,30 @@ def apply_train(params, cfg: ModelConfig, batch):
     return loss, {"lb_loss": lb, "z_loss": zl}
 
 
+def _last_logits(params, x, tp_unembed):
+    """The last position's logits (B, vocab) in f32, through the
+    vocabulary-split unembedding gathered whole over it where
+    ``tp_unembed`` is its axis."""
+    h = rmsnorm(params["final_norm"], x[:, -1])
+    logits = h @ params["unembed"]
+    if tp_unembed is not None:
+        logits = tp_mod.gather_replicated(logits, tp_unembed, -1)
+    return logits.to(F32)
+
+
 def apply_prefill(params, cfg: ModelConfig, batch):
-    """Full-sequence forward returning last-position logits (B, vocab)."""
-    x = _embed_inputs(params, cfg, batch)
+    """Full-sequence forward returning last-position logits (B, vocab).
+    Inside a ``model_axis`` block, the split on this rank's pieces and
+    the batch's rows it is given (module docstring), forward only."""
+    params, sp = _split_of(params, cfg)
+    x = _embed_inputs(params, cfg, batch, sp.embed)
     B, S = x.shape[:2]
     vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
     x, _, _ = _run_stack(
         params, cfg, x, positions=_positions(B, S, x.device), vision=vision,
-        window=cfg.sliding_window,
+        window=cfg.sliding_window, tp=sp.tp, data=sp.data, rows=sp.rows,
     )
-    h = rmsnorm(params["final_norm"], x[:, -1])
-    return (h @ params["unembed"]).to(F32)
+    return _last_logits(params, x, sp.unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -799,9 +855,22 @@ def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
     raise ValueError(mixer)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None,
+               mesh=None):
     """Decode cache tree; attention caches hold ``cache_len`` positions
-    (the sliding window size for long-context configs)."""
+    (the sliding window size for long-context configs).  With ``mesh``,
+    only this rank's ``sharding.rules.cache_specs`` pieces of the cache
+    of ``batch`` rows (``_cache_specs``)."""
+    if mesh is not None:
+        whole = init_cache(cfg, batch, cache_len, device="meta")
+        specs = _specs(_cache_specs(mesh, cfg, whole))[0]
+        leaves, treedef = tree_flatten(whole)
+        dev = resolve_device(device)
+        from repro_torch.sharding.rules import local_shape
+
+        return tree_unflatten(treedef, [
+            torch.zeros(local_shape(mesh, x.shape, sp), dtype=x.dtype,
+                        device=dev) for x, sp in zip(leaves, specs)])
     dev = resolve_device(device)
     if cfg.sliding_window:
         cache_len = min(cache_len, cfg.sliding_window)
@@ -816,6 +885,76 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None):
     return caches
 
 
+def _cache_specs(mesh, cfg: ModelConfig, whole):
+    """``sharding.rules.cache_specs`` of the whole cache tree ``whole``
+    on ``mesh``; raises where a "model" axis of more than one rank does
+    not divide an attention cache's length or an SSM state's heads (the
+    split decode step computes on such a block: it never holds the
+    whole)."""
+    from repro_torch.sharding.constraints import axis_size
+    from repro_torch.sharding.rules import _map_with_name, cache_specs
+
+    size = axis_size(mesh, "model")
+
+    def check(name, x):  # stacked: dim 2 is the length, or the heads
+        if size > 1 and name in ("k", "v", "ckv", "krope", "h") and \
+                x.shape[2] % size:
+            raise ValueError(
+                f"{cfg.name}: a \"model\" axis of {size} ranks does not "
+                f"divide dim 2 of the cache leaf {name} {tuple(x.shape)} "
+                "(an attention cache's length, an SSM state's heads)")
+        return x
+
+    _map_with_name(check, whole)
+    return cache_specs(mesh, cfg, whole)
+
+
+def shard_cache(cache, mesh, cfg: ModelConfig):
+    """This rank's ``cache_specs`` pieces of the whole decode cache
+    ``cache`` (the rows over "data" where it divides them, an attention
+    cache's length and an SSM state's heads over "model")."""
+    from repro_torch.api.mesh_exec import _local_piece
+
+    specs = _specs(_cache_specs(mesh, cfg, cache))[0]
+    leaves, treedef = tree_flatten(cache)
+    return tree_unflatten(treedef, [
+        leaf if not any(sp) else _local_piece(leaf, sp, mesh)
+        for leaf, sp in zip(leaves, specs)])
+
+
+def gather_cache(pieces, mesh, cfg: ModelConfig, batch: int, cache_len: int):
+    """The whole cache of ``batch`` rows and ``cache_len`` positions from
+    every rank's ``shard_cache`` pieces (a collective: every rank of the
+    mesh calls it)."""
+    from repro_torch.api.mesh_exec import _gather_leaf
+
+    whole = init_cache(cfg, batch, cache_len, device="meta")
+    specs = _specs(_cache_specs(mesh, cfg, whole))[0]
+    leaves, treedef = tree_flatten(pieces)
+    return tree_unflatten(treedef, [
+        leaf if not any(sp) else _gather_leaf(leaf[None], sp, mesh, ())[0]
+        for leaf, sp in zip(leaves, specs)])
+
+
+def cache_from_numpy(tree, cfg: ModelConfig, device=None):
+    """The reference's decode cache (its ``init_cache`` or
+    ``apply_decode`` output through ``np.asarray``, its own ``SSMState``
+    included, or any tree with the same leaves in flatten order) as the
+    port's cache tree of ``cfg`` on ``device``."""
+    dev = resolve_device(device)
+    treedef = tree_flatten(init_cache(cfg, 1, 1, device="meta"))[1]
+    return tree_unflatten(treedef, [_leaf_to_torch(a, dev)
+                                    for a in tree_flatten(tree)[0]])
+
+
+def cache_to_numpy(tree):
+    """The port's cache tree as numpy arrays on the host, in its nesting
+    (leaves in the reference's flatten order): copies, since a decode
+    step writes the cache in place."""
+    return tree_map(lambda t: None if t is None else np.array(
+        _leaf_to_numpy(t)), tree)
+
+
 def apply_decode(params, cfg: ModelConfig, batch, caches, cache_index):
     """One-token decode step: batch["tokens"] is (B, 1); ``cache_index`` is
     the write position (== current sequence length so far, possibly wrapped
@@ -823,16 +962,20 @@ def apply_decode(params, cfg: ModelConfig, batch, caches, cache_index):
 
     The caches are updated in place and returned (the same tensors): the
     reference's functional update copies the cache each step, which at
-    decode_32k's batch 128 x 32,768 would hold it three times over."""
+    decode_32k's batch 128 x 32,768 would hold it three times over.
+    Inside a ``model_axis`` block, the split on this rank's pieces of the
+    params and of the cache (``init_cache(..., mesh=)``) and the rows of
+    the batch it is given (module docstring)."""
     cache_index = int(cache_index)
-    x = _embed_inputs(params, cfg, batch)
+    params, sp = _split_of(params, cfg)
+    x = _embed_inputs(params, cfg, batch, sp.embed)
     B = x.shape[0]
     positions = torch.full((B, 1), cache_index, dtype=torch.long,
                            device=x.device)
     vision = batch.get("vision") if cfg.input_kind == "tokens+vision" else None
     x, new_caches, _ = _run_stack(
         params, cfg, x, positions=positions, vision=vision, caches=caches,
-        cache_index=cache_index, window=cfg.sliding_window,
+        cache_index=cache_index, window=cfg.sliding_window, tp=sp.tp,
+        data=sp.data, rows=sp.rows,
     )
-    h = rmsnorm(params["final_norm"], x[:, -1])
-    return (h @ params["unembed"]).to(F32), new_caches
+    return _last_logits(params, x, sp.unembed), new_caches

@@ -25,6 +25,12 @@ gated norm over d_inner sums the ranks' partial sums of squares
 (``tp.sum_over_model``); ``out_proj`` is row-split and the ranks'
 products summed (``tp.reduce_from_model``).  The whole layer runs the
 same body with ``tp=None``.
+
+The decode step splits alike: rank r holds heads ``split_range(nh, M)``
+of the recurrent state ``h`` (``sharding.rules.cache_specs``) and the
+whole rolling conv buffer, which every rank writes alike from the whole
+x | B | C row of ``in_proj`` (taken whole once a layer, as above); the
+gated norm and ``out_proj`` as in the forward pass.
 """
 from __future__ import annotations
 
@@ -267,32 +273,52 @@ def mamba2_forward(params, cfg, x, *, state: Optional[SSMState] = None,
     return out, new_state
 
 
-def mamba2_decode_step(params, cfg, x, state: SSMState):
-    """Single-token decode.  x: (B, 1, d).  Returns (out (B,1,d), new_state)."""
+def mamba2_decode_step(params, cfg, x, state: SSMState, tp=None,
+                       held=None):
+    """Single-token decode.  x: (B, 1, d).  Returns (out (B,1,d), new_state).
+    With ``tp`` and ``held``, this rank's heads of the state on its
+    pieces (module docstring); with ``tp=None`` every head."""
     Bsz = x.shape[0]
     d_inner, nh = _dims(cfg)
     N, P = cfg.ssm_state, cfg.ssm_head_dim
+    h0, h1 = (0, nh) if tp is None else tp_mod.split_range(nh, tp)
+    H, c0, c1 = h1 - h0, h0 * P, h1 * P  # the heads and their channels
+    if state.h.shape[1] != H:
+        raise ValueError(f"an SSM state of {state.h.shape[1]} heads for "
+                         f"heads [{h0}, {h1}) of {nh}")
 
-    proj = x[:, 0] @ params["in_proj"]  # (B, dproj)
+    def leaf(name, dim, lo, hi, tree=params, specs=held):
+        return tp_mod.take(tree[name], dim, specs and specs[name], lo, hi,
+                           tp)
+
+    conv_dim = d_inner + 2 * N
+    # the whole z | x | B | C | dt row, so that every rank writes the same
+    # conv buffer
+    proj = x[:, 0] @ leaf("in_proj", 1, 0, d_inner + conv_dim + nh)
     z, xbc, dt = _split_proj(cfg, proj)
     # rolling conv: append, convolve last position, shift buffer
     window = torch.cat([state.conv.to(xbc.dtype), xbc[:, None]], dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"])
-    xbc = F.silu((conv_out + params["conv_b"][None]).to(F32)).to(x.dtype)
+    conv_out = torch.einsum("bkc,kc->bc", window,
+                            leaf("conv_w", 1, 0, conv_dim))
+    xbc = F.silu((conv_out + leaf("conv_b", 0, 0, conv_dim)[None]).to(
+        F32)).to(x.dtype)
     new_conv = window[:, 1:]
 
-    xs = xbc[..., :d_inner].reshape(Bsz, nh, P).to(F32)
+    xs = xbc[..., c0:c1].reshape(Bsz, H, P).to(F32)
     B_mat = xbc[..., d_inner: d_inner + N].to(F32)  # (B,N)
     C_mat = xbc[..., d_inner + N:].to(F32)
-    dt = _softplus(dt.to(F32) + params["dt_bias"][None])  # (B,H)
-    A = -torch.exp(params["A_log"])
+    dt = _softplus(dt[..., h0:h1].to(F32) + leaf("dt_bias", 0, h0, h1)[None])
+    A = -torch.exp(leaf("A_log", 0, h0, h1))
 
     decay = torch.exp(dt * A[None])  # (B,H)
     h_new = state.h * decay[:, :, None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt, xs, B_mat
     )
-    y = torch.einsum("bhpn,bn->bhp", h_new, C_mat) + params["D"][None, :, None] * xs
-    y = y.reshape(Bsz, d_inner).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z.to(F32)).to(x.dtype))
-    out = (y @ params["out_proj"])[:, None]
-    return out, SSMState(h=h_new, conv=new_conv.to(state.conv.dtype))
+    y = torch.einsum("bhpn,bn->bhp", h_new, C_mat) + leaf(
+        "D", 0, h0, h1)[None, :, None] * xs
+    y = y.reshape(Bsz, H * P).to(x.dtype)
+    y = _gated_rmsnorm(leaf("scale", 0, c0, c1, params["norm"],
+                            held and held["norm"]), y, z[..., c0:c1],
+                       d_inner, tp)
+    out = tp_mod.reduce_from_model(y @ leaf("out_proj", 0, c0, c1), tp)
+    return out[:, None], SSMState(h=h_new, conv=new_conv.to(state.conv.dtype))

@@ -46,7 +46,14 @@ split leaf (``sharding.rules.held_specs``) and computes with it:
 * the **unembedding** is split on the vocabulary:
   :func:`vocab_parallel_ce` is the cross-entropy over the split logits
   (the max and the sum of exponentials all-reduced over "model", the gold
-  logit from the rank that holds it), the same loss on every rank.
+  logit from the rank that holds it), the same loss on every rank; the
+  serving steps gather the split logits whole (:func:`gather_replicated`);
+* a **decode step** holds the cache's length split over the axis
+  (``sharding.rules.cache_specs``): each rank attends over its block of
+  positions and the softmax is merged across the axis, the maxima by
+  :func:`max_over_model` and the partial sums by
+  :func:`reduce_from_model` (``models.layers``); the Mamba-2 step holds
+  its heads of the recurrent state (``models.ssm``).
 
 ``param_specs`` also splits the stacked layer dimension of the dense
 MLP's leaves (the reference's rules take a stacked ``w_gate``/``w_up``/
@@ -102,6 +109,7 @@ __all__ = [
     "copy_to_model",
     "reduce_from_model",
     "sum_over_model",
+    "max_over_model",
     "gather_from_model",
     "gather_replicated",
     "take",
@@ -211,6 +219,14 @@ def sum_over_model(x, axis: ModelAxis):
     (``copy_to_model`` of ``reduce_from_model``; ``x`` itself when
     ``axis`` is None)."""
     return copy_to_model(reduce_from_model(x, axis), axis)
+
+
+def max_over_model(x, axis: ModelAxis):
+    """The elementwise max over the axis of the ranks' ``x``: one
+    all-reduce, for values that carry no gradient (the decode step's
+    score maxima; ``x`` itself when ``axis`` is None)."""
+    return x if axis is None else _all_reduce(x.detach(), axis,
+                                              dist.ReduceOp.MAX)
 
 
 def gather_from_model(x, axis: ModelAxis, dim: int):

@@ -8,11 +8,16 @@ must exit 0 with a JSON of the reference's keys for every combination
 but hubert's decode, which is skipped.  A reference subprocess computes,
 from the reference's own ``param_specs`` on a ``jax.sharding.
 AbstractMesh`` and its ``init_params`` shapes, the bytes of a rank's
-pieces of every leaf, under "tp" and under zero3; the dry run's held
-state must be twice the "tp" pieces (params and g) plus the key and the
-step for every architecture, which all split, and a zero3 trace's twice
-the zero3 pieces.  The reference also gives ``abstract_scoring_inputs``'s
-shapes and dtypes.
+pieces of every leaf, under "tp" and under zero3, and from its own
+``cache_specs`` the bytes of a rank's pieces of the decode cache of
+decode_32k and long_500k; the dry run's held state must be twice the
+"tp" pieces (params and g) plus the key and the step for every
+architecture, which all split, a zero3 trace's twice the zero3 pieces,
+and a serve record's held bytes exactly the "tp" pieces of params plus,
+for decode, the cache's pieces.  The reference also gives
+``abstract_scoring_inputs``'s shapes and dtypes.  At full size the
+decode records of minitron-8b and deepseek-v3-671b on (16, 16) must
+fall in the ranges predicted before the split was traced.
 """
 import json
 import os
@@ -38,11 +43,29 @@ import json, sys
 from functools import partial
 import jax, numpy as np
 from repro.configs.registry import get_smoke_config, list_archs
+from repro.configs.shapes import SHAPES, input_specs
 from repro.launch.serve import abstract_scoring_inputs
 from repro.models.model import init_params
-from repro.sharding.rules import param_specs
+from repro.sharding.rules import cache_specs, param_specs
 
-out = {"pieces": {}, "whole": {}, "zero3": {}}
+out = {"pieces": {}, "whole": {}, "zero3": {}, "cache": {}}
+
+
+def piece_bytes(tree, specs, shape):
+    total = 0
+    for leaf, sp in zip(jax.tree_util.tree_leaves(tree),
+                        jax.tree_util.tree_leaves(
+                            specs, is_leaf=lambda x: isinstance(
+                                x, jax.sharding.PartitionSpec))):
+        n = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+        for entry in sp:
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                if ax is not None:
+                    n //= shape[ax]
+        total += n
+    return total
+
+
 for mesh_name, sizes, names in (("2x2", (2, 2), ("data", "model")),
                                 ("2x2x2", (2, 2, 2), ("pod", "data", "model"))):
     mesh = jax.sharding.AbstractMesh(sizes, names)
@@ -68,6 +91,12 @@ for mesh_name, sizes, names in (("2x2", (2, 2), ("data", "model")),
                 piece += n
             out[key][f"{arch}@{mesh_name}"] = piece
         out["whole"][f"{arch}@{mesh_name}"] = whole
+        if not cfg.causal:
+            continue
+        for sname in ("decode_32k", "long_500k"):
+            cache = input_specs(cfg, SHAPES[sname])["cache"]
+            out["cache"][f"{arch}@{mesh_name}@{sname}"] = piece_bytes(
+                cache, cache_specs(mesh, cfg, cache), shape)
 out["scoring"] = [[list(s.shape), str(s.dtype)]
                   for s in abstract_scoring_inputs(3, 5, 7)]
 print(json.dumps(out))
@@ -164,8 +193,8 @@ def test_smoke_sweep_writes_every_combination(runs, mesh):
             assert rec["n_chips"] == (4 if mesh == "2x2" else 8)
             assert rec["cost"]["flops"] > 0, (arch, shape)
             assert rec["memory"]["temp_size_in_bytes"] > 0, (arch, shape)
-            want = "tp" if rec["mode"] == "train" else "none"
-            assert rec["model_split"] == want, (arch, shape)
+            # every family splits, its prefill and decode steps too
+            assert rec["model_split"] == "tp", (arch, shape)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -185,6 +214,93 @@ def test_held_state_bytes_follow_the_reference_specs(runs, mesh):
         assert ref["pieces"][key] < ref["whole"][key], arch
         # the split's collectives ran
         assert rec["collectives"]["bytes"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_serve_held_bytes_are_the_param_and_cache_pieces(runs, mesh):
+    """Every prefill and decode record of the smoke sweep: the rank's
+    params are exactly the reference's "tp" ``param_specs`` pieces, its
+    cache exactly the reference's ``cache_specs`` pieces, and its
+    arguments those plus its rows of the batch; the split's collectives
+    ran."""
+    import math
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.configs.shapes import SHAPES, input_specs
+
+    results, ref = runs()
+    recs = _records(results[mesh][3])
+    data = 2  # both meshes' "data" axis: the rows split over it alone
+    seen = 0
+    for (arch, shape), rec in recs.items():
+        if rec["mode"] == "train":
+            continue
+        seen += 1
+        assert rec["state_bytes"] == ref["pieces"][f"{arch}@{mesh}"], \
+            (arch, shape, rec["state_bytes"])
+        cache = rec.get("cache_bytes", 0)
+        if rec["mode"] == "decode":
+            assert cache == ref["cache"][f"{arch}@{mesh}@{shape}"], \
+                (arch, shape, cache)
+        batch = input_specs(get_smoke_config(arch), SHAPES[shape])
+        batch = batch.get("batch", batch)
+        rows = sum(t.numel() * t.element_size() // (
+            data if t.shape[0] % data == 0 else 1) for t in batch.values())
+        assert rec["memory"]["argument_size_in_bytes"] == \
+            rec["state_bytes"] + cache + rows, (arch, shape)
+        assert rec["collectives"]["bytes"]["all-reduce"] > 0, (arch, shape)
+        assert rec["collectives"]["bytes"]["all-gather"] > 0, (arch, shape)
+        assert math.isfinite(rec["memory"]["temp_size_in_bytes"])
+    assert seen == 3 * 9 + 1  # hubert has no decode step
+
+
+# the full-size decode_32k records on (16, 16), predicted before the split
+# was traced: (arguments, temp) GB ranges and the parent's arguments
+DECODE_PREDICTED = {"minitron_8b": ((3.3, 3.5), (0.1, 0.6), 54.12),
+                    "deepseek_v3_671b": ((7.2, 7.4), (1.0, 4.0), 1361.0)}
+
+
+@pytest.mark.parametrize("arch", list(DECODE_PREDICTED))
+def test_full_size_decode_holds_its_pieces(arch):
+    """minitron-8b (under "tp") and deepseek-v3-671b (under fsdp_tp, the
+    dry run's choice past 60 G params) decoding at decode_32k on (16,
+    16): the held params are the ``param_specs`` pieces, the cache the
+    ``cache_specs`` pieces (8 rows, 2,048 positions a rank), the
+    arguments a few GB where the unsplit step held 54.12 and 1,361 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, input_specs
+    from repro_torch.core.tree_utils import tree_flatten
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import init_params
+    from repro_torch.sharding.constraints import AbstractMesh
+    from repro_torch.sharding.rules import (cache_specs, held_specs,
+                                            local_shape, needs_fsdp)
+    import math
+
+    cfg = get_config(arch)
+    mode = "fsdp_tp" if needs_fsdp(cfg) else "tp"
+    rec = run_one(arch, "decode_32k", multi_pod=False, out_dir="",
+                  verbose=False)
+    assert rec["model_split"] == "tp" and rec["shard_mode"] == mode
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+
+    def pieces(tree, specs):
+        sps = tree_flatten(specs, is_leaf=lambda x: isinstance(x, P))[0]
+        return sum(math.prod(local_shape(mesh, x.shape, sp)) *
+                   x.element_size()
+                   for x, sp in zip(tree_flatten(tree)[0], sps))
+
+    params = init_params(0, cfg, device="meta")
+    cache = input_specs(cfg, SHAPES["decode_32k"])["cache"]
+    assert rec["state_bytes"] == pieces(params, held_specs(mesh, cfg, params,
+                                                           mode))
+    assert rec["cache_bytes"] == pieces(cache, cache_specs(mesh, cfg, cache))
+    (lo, hi), (tlo, thi), parent = DECODE_PREDICTED[arch]
+    args = rec["memory"]["argument_size_in_bytes"] / 1e9
+    temp = rec["memory"]["temp_size_in_bytes"] / 1e9
+    assert lo <= args <= hi and args < parent / 10, args
+    assert tlo <= temp <= thi, temp
 
 
 def test_full_size_minitron_holds_a_sixteenth_of_the_split_leaves():

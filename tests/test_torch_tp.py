@@ -27,7 +27,17 @@ One spawn of 4 ranks does all the work, in a module-scoped fixture:
   the whole smoke model as TINY is, with its vocabulary of 64 split and
   with one of 63, which no "model" axis here divides (the unembedding
   whole beside a split frame projection; the masked cross-entropy's sums
-  over the kept positions).
+  over the kept positions);
+* the decode layers (GQA, MLA's absorbed step, the Mamba-2 step) on the
+  rank's pieces and its ``cache_specs`` piece of a cache filled with
+  normal values (the attention caches' length, the SSM state's heads
+  split over "model"), against the whole layer on the whole cache, in
+  f64 (the layers' f32 casts made f64): four steps at write positions
+  6-9 of 16, across the blocks' boundary at 8; the output and every
+  cache piece within ``DECODE_REL`` of max-abs, and a planted fault a
+  layer, which must exceed it: the softmax's merge over "model" left
+  out (GQA, MLA), the write at the wrong rank (MLA) and the gated norm's
+  sum over "model" left out (Mamba-2).
 """
 import numpy as np
 import pytest
@@ -48,6 +58,12 @@ SPAWN_TIMEOUT = 300
 # divide; the front end and layer of max-abs in f32 and in f64
 FRAMES_VOCABS = (64, 63)
 FRAMES_REL = {"f32": 1e-5, "f64": 1e-12}
+# the decode layers in f64, of max-abs, and their planted faults
+DECODE_REL = 1e-12
+DECODE_LAYERS = {"gqa": ("minitron_8b", ("merge",)),
+                 "mla": ("deepseek_v3_671b", ("merge", "write")),
+                 "ssm": ("mamba2_780m", ("norm",))}
+DECODE_LEN, DECODE_IDX = 16, (6, 7, 8, 9)
 
 
 def _gradchecks(axis):
@@ -200,6 +216,77 @@ def _frames_layer_vs_whole(mesh, cfg, dtype):
     return worst, split
 
 
+def _decode_layer_vs_whole(mesh, kind, fault=None):
+    """The decode layer ``kind`` of ``DECODE_LAYERS`` on this rank's pieces
+    and cache piece against the whole layer, in f64, under the planted
+    ``fault`` (``test_torch_serve_split.fault``) or none: the worst error
+    of max-abs over the steps' outputs and cache pieces."""
+    from test_torch_serve_split import fault as planted
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.tree_utils import tree_flatten, tree_map
+    from repro_torch.launch.train import model_axis_of
+    from repro_torch.models import init_cache, init_params, layers, model
+    from repro_torch.models import ssm
+    from repro_torch.models.model import shard_cache, shard_params
+
+    arch, _ = DECODE_LAYERS[kind]
+    cfg = get_smoke_config(arch).replace(
+        n_layers=1, first_dense_layers=0, mtp_depth=0,
+        mixer_pattern=(("ssm",) if kind == "ssm" else ("attn",)),
+        mlp_pattern=("none",))
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(6)
+    params = tree_map(lambda x: x.to(f64), init_params(0, cfg, device="cpu"))
+    cache = tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                           dtype=f64),
+                     init_cache(cfg, 2, DECODE_LEN, device="meta"))
+    xs = torch.randn(len(DECODE_IDX), 2, 1, cfg.d_model, generator=gen,
+                     dtype=f64)
+    axis = model_axis_of(mesh, cfg)
+    held = model._layer_held(axis.held["body"][0])["mixer"]
+    pieces = shard_params(params, mesh, cfg)
+    mine = shard_cache(tree_map(lambda x: x.clone(), cache), mesh, cfg)
+
+    n = 2 // mesh.size(0)  # this rank's rows: the cache's over "data"
+    rows = slice(mesh.get_local_rank("data") * n, (mesh.get_local_rank(
+        "data") + 1) * n)
+
+    def one(tree):  # the layer's mixer, its layer dimension dropped
+        return tree_map(lambda x: x[0], tree["body"][0]["mixer"])
+
+    def step(p, c, x, idx, tp):
+        c = tree_map(lambda x: x[0], c["body"][0])
+        pos = torch.full((x.shape[0], 1), idx)
+        if kind == "ssm":
+            return ssm.mamba2_decode_step(p, cfg, x, ssm.SSMState(*c), tp=tp,
+                                          held=tp and held)
+        fn = layers.mla_forward if kind == "mla" else layers.gqa_forward
+        return fn(p, cfg, x, positions=pos, cache=c, cache_index=idx, tp=tp,
+                  held=tp and held)
+
+    f32 = layers.F32
+    layers.F32 = model.F32 = ssm.F32 = f64
+    worst = 0.0
+    try:
+        with torch.no_grad(), planted(fault):
+            for x, idx in zip(xs, DECODE_IDX):
+                want, _ = step(one(params), cache, x, idx, None)
+                got, _ = step(one(pieces), mine, x[rows], idx, axis)
+                errs = [(got, want[rows], want)] + [
+                    (a, b, b) for a, b in zip(tree_flatten(mine)[0],
+                                              tree_flatten(shard_cache(
+                                                  cache, mesh, cfg))[0])
+                    if a.numel()]
+                for a, b, scale in errs:  # NaN reads as inf
+                    worst = max(worst, float(torch.nan_to_num(
+                        (a - b).abs().max() / scale.abs().max(),
+                        nan=float("inf"))))
+    finally:
+        layers.F32 = model.F32 = ssm.F32 = f32
+    return worst
+
+
 def _tp_job(rank):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_debug_mesh
@@ -222,6 +309,10 @@ def _tp_job(rank):
         for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
             out[("frames-layer", shape, name)] = _frames_layer_vs_whole(
                 mesh, hubert, dtype)
+        for kind, (_, faults) in DECODE_LAYERS.items():
+            for fault in (None, *faults):
+                out[("decode", shape, kind, fault)] = _decode_layer_vs_whole(
+                    mesh, kind, fault)
     return out
 
 
@@ -278,6 +369,23 @@ def test_frames_layer_split_matches_whole(results, shape, dtype):
         worst, split = out[("frames-layer", shape, dtype)]
         assert split, rank  # the frame projection column-split
         assert worst <= FRAMES_REL[dtype], (rank, worst)
+
+
+@pytest.mark.parametrize("kind", list(DECODE_LAYERS))
+@pytest.mark.parametrize("shape", MESHES, ids=["2x2", "1x4"])
+def test_decode_layer_split_matches_whole(results, shape, kind):
+    for rank, out in enumerate(results):
+        worst = out[("decode", shape, kind, None)]
+        assert worst <= DECODE_REL, (rank, kind, worst)
+
+
+@pytest.mark.parametrize("kind,fault", [
+    (kind, fault) for kind, (_, faults) in DECODE_LAYERS.items()
+    for fault in faults])
+@pytest.mark.parametrize("shape", MESHES, ids=["2x2", "1x4"])
+def test_decode_layer_planted_fault_fails(results, shape, kind, fault):
+    assert max(out[("decode", shape, kind, fault)]
+               for out in results) > DECODE_REL
 
 
 def test_model_split_names_the_dense_family():

@@ -19,6 +19,18 @@ Each run is held against a one-rank whole run on the same weights and
 batches, as on the card: the step-0 loss relative to the whole run's and
 each g^0 piece's max error of its leaf's max-abs.  The sound splits must
 pass the script's limits and the faults must fail them.
+
+The serve runs of phase 18 (``chip_smoke._serve_wide_whole`` and
+``_serve_wide_split``, bf16, on 2 gloo ranks of a (1, 2) mesh) likewise:
+serve-tp-wide's minitron-8b with 2 layers at d_model 256, 4 heads of 64,
+2 kv heads, d_ff 512, vocab 4,096, a prefill of ``SERVE_SEQ`` and 8
+decode steps of 8 rows on a cache of ``SERVE_SEQ`` from its middle less
+4, across the blocks' boundary; serve-v3-wide's deepseek-v3 cut at
+d_model 256, 4 heads of 32, MLA ranks 96 / 64 / 16, d_ff 64, a dense
+prefix of 256, vocab 4,096, 32 experts, its decode routed as the whole
+run's.  The fault: the softmax's merge over "model" left out
+(``models.layers._merge_sums``).  The logits, the written slots and the
+share of equal next tokens are held at the script's limits.
 """
 import contextlib
 import os
@@ -128,3 +140,59 @@ def test_wide_limits_pass_the_sound_split_and_fail_the_fault(readings, name):
             g0 = max(rep["g0_errs"])
             passes = loss <= loss_rtol and g0 <= g0_rel
             assert passes != fault, (rank, name, fault, loss, g0)
+
+
+SERVE_SEQ = 1024
+SERVE_WIDTHS = {
+    "serve-tp-wide": dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                          d_ff=512, vocab=4096),
+    "serve-v3-wide": dict(d_model=256, n_heads=4, head_dim=32,
+                          q_lora_rank=96, kv_lora_rank=64, qk_rope_dim=16,
+                          d_ff=64, first_dense_ff=256, vocab=4096),
+}
+
+
+def _serve_args(name):
+    return dict(cfg=cs._serve_wide_cfg(name, **SERVE_WIDTHS[name]),
+                seq=SERVE_SEQ, length=SERVE_SEQ, start=SERVE_SEQ // 2 - 4,
+                device="cpu")
+
+
+def _serve_job(rank, paths):
+    """Both serve runs' splits, sound and with the merge left out."""
+    from test_torch_serve_split import fault
+
+    # one thread a rank: the runs are small, and beside the suite's other
+    # workers more threads only contend for the cores
+    torch.set_num_threads(1)
+    out = {}
+    for name, path in paths.items():
+        for bad in (False, True):
+            with fault("merge" if bad else None):
+                out[(name, bad)] = cs._serve_wide_split(name, path,
+                                                        **_serve_args(name))
+    return out
+
+
+@pytest.fixture(scope="module")
+def serve_readings(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("serve_limits")
+    paths = {}
+    for name in SERVE_WIDTHS:
+        paths[name] = str(tmp / f"{name}.pt")
+        cs._serve_wide_whole(name, paths[name], **_serve_args(name))
+    return spawn(_serve_job, 2, (paths,), timeout=SPAWN_TIMEOUT)
+
+
+@pytest.mark.parametrize("name", list(SERVE_WIDTHS))
+def test_serve_wide_limits_pass_the_sound_split_and_fail_the_fault(
+        serve_readings, name):
+    for fault in (False, True):
+        worst, agree = 0.0, 1.0
+        for out in serve_readings:
+            rep = out[(name, fault)]
+            worst = max(worst, *rep["errs"], rep.get("prefill_err", 0.0),
+                        rep["slot_err"])
+            agree = min(agree, rep["agree"])
+        passes = worst <= cs.SERVE_WIDE_REL and agree >= cs.SERVE_WIDE_AGREE
+        assert passes != fault, (name, fault, worst, agree)
